@@ -1,0 +1,289 @@
+# Copied from blance_tpu/core/encode.py (DenseProblem, encode_problem,
+# decode_assignment) on the pure-Python path only: the native marshal
+# extension's branches and the shape-bucketing helpers are left out.
+"""Dense encoding: PartitionMap <-> int32/float32 arrays.
+
+The reference's data model is maps of strings (reference api.go:24-36); the
+planner needs dense tensors.  This module interns node/partition/state
+names to ids and packs the planning problem into numpy arrays, which the
+solver moves onto the device:
+
+- assign[P, S, R] : int32 node ids, -1 = empty slot (R = max slots seen).
+- constraints[S]  : per-state target copy counts, priority-ordered.
+- weights         : float32 partition/node weights.
+- hierarchy       : per-level group ids per node (see
+  core.hierarchy.level_group_ids) so include/exclude rules are integer
+  compares, never N x N masks.
+
+Partitions are ordered by the same zero-padded-numeric-else-raw name key the
+planner sorts by, so dense ids match the greedy planner's deterministic
+iteration order.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import numpy as np
+
+from .hierarchy import find_ancestor, level_group_ids
+from .order import sort_state_names, sorted_by_partition_name
+from .setops import strings_remove
+from .types import (
+    Partition,
+    PartitionMap,
+    PartitionModel,
+    PlanOptions,
+)
+
+__all__ = ["DenseProblem", "NPArray", "encode_problem", "decode_assignment"]
+
+NPArray = np.ndarray[Any, np.dtype[Any]]
+
+
+@dataclass
+class DenseProblem:
+    """A fully interned planning problem, ready for the tensor planner."""
+
+    nodes: list[str]  # id -> name, in nodes_all order (ties break by this)
+    partitions: list[str]  # id -> name, in planner sort order
+    states: list[str]  # priority-ordered (sort_state_names)
+
+    constraints: np.ndarray  # [S] int32
+    prev: np.ndarray  # [P, S, R] int32 node ids, -1 empty
+    partition_weights: np.ndarray  # [P] float32
+    node_weights: np.ndarray  # [N] float32 (raw; may be negative)
+    valid_node: np.ndarray  # [N] bool — False for nodes_to_remove
+    stickiness: np.ndarray  # [P, S] float32
+
+    # Hierarchy: group ids per level per node; level 0 = the node itself.
+    # gids[l, n] == gids[l, m] iff nodes n, m share their level-l ancestor.
+    gids: np.ndarray  # [L, N] int32
+    gid_valid: np.ndarray  # [L, N] bool — ancestor exists at that level
+    # Per state, list of (include_level, exclude_level) rules.
+    rules: dict[int, list[tuple[int, int]]]
+
+    @property
+    def P(self) -> int:
+        return len(self.partitions)
+
+    @property
+    def N(self) -> int:
+        return len(self.nodes)
+
+    @property
+    def S(self) -> int:
+        return len(self.states)
+
+    @property
+    def R(self) -> int:
+        return self.prev.shape[2] if self.prev.size else 0
+
+
+def encode_problem(
+    prev_map: PartitionMap,
+    partitions_to_assign: PartitionMap,
+    nodes_all: list[str],
+    nodes_to_remove: Optional[list[str]],
+    model: PartitionModel,
+    opts: PlanOptions,
+) -> DenseProblem:
+    """Intern and pack a planning problem into dense arrays."""
+    nodes = list(nodes_all)
+    node_index = {n: i for i, n in enumerate(nodes)}
+
+    partitions = sorted_by_partition_name(partitions_to_assign.keys())
+    states = sort_state_names(model)
+    state_index = {s: i for i, s in enumerate(states)}
+
+    constraints = np.zeros(len(states), dtype=np.int32)
+    for s, st in model.items():
+        c = st.constraints
+        if opts.model_state_constraints is not None:
+            c = opts.model_state_constraints.get(s, c)
+        constraints[state_index[s]] = c
+
+    # Slot depth: enough for the widest constraint and the widest prev row.
+    r_max = int(constraints.max()) if len(constraints) else 0
+    for pname in partitions:
+        src = prev_map.get(pname) or partitions_to_assign[pname]
+        for s, ns in src.nodes_by_state.items():
+            if s in state_index:
+                r_max = max(r_max, len(ns))
+    r_max = max(r_max, 1)
+
+    P, S, N = len(partitions), len(states), len(nodes)
+    prev = np.full((P, S, r_max), -1, dtype=np.int32)
+    for pi, pname in enumerate(partitions):
+        src = prev_map.get(pname) or partitions_to_assign.get(pname)
+        if src is None:
+            continue
+        for s, ns in src.nodes_by_state.items():
+            si = state_index.get(s)
+            if si is None:
+                continue
+            for ri, node in enumerate(ns[:r_max]):
+                prev[pi, si, ri] = node_index.get(node, -1)
+
+    pweights = np.ones(P, dtype=np.float32)
+    if opts.partition_weights:
+        for pi, pname in enumerate(partitions):
+            pweights[pi] = opts.partition_weights.get(pname, 1)
+
+    nweights = np.ones(N, dtype=np.float32)
+    if opts.node_weights:
+        for ni, n in enumerate(nodes):
+            nweights[ni] = opts.node_weights.get(n, 1)
+
+    valid = np.ones(N, dtype=bool)
+    if nodes_to_remove:
+        removed = set(nodes_to_remove)
+        for ni, n in enumerate(nodes):
+            if n in removed:
+                valid[ni] = False
+
+    # Stickiness per (partition, state), with the reference's resolution
+    # order (plan.go:104-115): partition weight if present, else state
+    # stickiness (gated on partition_weights presence unless the standalone
+    # compat switch), else 1.5.
+    stickiness = np.full((P, S), 1.5, dtype=np.float32)
+    pw = opts.partition_weights
+    ss = opts.state_stickiness
+    ss_active = ss is not None and (pw is not None or opts.state_stickiness_standalone)
+    if pw or ss_active:
+        for pi, pname in enumerate(partitions):
+            if pw is not None and pname in pw:
+                stickiness[pi, :] = pw[pname]
+            elif ss_active:
+                for si, s in enumerate(states):
+                    if s in ss:
+                        stickiness[pi, si] = ss[s]
+
+    # Hierarchy group ids.  Levels needed = max level referenced by any rule.
+    rules_by_state: dict[int, list[tuple[int, int]]] = {}
+    max_level = 0
+    if opts.hierarchy_rules:
+        for s, rl in opts.hierarchy_rules.items():
+            si = state_index.get(s)
+            if si is None:
+                continue
+            rules_by_state[si] = [
+                (r.include_level, r.exclude_level) for r in rl
+            ]
+            for r in rl:
+                max_level = max(max_level, r.include_level, r.exclude_level)
+
+    gid_rows = level_group_ids(nodes, opts.node_hierarchy, max_level)
+    gids = np.asarray(gid_rows, dtype=np.int32).reshape(max_level + 1, N) \
+        if N else np.zeros((max_level + 1, 0), np.int32)
+    gid_valid = np.ones((max_level + 1, N), dtype=bool)
+    for level in range(max_level + 1):
+        for ni, n in enumerate(nodes):
+            gid_valid[level, ni] = find_ancestor(n, opts.node_hierarchy, level) != ""
+
+    return DenseProblem(
+        nodes=nodes,
+        partitions=partitions,
+        states=states,
+        constraints=constraints,
+        prev=prev,
+        partition_weights=pweights,
+        node_weights=nweights,
+        valid_node=valid,
+        stickiness=stickiness,
+        gids=gids,
+        gid_valid=gid_valid,
+        rules=rules_by_state,
+    )
+
+
+def decode_assignment(
+    problem: DenseProblem,
+    assign: np.ndarray,  # [P, S, R] int32 node ids, -1 empty
+    partitions_to_assign: PartitionMap,
+    nodes_to_remove: Optional[list[str]] = None,
+) -> tuple[PartitionMap, dict[str, list[str]]]:
+    """Dense assignment -> PartitionMap + constraint-shortfall warnings.
+
+    States absent from the model keep their (removed-node-stripped) previous
+    assignment, matching the greedy planner's pass-through of unmodeled
+    states.  Vectorized over P: the id->name gather, empty-slot packing and
+    shortfall detection run as whole-array numpy ops.
+    """
+    assign = np.asarray(assign)
+    warnings: dict[str, list[str]] = {}
+    P = problem.P
+
+    # Per modeled state with constraints > 0: pack non-empty slots left
+    # (stable, preserving slot order), gather names in one shot, and convert
+    # to nested Python lists at C speed.
+    names_arr = np.asarray(problem.nodes, dtype=object) \
+        if problem.nodes else np.zeros(0, dtype=object)
+    per_state_rows: dict[int, list[list[str]]] = {}
+    per_state_counts: dict[int, np.ndarray] = {}
+    for si, sname in enumerate(problem.states):
+        want = int(problem.constraints[si])
+        if want <= 0:
+            continue
+        if P == 0 or not problem.nodes:
+            # Degenerate: nothing assignable; every slot is a shortfall.
+            per_state_rows[si] = [[] for _ in range(P)]
+            per_state_counts[si] = np.zeros(P, dtype=np.int64)
+            continue
+        ids = assign[:, si, :]
+        mask = ids >= 0
+        row_counts = mask.sum(axis=1)
+        order = np.argsort(~mask, axis=1, kind="stable")
+        row_ids = np.take_along_axis(ids, order, axis=1)
+        names = names_arr[np.maximum(row_ids, 0)]
+        nested = names.tolist()
+        if row_counts.min() == row_ids.shape[1]:  # all slots filled
+            per_state_rows[si] = nested
+        else:
+            per_state_rows[si] = [
+                row[:c] for row, c in zip(nested, row_counts.tolist())]
+        per_state_counts[si] = row_counts
+
+    # Partitions needing the slow path: source has unmodeled or
+    # zero-constraint states to pass through (rare in practice).
+    constraints = problem.constraints
+    modeled = [
+        (si, s) for si, s in enumerate(problem.states)
+        if int(constraints[si]) > 0
+    ]
+    solved_states = {s for _, s in modeled}
+    mod_names = [s for _, s in modeled]
+    rows_per_state = [per_state_rows[si] for si, _ in modeled]
+    removed = nodes_to_remove or []
+    next_map: PartitionMap = {}
+    rows_iter = zip(*rows_per_state) if rows_per_state \
+        else (() for _ in range(P))
+    get_src = partitions_to_assign.get
+    for pname, vals in zip(problem.partitions, rows_iter):
+        src = get_src(pname)
+        # keys() <= set is a C-level check; the passthrough branch
+        # (source carries unmodeled / zero-constraint states) is rare
+        # in practice.
+        if src is None or src.nodes_by_state.keys() <= solved_states:
+            nbs = dict(zip(mod_names, vals))
+        else:
+            nbs = {}
+            for s, ns in src.nodes_by_state.items():
+                if s not in solved_states:
+                    nbs[s] = strings_remove(ns, removed)
+            for s, v in zip(mod_names, vals):
+                nbs[s] = v
+        next_map[pname] = Partition(pname, nbs)
+
+    for si, sname in modeled:
+        want = int(constraints[si])
+        short = np.nonzero(per_state_counts[si] < want)[0]
+        for pi in short:
+            pname = problem.partitions[pi]
+            warnings.setdefault(pname, []).append(
+                "could not meet constraints: %d, stateName: %s,"
+                " partitionName: %s" % (want, sname, pname)
+            )
+
+    return next_map, warnings

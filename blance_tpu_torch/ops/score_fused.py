@@ -1,0 +1,365 @@
+"""Auction score computed in-kernel, fused with the priced min2.
+
+Port of blance_tpu/ops/score_fused.py.  The score is a function of tiny
+inputs: [N] vectors (fill factor, weights, validity, price, candidate
+group ids) and [P, few] id columns (previous holders, exclusivity list,
+rule anchors).  ``fused_score_min2`` evaluates it per (row, column)
+inside the CUDA kernel ``csrc/score_fused.cu`` and reduces it on the
+fly, so the [P, N] matrix never exists on the card.
+
+Outputs per row: (best = min of score + price, choice = LOCAL argmin,
+second = second-best by position, raw = best - price at the argmin).
+
+Two rounding rules keep the port bitwise equal to the jitted reference
+on the CPU (XLA):
+
+- the fill term ``0.001 * total / P`` with P a trace-time constant is
+  folded by XLA into ``total * fl32(fl32(0.001) * fl32(1 / P))``; the
+  port multiplies by that constant (:func:`fill_scale`);
+- XLA contracts the jitter add ``score + 1e-5 * jitter_hash`` into one
+  fused multiply-add; the port rounds it once too (:func:`jitter_add`),
+  and the kernel spells it ``fmaf``.
+
+On a CPU tensor ``fused_score_min2`` runs the plain PyTorch version
+(:func:`fused_score_min2_reference`); on a CUDA tensor it launches the
+kernel or raises.  ``fused_score_min2.launches`` counts launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+__all__ = ["fused_score_min2", "fused_score_min2_reference", "ScoreInputs",
+           "pack_score_inputs", "score_at_columns", "jitter_hash",
+           "jitter_add", "fill_scale"]
+
+_INF = 1.0e9
+_RULE_MISS = 1.0e6
+_RULE_TIER = 1.0e4
+_J_MUL_P = 2654435761 - (1 << 32)  # int32 two's-complement bits of the
+_J_MUL_N = 40503                   # unsigned Weyl multiplier 2654435761
+# Rows per chunk of the plain score build: bounds its float64 jitter
+# temporaries to a few hundred MB at any P.
+_ROW_CELLS = 1 << 24
+
+
+def jitter_hash(pi: torch.Tensor, ni: torch.Tensor) -> torch.Tensor:
+    """THE deterministic tie-break hash, in [0, 1): Weyl-style over GLOBAL
+    (partition, node) indices, int32 inputs.  int32 products wrap in
+    two's complement, so the masked low 16 bits equal the unsigned
+    sequence bit-for-bit (pinned against the reference by tests)."""
+    h = (pi.to(torch.int32) * _J_MUL_P + ni.to(torch.int32) * _J_MUL_N) \
+        & 0xFFFF
+    return h.to(torch.float32) / 65536.0
+
+
+def jitter_add(score: torch.Tensor, pi: torch.Tensor, ni: torch.Tensor,
+               jitter_scale: float) -> torch.Tensor:
+    """``score + jitter_scale * jitter_hash(pi, ni)`` rounded ONCE, as
+    the fused multiply-add XLA emits for it on the reference.
+
+    The product is exact in float64 (24 + 16 significant bits); the sum
+    is taken in float64 with round-to-odd (TwoSum error term, then the
+    last bit forced toward the exact value), which makes the final
+    rounding to float32 the correctly rounded fused result."""
+    prod = jitter_hash(pi, ni).double() * float(np.float32(jitter_scale))
+    c = score.double()
+    s = prod + c
+    bv = s - prod
+    err = (prod - (s - bv)) + (c - bv)
+    bits = s.view(torch.int64)
+    fix = (err != 0) & ((bits & 1) == 0) & torch.isfinite(s)
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    return torch.where(fix, bits + step, bits).view(torch.float64) \
+        .to(torch.float32)
+
+
+def fill_scale(total_p) -> float:
+    """The fill term's multiplier for ``0.001 * total / max(P, 1)`` as
+    XLA folds it with P a trace-time constant: fl32(0.001) times the
+    float32 reciprocal, rounded to float32."""
+    p = np.float32(max(float(total_p), 1.0))
+    return float(np.float32(np.float32(0.001) * (np.float32(1.0) / p)))
+
+
+class ScoreInputs(NamedTuple):
+    """Packed per-slot score inputs.
+
+    [N]-shaped:
+      base       f32 — fill factor / node weight (the balance term)
+      neg_boost  f32 — -min(node_weight, 0)
+      validf     f32 — 1.0 valid / 0.0 removed
+      cand_g     [2*nrules (or 1), N] i32 — per rule: candidates'
+                 include-level gids, then exclude-level gids
+    [P]-shaped:
+      stick      f32 — stickiness[:, si]
+      prev_slot  i32 — prev[:, si, ri] (-1 none): same-ordinal bonus
+      prev_state [P, R] i32 — prev[:, si, :]: sticky-holder bonus
+      taken      [P, T] i32 — exclusivity id columns (-1 padded)
+      present    [P, A] f32 — 1.0 where the rule anchor exists
+      a_inc_g / a_exc_g [P, A*nrules (or 1)] i32 — anchors' gids per
+                 rule level, -3 where the anchor's gid is invalid
+      any_anchor f32 — 1.0 where any anchor present (penalty gate)"""
+
+    base: torch.Tensor
+    neg_boost: torch.Tensor
+    validf: torch.Tensor
+    cand_g: torch.Tensor
+    stick: torch.Tensor
+    prev_slot: torch.Tensor
+    prev_state: torch.Tensor
+    taken: torch.Tensor
+    present: torch.Tensor
+    a_inc_g: torch.Tensor
+    a_exc_g: torch.Tensor
+    any_anchor: torch.Tensor
+
+
+def pack_score_inputs(
+    *,
+    total_l, total_p, w_div_l, neg_boost_l, valid_l,
+    stickiness_si, prev_slot, prev_state, taken_ids,
+    anchors, gids_l, gid_valid, gids, rules,
+) -> ScoreInputs:
+    """Build ScoreInputs from the auction's terms (plain PyTorch).
+
+    ``total_p`` is the partition count as a Python number (the
+    reference's trace-time constant; see :func:`fill_scale`)."""
+    base = (total_l * fill_scale(total_p)) / w_div_l
+    validf = valid_l.to(torch.float32)
+    p = prev_slot.shape[0]
+    dev = base.device
+    nrules = len(rules)
+    if nrules:
+        cand_g = torch.cat(
+            [torch.stack([gids_l[inc] for (inc, _exc) in rules]),
+             torch.stack([gids_l[exc] for (_inc, exc) in rules])], dim=0)
+        a_width = anchors.shape[1]
+        aa = anchors.clamp(min=0).long()
+        inc_cols = []
+        exc_cols = []
+        for ai in range(a_width):
+            for (inc, exc) in rules:
+                inc_cols.append(torch.where(
+                    gid_valid[inc][aa[:, ai]], gids[inc][aa[:, ai]], -3))
+                exc_cols.append(torch.where(
+                    gid_valid[exc][aa[:, ai]], gids[exc][aa[:, ai]], -3))
+        a_inc_g = torch.stack(inc_cols, dim=1).to(torch.int32)
+        a_exc_g = torch.stack(exc_cols, dim=1).to(torch.int32)
+        present = (anchors >= 0).to(torch.float32)
+        any_anchor = (anchors >= 0).any(dim=1).to(torch.float32)
+    else:
+        cand_g = torch.zeros((1, base.shape[0]), dtype=torch.int32,
+                             device=dev)
+        a_inc_g = torch.full((p, 1), -3, dtype=torch.int32, device=dev)
+        a_exc_g = torch.full((p, 1), -3, dtype=torch.int32, device=dev)
+        present = torch.zeros((p, 1), dtype=torch.float32, device=dev)
+        any_anchor = torch.zeros(p, dtype=torch.float32, device=dev)
+    if taken_ids:
+        taken = torch.stack(list(taken_ids), dim=1)
+    else:
+        taken = torch.full((p, 1), -1, dtype=torch.int32, device=dev)
+    return ScoreInputs(
+        base=base, neg_boost=neg_boost_l, validf=validf,
+        cand_g=cand_g.to(torch.int32), stick=stickiness_si,
+        prev_slot=prev_slot, prev_state=prev_state, taken=taken,
+        present=present, a_inc_g=a_inc_g, a_exc_g=a_exc_g,
+        any_anchor=any_anchor)
+
+
+def _score_rows(si: ScoreInputs, lo: int, hi: int, pbase: int, noff: int,
+                nrules: int, jitter_scale: float) -> torch.Tensor:
+    """The kernel's score for rows [lo, hi), in the kernel's term order."""
+    n = si.base.shape[0]
+    dev = si.base.device
+    cols = torch.arange(n, dtype=torch.int32, device=dev)[None, :] + noff
+    base = si.base[None, :]
+    nb = si.neg_boost[None, :]
+    stick = si.stick[lo:hi, None]
+    score = base + torch.where(nb > 0, torch.maximum(nb, stick), 0.0)
+    score = score - 0.01 * (si.prev_slot[lo:hi, None] == cols) \
+        .to(torch.float32)
+    pstate = si.prev_state[lo:hi]
+    sticky = pstate[:, 0:1] == cols
+    for r in range(1, pstate.shape[1]):
+        sticky = sticky | (pstate[:, r:r + 1] == cols)
+    score = score - stick * sticky.to(torch.float32)
+    if nrules:
+        cand = si.cand_g
+        ainc = si.a_inc_g[lo:hi]
+        aexc = si.a_exc_g[lo:hi]
+        present = si.present[lo:hi]
+        pen = torch.full(score.shape, _RULE_MISS, dtype=torch.float32,
+                         device=dev)
+        for idx in range(nrules):
+            sat = torch.ones(score.shape, dtype=torch.bool, device=dev)
+            for ai in range(present.shape[1]):
+                col = ai * nrules + idx
+                inc_same = ainc[:, col:col + 1] == cand[idx:idx + 1, :]
+                exc_same = aexc[:, col:col + 1] == \
+                    cand[nrules + idx:nrules + idx + 1, :]
+                sat = sat & ((present[:, ai:ai + 1] <= 0.0)
+                             | (inc_same & ~exc_same))
+            pen = torch.where(sat, torch.clamp(pen, max=idx * _RULE_TIER),
+                              pen)
+        score = score + torch.where(si.any_anchor[lo:hi, None] > 0, pen, 0.0)
+    taken = si.taken[lo:hi]
+    tk = taken[:, 0:1] == cols
+    for t in range(1, taken.shape[1]):
+        tk = tk | (taken[:, t:t + 1] == cols)
+    score = score + _INF * (tk | (si.validf[None, :] == 0.0)) \
+        .to(torch.float32)
+    pi = (pbase + torch.arange(lo, hi, dtype=torch.int32,
+                               device=dev))[:, None]
+    return jitter_add(score, pi, cols, jitter_scale)
+
+
+def fused_score_min2_reference(price: torch.Tensor, si: ScoreInputs,
+                               pbase: int, noff: int, *, nrules: int,
+                               jitter_scale: float):
+    """Plain PyTorch version of the fused kernel: the score in the
+    kernel's term order, then (best, choice, second, raw).  Built in row
+    chunks, so peak memory stays bounded at any P."""
+    from .reduce2 import min2_argmin_reference
+
+    p = si.stick.shape[0]
+    n = price.shape[0]
+    step = max(1, _ROW_CELLS // max(n, 1))
+    outs = []
+    for lo in range(0, p, step):
+        hi = min(p, lo + step)
+        score = _score_rows(si, lo, hi, pbase, noff, nrules, jitter_scale)
+        b, c, s2 = min2_argmin_reference(score + price[None, :])
+        outs.append((b, c, s2, b - price[c.long()]))
+    if not outs:
+        e = torch.empty(0, dtype=torch.float32, device=price.device)
+        return e, e.to(torch.int32), e, e
+    return tuple(torch.cat(t) for t in zip(*outs))
+
+
+_C_FN = None
+
+
+def _kernel():
+    global _C_FN
+    if _C_FN is None:
+        from ._build import load
+
+        fn = load("score_fused").blance_fused_score_min2
+        fn.argtypes = [ctypes.c_void_p] * 17 + [
+            ctypes.c_float, ctypes.c_longlong, ctypes.c_longlong] + \
+            [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _C_FN = fn
+    return _C_FN
+
+
+_F32 = ("base", "neg_boost", "validf", "stick", "present", "any_anchor")
+
+
+def _launch(price, si: ScoreInputs, pbase: int, noff: int, nrules: int,
+            jitter_scale: float):
+    p = si.stick.shape[0]
+    n = price.shape[0]
+    dev = price.device
+    fields = si._asdict()
+    for name, t in [("price", price)] + list(fields.items()):
+        want = torch.float32 if name in _F32 or name == "price" \
+            else torch.int32
+        if t.dtype != want or t.device != dev:
+            raise TypeError(f"fused_score_min2: {name} must be {want} on "
+                            f"{dev}, got {t.dtype} on {t.device}")
+    si = ScoreInputs(*(t.contiguous() for t in si))
+    price = price.contiguous()
+    a_width = si.present.shape[1]
+    g_width = si.a_inc_g.shape[1]
+    if nrules and (si.cand_g.shape != (2 * nrules, n)
+                   or g_width != a_width * nrules):
+        raise ValueError("fused_score_min2: rule columns do not match "
+                         f"nrules={nrules}")
+    best = torch.empty(p, dtype=torch.float32, device=dev)
+    choice = torch.empty(p, dtype=torch.int32, device=dev)
+    second = torch.empty(p, dtype=torch.float32, device=dev)
+    raw = torch.empty(p, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _kernel()(
+        price.data_ptr(), si.base.data_ptr(), si.neg_boost.data_ptr(),
+        si.validf.data_ptr(), si.cand_g.data_ptr(), si.stick.data_ptr(),
+        si.prev_slot.data_ptr(), si.prev_state.data_ptr(),
+        si.taken.data_ptr(), si.present.data_ptr(), si.a_inc_g.data_ptr(),
+        si.a_exc_g.data_ptr(), si.any_anchor.data_ptr(), best.data_ptr(),
+        choice.data_ptr(), second.data_ptr(), raw.data_ptr(),
+        float(jitter_scale), p, n, int(nrules), si.prev_state.shape[1],
+        si.taken.shape[1], a_width, g_width, int(pbase), int(noff), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"score_fused kernel launch failed: CUDA error {err}")
+    fused_score_min2.launches += 1
+    return best, choice, second, raw
+
+
+def fused_score_min2(price: torch.Tensor, si: ScoreInputs, pbase: int,
+                     noff: int, *, nrules: int, jitter_scale: float):
+    """(best, choice_LOCAL, second, raw) per row; score built in-kernel.
+
+    The caller adds ``noff`` to the returned choice for global ids."""
+    if price.shape[0] == 0:
+        raise ValueError("fused_score_min2 requires N >= 1")
+    if price.device.type == "cpu":
+        return fused_score_min2_reference(
+            price, si, pbase, noff, nrules=nrules,
+            jitter_scale=jitter_scale)
+    if price.device.type != "cuda":
+        raise RuntimeError(
+            f"fused_score_min2: no kernel for device {price.device}")
+    return _launch(price, si, pbase, noff, nrules, jitter_scale)
+
+
+fused_score_min2.launches = 0
+
+
+def score_at_columns(
+    rows: torch.Tensor,  # [K] local row ids
+    cols_global: torch.Tensor,  # [K] GLOBAL column ids (>= 0)
+    *,
+    base_full: torch.Tensor,  # [N]
+    neg_boost_full: torch.Tensor,
+    valid_full: torch.Tensor,
+    gids: torch.Tensor,
+    gid_valid: torch.Tensor,
+    anchors: Optional[torch.Tensor],
+    rules: tuple,
+    prev_slot: torch.Tensor,  # [P] global ids
+    prev_state: torch.Tensor,  # [P, R]
+    taken_ids: tuple,
+    stick: torch.Tensor,  # [P]
+    jitter_scale: float,
+    pbase: int,
+) -> torch.Tensor:
+    """The same score formula evaluated at single (row, col) pairs with
+    [K] ops — phase B's waterfall probe when no matrix exists."""
+    from ..plan.tensor import _hier_tier_at  # shared rule semantics
+
+    r = rows.long()
+    c = cols_global.long()
+    s = base_full[c]
+    nb = neg_boost_full[c]
+    stick_r = stick[r]
+    s = s + torch.where(nb > 0, torch.maximum(nb, stick_r), 0.0)
+    s = s - 0.01 * (prev_slot[r] == c).to(torch.float32)
+    sticky = torch.zeros(rows.shape[0], dtype=torch.bool, device=s.device)
+    for k in range(prev_state.shape[1]):
+        sticky = sticky | (prev_state[r, k] == c)
+    s = s - stick_r * sticky.to(torch.float32)
+    if rules:
+        s = s + _hier_tier_at(anchors[r], c, gids, gid_valid, rules)
+    tk = torch.zeros(rows.shape[0], dtype=torch.bool, device=s.device)
+    for tid in taken_ids:
+        tk = tk | (tid[r] == c)
+    s = s + _INF * (tk | ~valid_full[c]).to(torch.float32)
+    pi = (pbase + rows).to(torch.int32)
+    return jitter_add(s, pi, cols_global.to(torch.int32), jitter_scale)

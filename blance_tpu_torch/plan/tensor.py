@@ -1,0 +1,1016 @@
+"""Batched cost-tensor planner on PyTorch — port of blance_tpu/plan/tensor.py.
+
+The dense cold-solve path, one function per reference function and under
+the same name: the score of every partition against every node, and
+each state/replica slot assigned in vectorized auction rounds (price ->
+min2 -> two stable argsorts -> per-node prefix acceptance -> phase-B
+waterfall -> capacity top-up), then a force step, the whole sweep
+iterated to a fixpoint.  See the reference module's docstring for the
+score formula and the auction's rules.
+
+Two score engines sit behind ``_assign_slot``'s callables:
+
+- "off" (the matrix engine): the [P, N] score matrix is built in plain
+  PyTorch once per slot and reduced each round by the priced min2 kernel
+  (ops/reduce2.py, csrc/min2.cu);
+- "on" (the fused engine): the score is evaluated inside the kernel
+  (ops/score_fused.py, csrc/score_fused.cu) and the matrix never exists.
+
+On CPU tensors both kernels run their plain PyTorch versions; on CUDA
+tensors they launch the CUDA kernels.
+
+What JAX compiles into one program runs here eagerly: ``lax.while_loop``
+and ``lax.cond`` became Python loops and ``if``s over device tensors, so
+every loop exit test and branch reads one scalar back to the host (one
+sync per auction round, per slot branch and per sweep).  Making that
+device-resident (CUDA graphs) is later work.
+
+Bit-equality with the reference on the CPU rests on three rules kept
+throughout: integer weights (float32 sums of whole numbers below 2**24
+are exact in any order, so atomic ``index_add_`` order on CUDA cannot
+change them); stable argsorts where JAX's are stable (all of them); and
+the fill/jitter rounding of ops/score_fused.py (``fill_scale``,
+``jitter_add``).  Not ported here: node-axis and partition-axis
+sharding, the sparse engine, warm carries, shape bucketing and the
+fused pipeline.
+"""
+
+from __future__ import annotations
+
+import time
+import warnings as _warnings
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..core.encode import NPArray, decode_assignment, encode_problem
+from ..core.types import PartitionMap, PartitionModel, PlanOptions
+from ..ops.reduce2 import priced_min2_argmin
+from ..convert import problem_to_torch
+from ..ops.score_fused import (
+    _ROW_CELLS,
+    fill_scale,
+    fused_score_min2,
+    jitter_add,
+    pack_score_inputs,
+    score_at_columns,
+)
+from .audit import maybe_validate
+
+__all__ = ["plan_next_map_cuda", "solve_dense", "solve_dense_converged",
+           "solve_converged_resilient", "resolve_fused_score",
+           "set_fused_score_default", "check_dense_memory",
+           "DenseScoreMemoryError", "projected_score_bytes"]
+
+Constraints = tuple[int, ...]
+StateRules = tuple[tuple[int, int], ...]
+Rules = tuple[StateRules, ...]
+
+_INF = 1.0e9  # hard-forbidden
+_RULE_MISS = 1.0e6  # satisfies no hierarchy rule (uniform => flat fallback)
+_RULE_TIER = 1.0e4  # penalty step per rule index (earlier rules win)
+_TIER_BAND_HEADROOM = 0.45  # max allowed within-tier mass, in tiers
+_tier_scale_memo: dict[tuple[object, ...], object] = {}
+_MAX_AUCTION_ROUNDS = 16
+_JITTER = 1.0e-5
+
+# Score-engine default for plan_next_map_cuda: "off" = matrix engine,
+# "on" = in-kernel score, "auto" = resolved per problem size by
+# resolve_fused_score.
+_FUSED_SCORE_DEFAULT = "auto"
+
+# Working-set model of the matrix engine, kept from the reference:
+# ~20 bytes per [P, N] cell, against 60% of the card's memory.
+_MATRIX_BYTES_PER_CELL = 20
+_HBM_BUDGET_FRACTION = 0.6
+
+
+def set_fused_score_default(mode: str) -> None:
+    """Select the score engine for subsequent plan_next_map_cuda calls."""
+    global _FUSED_SCORE_DEFAULT
+    if mode not in ("off", "on", "auto"):
+        raise ValueError(f"unknown fused-score mode: {mode!r}")
+    _FUSED_SCORE_DEFAULT = mode
+
+
+def _device_hbm_bytes(device: torch.device) -> int:
+    """The card's memory; 16 GiB for the CPU, the reference's figure
+    when the runtime reports no limit (the CPU tests)."""
+    if device.type == "cuda":
+        return int(torch.cuda.get_device_properties(device).total_memory)
+    return 16 * 2 ** 30
+
+
+def resolve_fused_score(mode: str, p: int, n: int,
+                        device: torch.device) -> str:
+    """Resolve "auto" to a concrete engine for a [P, N]-sized problem:
+    "on" when the matrix engine's working set would exceed 60% of the
+    card's memory, "off" otherwise.  On the CPU there is no kernel, so
+    auto is always "off" (the reference's choice without Pallas)."""
+    if mode != "auto":
+        return mode
+    if device.type != "cuda":
+        return "off"
+    if p * n * _MATRIX_BYTES_PER_CELL > \
+            _HBM_BUDGET_FRACTION * _device_hbm_bytes(device):
+        return "on"
+    return "off"
+
+
+# --- dense-memory guard ------------------------------------------------------
+
+
+def projected_score_bytes(p: int, n: int) -> int:
+    return int(p) * int(n) * _MATRIX_BYTES_PER_CELL
+
+
+class DenseScoreMemoryError(ValueError):
+    """The matrix engine's projected [P, N] footprint exceeds the
+    memory budget (``projected_bytes`` / ``budget_bytes`` / ``shape``)."""
+
+    def __init__(self, projected_bytes: int, budget_bytes: int,
+                 shape: tuple[int, ...]):
+        self.projected_bytes = int(projected_bytes)
+        self.budget_bytes = int(budget_bytes)
+        self.shape = tuple(shape)
+        p, s, n = shape
+        super().__init__(
+            f"dense score sweep would materialize ~"
+            f"{projected_bytes / 2**30:.1f} GiB of [P, N] intermediates "
+            f"(P={p}, S={s}, N={n}, ~{_MATRIX_BYTES_PER_CELL} B/cell) — "
+            f"over the {budget_bytes / 2**30:.1f} GiB budget; use the "
+            f"in-kernel fused engine (set_fused_score_default('on'))")
+
+
+def check_dense_memory(p: int, s: int, n: int, engine: str,
+                       device: torch.device) -> None:
+    """Raise DenseScoreMemoryError when the MATRIX engine is about to
+    materialize a [P, N] score sweep past 60% of the device's memory."""
+    if engine != "off":
+        return
+    projected = projected_score_bytes(p, n)
+    budget = int(_HBM_BUDGET_FRACTION * _device_hbm_bytes(device))
+    if projected > budget:
+        raise DenseScoreMemoryError(projected, budget, (p, s, n))
+
+
+# --- helpers -----------------------------------------------------------------
+
+
+def _drop_empty(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """Map empty (-1) ids to n, the drop bucket of an [n + 1] scatter.
+    A raw -1 must never wrap onto the last node."""
+    return torch.where(ids >= 0, ids, n)
+
+
+def _scatter_add(n: int, ids: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``zeros(n).at[ids].add(w, mode="drop")`` with -1 (and n) dropped:
+    ``index_add_`` into an [n + 1] buffer, then sliced.  On CUDA the adds
+    are atomic and unordered; the weights are whole numbers, so float32
+    sums below 2**24 come out exact in any order."""
+    out = torch.zeros(n + 1, dtype=torch.float32, device=w.device)
+    out.index_add_(0, _drop_empty(ids, n).long().reshape(-1),
+                   w.to(torch.float32).reshape(-1))
+    return out[:n]
+
+
+def _scatter_counts(ids: torch.Tensor, weights: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """Weighted histogram of node ids [P, R] -> [N]; -1 entries dropped."""
+    w = weights[:, None].expand(ids.shape)
+    return _scatter_add(n, ids, w)
+
+
+def _anchor_rule_sat(
+    anchor: torch.Tensor,  # [P] global node ids, -1 = absent
+    cand_inc: torch.Tensor,  # candidates' include-level gids, [P] or [1, N]
+    cand_exc: torch.Tensor,
+    gids: torch.Tensor,
+    gid_valid: torch.Tensor,
+    inc: int,
+    exc: int,
+) -> torch.Tensor:
+    """Rule gate for ONE anchor column: the candidate shares the anchor's
+    include-level ancestor and NOT its exclude-level ancestor; absent
+    anchors satisfy everything; validity gates on the anchor side."""
+    aa = anchor.clamp(min=0).long()
+    sh = (anchor.shape[0],) + (1,) * (cand_inc.dim() - 1)
+    inc_same = (gids[inc][aa].reshape(sh) == cand_inc) & \
+        gid_valid[inc][aa].reshape(sh)
+    exc_same = (gids[exc][aa].reshape(sh) == cand_exc) & \
+        gid_valid[exc][aa].reshape(sh)
+    return torch.where((anchor >= 0).reshape(sh), inc_same & ~exc_same, True)
+
+
+def _hier_penalty(
+    anchors: torch.Tensor,  # [P, A] GLOBAL node ids, -1 = absent anchor
+    gids: torch.Tensor,  # [L, N]
+    gid_valid: torch.Tensor,  # [L, N]
+    rules: StateRules,
+    gids_cand: Optional[torch.Tensor] = None,  # [L, N_l]
+) -> torch.Tensor:
+    """Tiered rule penalty [P, N] anchored on every prior pick at once:
+    the first rule every present anchor satisfies sets the tier (index
+    * 1e4); satisfying none costs _RULE_MISS; no anchor costs 0."""
+    if gids_cand is None:
+        gids_cand = gids
+    p, a_width = anchors.shape
+    n_l = gids_cand.shape[1]
+    dev = anchors.device
+    any_anchor = (anchors >= 0).any(dim=1)
+    pen = torch.full((p, n_l), _RULE_MISS, dtype=torch.float32, device=dev)
+    for idx, (inc, exc) in enumerate(rules):
+        sat = torch.ones((p, n_l), dtype=torch.bool, device=dev)
+        for ai in range(a_width):
+            sat &= _anchor_rule_sat(
+                anchors[:, ai], gids_cand[inc][None, :],
+                gids_cand[exc][None, :], gids, gid_valid, inc, exc)
+        pen = torch.where(sat, pen.clamp(max=idx * _RULE_TIER), pen)
+    return torch.where(any_anchor[:, None], pen, 0.0)
+
+
+def _hier_tier_at(
+    anchors: torch.Tensor,  # [P, A] global node ids, -1 absent
+    node: torch.Tensor,  # [P] or [P, K] global node ids
+    gids: torch.Tensor,
+    gid_valid: torch.Tensor,
+    rules: StateRules,
+) -> torch.Tensor:
+    """_hier_penalty evaluated at gathered columns — O(rows * cols)."""
+    any_anchor = (anchors >= 0).any(dim=1)
+    sh = (node.shape[0],) + (1,) * (node.dim() - 1)
+    nd = node.clamp(0, gids.shape[1] - 1).long()
+    pen = torch.full(node.shape, _RULE_MISS, dtype=torch.float32,
+                     device=node.device)
+    for idx, (inc, exc) in enumerate(rules):
+        sat = torch.ones(node.shape, dtype=torch.bool, device=node.device)
+        for ai in range(anchors.shape[1]):
+            sat &= _anchor_rule_sat(
+                anchors[:, ai], gids[inc][nd], gids[exc][nd],
+                gids, gid_valid, inc, exc)
+        pen = torch.where(sat, pen.clamp(max=idx * _RULE_TIER), pen)
+    return torch.where(any_anchor.reshape(sh), pen, 0.0)
+
+
+def _hier_floor_counts(
+    anchors: torch.Tensor,  # [P, A] global node ids, -1 absent
+    gids: torch.Tensor,
+    gid_valid: torch.Tensor,
+    valid: torch.Tensor,  # [N]
+    rules: StateRules,
+    taken_stack: Optional[torch.Tensor] = None,  # [P, T] GLOBAL node ids
+) -> torch.Tensor:
+    """Best attainable rule tier over valid nodes, by GROUP COUNTING
+    (exclude groups nest inside include groups for rules with
+    exclude < include): [N] histograms plus [P] gathers instead of a
+    [P, N] row-min.  Returns the floor penalty [P], 0.0 with no anchor."""
+    p, a_width = anchors.shape
+    n = gids.shape[1]
+    dev = anchors.device
+    any_anchor = (anchors >= 0).any(dim=1)
+    floor = torch.full((p,), _RULE_MISS, dtype=torch.float32, device=dev)
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    for idx, (inc, exc) in enumerate(rules):
+        gi = torch.where(valid, gids[inc], -1)
+        ge = torch.where(valid, gids[exc], -1)
+        cnt_inc = _scatter_add(n, gi, ones)
+        cnt_exc = _scatter_add(n, ge, ones)
+
+        # Shared include group across present anchors (else unsatisfiable).
+        g = torch.full((p,), -1, dtype=torch.int32, device=dev)
+        ok = torch.ones(p, dtype=torch.bool, device=dev)
+        for ai in range(a_width):
+            a = anchors[:, ai]
+            aa = a.clamp(min=0).long()
+            a_g = torch.where(gid_valid[inc][aa], gids[inc][aa], -2)
+            present = a >= 0
+            ok &= torch.where(present & (g >= 0), a_g == g, True)
+            ok &= torch.where(present & (g < 0), a_g >= 0, True)
+            g = torch.where(present & (g < 0), a_g, g)
+
+        # Exclusion mass: distinct exclude groups among present anchors.
+        excl = torch.zeros(p, dtype=torch.float32, device=dev)
+        e_seen: list[torch.Tensor] = []
+        for ai in range(a_width):
+            a = anchors[:, ai]
+            aa = a.clamp(min=0).long()
+            e = torch.where((a >= 0) & gid_valid[exc][aa], gids[exc][aa], -1)
+            dup = torch.zeros(p, dtype=torch.bool, device=dev)
+            for prev_e in e_seen:
+                dup |= (e == prev_e) & (e >= 0)
+            excl += torch.where((e >= 0) & ~dup,
+                                cnt_exc[e.clamp(0, n - 1).long()], 0.0)
+            e_seen.append(e)
+
+        count = torch.where(ok & (g >= 0),
+                            cnt_inc[g.clamp(0, n - 1).long()] - excl, 0.0)
+
+        # Taken-aware: the row's own occupied nodes in the include group
+        # but outside every counted exclude group are not attainable.
+        if taken_stack is not None:
+            t_seen: list[torch.Tensor] = []
+            for ti in range(taken_stack.shape[1]):
+                u = taken_stack[:, ti]
+                uu = u.clamp(0, n - 1).long()
+                ok_u = (u >= 0) & valid[uu]
+                in_g = ok_u & (gids[inc][uu] == g) & (g >= 0)
+                in_excl = torch.zeros(p, dtype=torch.bool, device=dev)
+                for e in e_seen:
+                    in_excl |= (e >= 0) & (gids[exc][uu] == e)
+                dup = torch.zeros(p, dtype=torch.bool, device=dev)
+                for prev_u in t_seen:
+                    dup |= (u == prev_u) & (u >= 0)
+                count = count - torch.where(in_g & ~in_excl & ~dup, 1.0, 0.0)
+                t_seen.append(u)
+
+        floor = torch.where(count > 0, floor.clamp(max=idx * _RULE_TIER),
+                            floor)
+    return torch.where(any_anchor, floor, 0.0)
+
+
+def _member_ids(ids: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """[P, K] GLOBAL node ids x [N] column ids -> [P, N] membership, as K
+    broadcast compares ORed together; -1 ids never match."""
+    out = None
+    for k in range(ids.shape[1]):
+        m = ids[:, k][:, None] == cols[None, :]
+        out = m if out is None else (out | m)
+    if out is None:  # K == 0
+        return torch.zeros((ids.shape[0], cols.shape[0]), dtype=torch.bool,
+                           device=ids.device)
+    return out
+
+
+def _in_id_list(node: torch.Tensor,
+                id_list: list[torch.Tensor]) -> torch.Tensor:
+    """[P] node id -> [P] bool: held by any of the [P] id columns."""
+    out = torch.zeros(node.shape[0], dtype=torch.bool, device=node.device)
+    for ids in id_list:
+        out = out | ((node == ids) & (node >= 0))
+    return out
+
+
+def _gather_cols(mat: torch.Tensor, rows: torch.Tensor,
+                 cols_global: torch.Tensor) -> torch.Tensor:
+    """mat[rows, cols] (one device: global column ids are local)."""
+    n_l = mat.shape[1]
+    return mat[rows.long(), cols_global.clamp(0, n_l - 1).long()]
+
+
+def _segment_accept(
+    node_s: torch.Tensor,  # [K] node ids, sorted so equal nodes are adjacent
+    ok_s: torch.Tensor,  # [K] participating entries
+    w_s: torch.Tensor,  # [K] weights (0 where not participating)
+    cap_here: torch.Tensor,  # [K] per-entry capacity budget (node's cap)
+) -> torch.Tensor:
+    """Per-node prefix acceptance: keep entries while the running weight
+    on their node fits ``cap_here``; the first entry per node always fits
+    if the node has any capacity (the auction's progress rule)."""
+    csum = torch.cumsum(w_s, dim=0)
+    ecs = csum - w_s  # exclusive prefix over ALL entries
+    seg_start = torch.cat(
+        [torch.ones(1, dtype=torch.bool, device=node_s.device),
+         node_s[1:] != node_s[:-1]])
+    seg_base = torch.cummax(
+        torch.where(seg_start, ecs, -float("inf")), dim=0).values
+    before_me = ecs - seg_base  # weight of earlier entries on my node
+    return ok_s & (
+        (before_me + w_s <= cap_here) | (before_me == 0.0) & (cap_here > 0))
+
+
+def _scatter_set(p: int, perm: torch.Tensor, vals: torch.Tensor,
+                 fill=False) -> torch.Tensor:
+    """``full(p, fill).at[perm].set(vals)`` for a permutation ``perm``."""
+    out = torch.full((p,), fill, dtype=vals.dtype, device=vals.device)
+    out[perm] = vals
+    return out
+
+
+def _pin_prev_holders(
+    prev_slot: torch.Tensor,  # [P] node id or -1
+    pin_ok: torch.Tensor,  # [P] eligible to keep its previous node
+    pweights: torch.Tensor,  # [P]
+    cap: torch.Tensor,  # [N] capacity for this state
+    slack: torch.Tensor,  # [P] per-holder capacity tolerance (stickiness)
+    load_div: Optional[torch.Tensor] = None,  # [N] node weight (>= 1)
+    taken_stack: Optional[torch.Tensor] = None,  # [P, T] GLOBAL node ids
+) -> torch.Tensor:
+    """Capacity-capped warm start: returns pinned[P] bool.
+
+    The keep-ceiling per node is max(fair-share quota, (least-loaded open
+    node's load + stickiness) * node_weight); holders barred from the
+    emptiest node by exclusivity keep their place first, then partition
+    order; the first holder per node always stays.  ``lax.cond`` became an
+    ``if`` on one host-read flag."""
+    p = prev_slot.shape[0]
+    n = cap.shape[0]
+    dev = prev_slot.device
+    pin_w = torch.where(pin_ok, pweights, 0.0)
+    node_w = _scatter_add(n, prev_slot, pin_w)
+    div = load_div if load_div is not None else \
+        torch.ones(n, dtype=torch.float32, device=dev)
+    load = node_w / div
+    inf = torch.tensor(float("inf"), device=dev)
+    lmin = torch.where(cap > 0, load, inf).min() if n else inf
+
+    if not bool((node_w > cap).any()):
+        # Common case (caps only grew): every eligible holder fits.
+        return pin_ok
+    if taken_stack is not None:
+        deficit_node = torch.argmin(torch.where(cap > 0, load, inf))
+        blocked = (taken_stack == deficit_node).any(dim=1)
+        perm1 = torch.argsort((~blocked).to(torch.int32), stable=True)
+    else:
+        perm1 = torch.arange(p, device=dev)
+    sort_node = torch.where(pin_ok, prev_slot, n)
+    perm2 = torch.argsort(sort_node[perm1], stable=True)  # groups by node
+    perm = perm1[perm2]
+    node_s = sort_node[perm]
+    ok_s = pin_ok[perm]
+    w_s = torch.where(ok_s, pweights[perm], 0.0)
+    nclip = node_s.clamp(0, n - 1).long()
+    band = (lmin + slack[perm]) * div[nclip]
+    cap_here = torch.maximum(cap[nclip], band)
+    keep_s = _segment_accept(node_s, ok_s, w_s, cap_here)
+    return _scatter_set(p, perm, keep_s)
+
+
+def _assign_slot(
+    min2_fn: Callable,  # price_vec[N] -> (best, choice, second, raw)
+    score_at_fn: Callable,  # (rows[K], cols[K]) -> unpriced score [K]
+    p: int,
+    pweights: torch.Tensor,  # [P]
+    cap: torch.Tensor,  # [N] weighted capacity for this slot
+    price_scale: torch.Tensor,  # [N] accepted weight -> score units
+    init_assign: Optional[torch.Tensor] = None,  # [P] warm start (or -1)
+    init_used: Optional[torch.Tensor] = None,  # [N] weight behind it
+    topup_share: Optional[torch.Tensor] = None,  # [N] top-up share
+    has_rules: bool = True,
+    feasible_hint: Optional[torch.Tensor] = None,  # [P] bool
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Auction: returns (slot_assign[P] int32 node id or -1, used[N]).
+
+    Each round: bid on the best open node, accept most-urgent bidders up
+    to remaining capacity (at least the first bidder per node), pour the
+    rejected ones into the remaining capacity of nodes ordered by price
+    (phase B), raise the rail by ``topup_share`` when a round stalls with
+    feasible bidders left; then force whatever is left onto its best
+    feasible node.  The JAX ``while_loop`` is a Python loop that reads its
+    exit flag back to the host once per round."""
+    n = cap.shape[0]
+    dev = pweights.device
+    zeros_n = torch.zeros(n, dtype=torch.float32, device=dev)
+
+    if has_rules:
+        raw_best_all, _, _, _ = min2_fn(zeros_n)
+        hard_feasible = raw_best_all < _INF / 2
+    else:
+        raw_best_all = None
+        hard_feasible = feasible_hint
+
+    if init_assign is None:
+        init_assign = torch.full((p,), -1, dtype=torch.int32, device=dev)
+    if init_used is None:
+        init_used = zeros_n
+    slot_assign = init_assign
+    unassigned = init_assign < 0
+    rem_cap = cap - init_used
+    used = init_used
+    progress = torch.tensor(True, device=dev)
+    it = 0
+
+    while it < _MAX_AUCTION_ROUNDS and \
+            bool((unassigned.any() & progress).item()):
+        price_vec = used * price_scale + torch.where(rem_cap > 0, 0.0, _INF)
+        best, choice, second, raw_choice = min2_fn(price_vec)
+        margin = torch.clamp(
+            torch.nan_to_num(second - best, nan=0.0, posinf=10.0), 0.0, 10.0)
+
+        if has_rules:
+            rule_ok = (raw_choice < raw_best_all + _RULE_TIER * 0.5) | \
+                (raw_best_all >= _RULE_MISS / 2)
+            active = unassigned & (best < _INF / 2) & rule_ok
+        else:
+            active = unassigned & (best < _INF / 2)
+
+        # Sort bidders by (node, urgency desc) via two stable argsorts;
+        # inactive bidders sort to the end.
+        inv_margin = torch.where(active, -margin, float("inf"))
+        sort_choice = torch.where(active, choice, n)
+        perm1 = torch.argsort(inv_margin, stable=True)
+        perm2 = torch.argsort(sort_choice[perm1], stable=True)
+        perm = perm1[perm2]
+
+        choice_l = choice.long()
+        choice_s = choice_l[perm]
+        w_s = pweights[perm]
+        active_s = active[perm]
+        accept_s = _segment_accept(
+            choice_s, active_s, torch.where(active_s, w_s, 0.0),
+            rem_cap[choice_s])
+
+        accept = _scatter_set(p, perm, accept_s)
+        slot_assign = torch.where(accept, choice, slot_assign)
+        unassigned = unassigned & ~accept
+
+        used_round = _scatter_add(n, choice, torch.where(accept, pweights,
+                                                         0.0))
+        rem_cap = rem_cap - used_round
+        used = used + used_round
+
+        # Phase B — waterfall into the remaining capacity by price.
+        price = used * price_scale
+        node_order = torch.argsort(price, stable=True)
+        rem_sorted = rem_cap.clamp(min=0.0)[node_order]
+        cum_rem = torch.cumsum(rem_sorted, dim=0)
+
+        straggler = active & ~accept
+        skey = torch.where(straggler, -margin, float("inf"))
+        sperm = torch.argsort(skey, stable=True)
+        s_mask = straggler[sperm]
+        s_w = torch.where(s_mask, pweights[sperm], 0.0)
+        s_excl = torch.cumsum(s_w, dim=0) - s_w
+        pos = torch.searchsorted(cum_rem, s_excl + 0.5 * s_w, right=True)
+        in_range = pos < n
+        choice2 = node_order[pos.clamp(0, n - 1)].to(torch.int32)
+
+        raw2 = score_at_fn(sperm, choice2)
+        hard_ok = raw2 < _INF / 2
+        if has_rules:
+            soft_ok = (raw2 < raw_best_all[sperm] + _RULE_TIER * 0.5) | \
+                (raw_best_all[sperm] >= _RULE_MISS / 2)
+            accept2_s = s_mask & in_range & hard_ok & soft_ok
+        else:
+            accept2_s = s_mask & in_range & hard_ok
+
+        accept2 = _scatter_set(p, sperm, accept2_s)
+        choice2_un = _scatter_set(p, sperm, choice2, fill=0)
+        slot_assign = torch.where(accept2, choice2_un, slot_assign)
+        unassigned = unassigned & ~accept2
+
+        used2 = _scatter_add(n, choice2_un, torch.where(accept2, pweights,
+                                                        0.0))
+        rem_cap = rem_cap - used2
+        used = used + used2
+
+        progress = (accept | accept2).any()
+        if topup_share is not None:
+            rem_w = torch.where(unassigned & hard_feasible, pweights,
+                                0.0).sum()
+            stalled = ~progress & (rem_w > 0)
+            topup = torch.ceil(rem_w * topup_share)
+            rem_cap = torch.where(stalled, rem_cap + topup, rem_cap)
+            progress = progress | (stalled & (topup > 0).any())
+        it += 1
+
+    # Force step: remaining partitions take their best feasible node,
+    # ignoring capacity; skipped when the rounds assigned everyone.
+    if bool(unassigned.any()):
+        best, choice, _second, _raw = min2_fn(used * price_scale)
+        forced = unassigned & (best < _INF / 2)
+        slot_assign = torch.where(forced, choice, slot_assign)
+        used = used + _scatter_add(n, choice, torch.where(forced, pweights,
+                                                          0.0))
+    return slot_assign, used
+
+
+def _matrix_score(total, total_p: int, w_div, neg_boost, valid, stick_si,
+                  prev_slot, prev_state_ids, anchors, gids, gid_valid,
+                  state_rules: StateRules, taken_ids) -> torch.Tensor:
+    """The matrix engine's score[P, N], term order as the reference's
+    build (tensor.py:1526-1560), in row chunks so that temporaries stay
+    bounded at any P.  The fill term multiplies by ``fill_scale`` (XLA's
+    fold of ``0.001 * total / P``) and the jitter add rounds once
+    (``jitter_add``, XLA's fused multiply-add)."""
+    p = prev_slot.shape[0]
+    n = total.shape[0]
+    dev = total.device
+    cols = torch.arange(n, dtype=torch.int32, device=dev)
+    score_row = (total[None, :] * fill_scale(total_p)) / w_div[None, :]
+    nb = neg_boost[None, :]
+    taken = torch.stack(list(taken_ids), dim=1) if taken_ids else None
+    out = torch.empty((p, n), dtype=torch.float32, device=dev)
+    step = max(1, _ROW_CELLS // max(n, 1))
+    for lo in range(0, p, step):
+        hi = min(p, lo + step)
+        st = stick_si[lo:hi, None]
+        score = score_row - 0.01 * _member_ids(prev_slot[lo:hi, None], cols)
+        score = score + torch.maximum(nb, torch.where(nb > 0, st, 0.0))
+        score = score - st * _member_ids(prev_state_ids[lo:hi], cols)
+        if state_rules:
+            score = score + _hier_penalty(anchors[lo:hi], gids, gid_valid,
+                                          state_rules)
+        tk = _member_ids(taken[lo:hi], cols) if taken is not None else \
+            torch.zeros((hi - lo, n), dtype=torch.bool, device=dev)
+        score = score + _INF * (tk | ~valid[None, :])
+        pi = torch.arange(lo, hi, dtype=torch.int32, device=dev)[:, None]
+        out[lo:hi] = jitter_add(score, pi, cols[None, :], _JITTER)
+    return out
+
+
+def _solve_assign(
+    prev: torch.Tensor,  # [P, S, R] int32
+    pweights: torch.Tensor,  # [P] float32
+    nweights: torch.Tensor,  # [N] float32
+    valid: torch.Tensor,  # [N] bool
+    stickiness: torch.Tensor,  # [P, S] float32
+    gids: torch.Tensor,  # [L, N] int32
+    gid_valid: torch.Tensor,  # [L, N] bool
+    constraints: Constraints,
+    rules: Rules,
+    fused_score: str = "off",
+) -> torch.Tensor:
+    """One assignment sweep on one device; returns assign[P, S, R].
+    The dense branches of the reference's _solve_assign."""
+    p, s, r_max = prev.shape
+    n = nweights.shape[0]
+    dev = prev.device
+    if fused_score not in ("off", "on"):
+        raise ValueError(f"unresolved fused-score mode: {fused_score!r}")
+    if constraints and max(constraints) > r_max:
+        raise ValueError(
+            f"prev slot depth R={r_max} < max constraints {max(constraints)}")
+
+    total_w = pweights.sum()
+    w_div = torch.where(nweights > 0, nweights, 1.0)
+    neg_boost = torch.where(nweights < 0, -nweights, 0.0)
+    cap_w = torch.where(valid & (nweights >= 0), nweights.clamp(min=1.0), 0.0)
+    cap_share = cap_w / cap_w.sum().clamp(min=1.0)
+
+    # Seed the total-fill factor from prev (plan.go:94).
+    total = torch.stack([_scatter_counts(prev[:, si, :], pweights, n)
+                         for si in range(s)]).sum(dim=0)
+
+    assign = torch.full((p, s, r_max), -1, dtype=torch.int32, device=dev)
+    taken_ids: list[torch.Tensor] = []
+    top_anchor = prev[:, 0, 0]
+    arange_p = torch.arange(p, device=dev)
+
+    for si in range(s):
+        k = constraints[si]
+        if k <= 0:
+            continue
+        total = total - _scatter_counts(prev[:, si, :], pweights, n)
+        prev_state_ids = prev[:, si, :]
+        anchor = torch.where(assign[:, 0, 0] >= 0, assign[:, 0, 0],
+                             top_anchor) if si > 0 else top_anchor
+
+        # Warm start, decided per STATE across all k ordinals.
+        kk = min(k, r_max)
+        prev_k = prev[:, si, :kk]
+        safe_k = prev_k.clamp(0, n - 1).long()
+        taken_prev = torch.stack(
+            [_in_id_list(prev_k[:, j], taken_ids) for j in range(kk)], dim=1)
+        pin_ok_k = (prev_k >= 0) & valid[safe_k] & ~taken_prev & \
+            (neg_boost[safe_k] <= stickiness[:, si][:, None])
+        for j in range(1, kk):
+            dup = torch.zeros(p, dtype=torch.bool, device=dev)
+            for i in range(j):
+                dup |= (prev_k[:, j] == prev_k[:, i]) & (prev_k[:, j] >= 0)
+            pin_ok_k[:, j] = pin_ok_k[:, j] & ~dup
+        anchors = None
+        if rules[si]:
+            anchors = torch.full((p, 1 + k), -1, dtype=torch.int32,
+                                 device=dev)
+            anchors[:, 0] = anchor
+            counts_ok = all(exc < inc for (inc, exc) in rules[si])
+            for j in range(kk):
+                if counts_ok:
+                    floor_j = _hier_floor_counts(
+                        anchors[:, :1 + j], gids, gid_valid, valid, rules[si])
+                    hier_at_prev = _hier_tier_at(
+                        anchors[:, :1 + j], safe_k[:, j], gids, gid_valid,
+                        rules[si])
+                else:
+                    hier_j = _hier_penalty(anchors[:, :1 + j], gids,
+                                           gid_valid, rules[si])
+                    floor_j = torch.where(valid[None, :], hier_j,
+                                          _INF).amin(dim=1)
+                    hier_at_prev = _gather_cols(hier_j, arange_p,
+                                                safe_k[:, j])
+                ok_j = pin_ok_k[:, j] & (
+                    hier_at_prev < floor_j + _RULE_TIER * 0.5)
+                pin_ok_k[:, j] = ok_j
+                anchors[:, 1 + j] = torch.where(ok_j, prev_k[:, j], -1)
+        state_cap = torch.ceil(k * total_w * cap_share)
+        pins = _pin_prev_holders(
+            prev_k.reshape(-1),
+            pin_ok_k.reshape(-1),
+            torch.repeat_interleave(pweights, kk),
+            state_cap,
+            torch.repeat_interleave(stickiness[:, si], kk),
+            load_div=w_div,
+            taken_stack=(torch.repeat_interleave(
+                torch.stack(taken_ids, dim=1), kk, dim=0)
+                if taken_ids else None),
+        ).reshape(p, kk)
+        pin_base = len(taken_ids)
+        for j in range(kk):
+            taken_ids.append(torch.where(pins[:, j], prev_k[:, j], -1))
+        if rules[si]:
+            # Re-seed anchors from the capacity-trimmed pins.
+            anchors = torch.full((p, 1 + k), -1, dtype=torch.int32,
+                                 device=dev)
+            anchors[:, 0] = anchor
+            for j in range(kk):
+                anchors[:, 1 + j] = torch.where(pins[:, j], prev_k[:, j], -1)
+
+        for ri in range(k):
+            if ri < kk:
+                init_assign = torch.where(pins[:, ri], prev[:, si, ri], -1)
+            else:
+                init_assign = torch.full((p,), -1, dtype=torch.int32,
+                                         device=dev)
+            pin_used = _scatter_add(
+                n, init_assign, torch.where(init_assign >= 0, pweights, 0.0))
+
+            if bool((init_assign >= 0).all()):
+                # Every copy pinned (the confirming sweep's common case):
+                # no score, no auction.
+                slot_assign, used = init_assign, pin_used
+            else:
+                slot_assign, used = _run_auction(
+                    fused_score, p, n, total, w_div, neg_boost, valid,
+                    stickiness[:, si],
+                    prev[:, si, ri] if ri < r_max else
+                    torch.full((p,), -1, dtype=torch.int32, device=dev),
+                    prev_state_ids, anchors, gids, gid_valid, rules[si],
+                    tuple(taken_ids), pweights, total_w, cap_share,
+                    init_assign, pin_used)
+
+            assign[:, si, ri] = slot_assign
+            total = total + used
+            if ri < kk:
+                taken_ids[pin_base + ri] = slot_assign  # supersedes the pin
+            else:
+                taken_ids.append(slot_assign)
+            if rules[si]:
+                anchors[:, 1 + ri] = slot_assign
+    return assign
+
+
+def _run_auction(fused_score, p, n, total, w_div, neg_boost, valid,
+                 stick_si, prev_slot, prev_state_ids, anchors, gids,
+                 gid_valid, state_rules, taken_ids, pweights, total_w,
+                 cap_share, init_assign, pin_used):
+    """Score + auction + force for one slot, through either engine."""
+    dev = total.device
+    anchors_k = anchors if state_rules else \
+        torch.full((p, 1), -1, dtype=torch.int32, device=dev)
+    if fused_score == "on":
+        si_pack = pack_score_inputs(
+            total_l=total, total_p=p, w_div_l=w_div, neg_boost_l=neg_boost,
+            valid_l=valid, stickiness_si=stick_si, prev_slot=prev_slot,
+            prev_state=prev_state_ids, taken_ids=list(taken_ids),
+            anchors=anchors_k, gids_l=gids, gid_valid=gid_valid, gids=gids,
+            rules=state_rules)
+
+        def min2_fn(price_vec):
+            return fused_score_min2(price_vec, si_pack, 0, 0,
+                                    nrules=len(state_rules),
+                                    jitter_scale=_JITTER)
+
+        base_full = (total * fill_scale(p)) / w_div
+
+        def score_at_fn(rows, cols_global):
+            return score_at_columns(
+                rows, cols_global, base_full=base_full,
+                neg_boost_full=neg_boost, valid_full=valid, gids=gids,
+                gid_valid=gid_valid, anchors=anchors_k, rules=state_rules,
+                prev_slot=prev_slot, prev_state=prev_state_ids,
+                taken_ids=taken_ids, stick=stick_si, jitter_scale=_JITTER,
+                pbase=0)
+    else:
+        score = _matrix_score(total, p, w_div, neg_boost, valid, stick_si,
+                              prev_slot, prev_state_ids, anchors, gids,
+                              gid_valid, state_rules, taken_ids)
+
+        def min2_fn(price_vec):
+            b, c, s2 = priced_min2_argmin(score, price_vec)
+            raw = score.gather(1, c.long()[:, None])[:, 0]
+            return b, c, s2, raw
+
+        def score_at_fn(rows, cols_global):
+            return _gather_cols(score, rows, cols_global)
+
+    if state_rules:
+        feasible_hint = None
+    else:
+        # Rule-less hard feasibility without a [P, N] row-min: an allowed
+        # node exists iff the taken VALID nodes are fewer than all valid.
+        n_valid_total = valid.to(torch.int32).sum()
+        tkn = torch.zeros(p, dtype=torch.int32, device=dev)
+        for tid in taken_ids:
+            tkn += ((tid >= 0) & valid[tid.clamp(0, n - 1).long()]) \
+                .to(torch.int32)
+        feasible_hint = tkn < n_valid_total
+    cap = torch.ceil(total_w * cap_share)
+    return _assign_slot(
+        min2_fn, score_at_fn, p, pweights, cap, 1.0 / w_div,
+        init_assign=init_assign, init_used=pin_used, topup_share=cap_share,
+        has_rules=bool(state_rules), feasible_hint=feasible_hint)
+
+
+def solve_dense(prev, pweights, nweights, valid, stickiness, gids,
+                gid_valid, constraints: Constraints, rules: Rules,
+                fused_score: str = "off") -> torch.Tensor:
+    """Solve the whole placement problem once; returns assign[P, S, R]."""
+    return _solve_assign(prev, pweights, nweights, valid, stickiness, gids,
+                         gid_valid, constraints, rules, fused_score)
+
+
+def _solve_dense_converged_impl(prev, pweights, nweights, valid, stickiness,
+                                gids, gid_valid, constraints, rules,
+                                max_iterations: int = 10,
+                                fused_score: str = "off"):
+    """The fixpoint loop; returns (assign, sweeps executed).  One host
+    read of the changed flag per sweep."""
+    def solve(x):
+        return solve_dense(x, pweights, nweights, valid, stickiness, gids,
+                           gid_valid, constraints, rules, fused_score)
+
+    out, prev_i, it = solve(prev), prev, 1
+    while it < max_iterations and bool((out != prev_i).any()):
+        out, prev_i, it = solve(out), out, it + 1
+    return out, it
+
+
+def _check_tier_band_scale(prev, pweights, nweights, valid, stickiness,
+                           constraints, rules) -> None:
+    """Assert the tier-equality band's scale assumption (the reference's
+    _RULE_TIER note): raise ValueError when the within-tier score mass a
+    node can carry eats into the _RULE_TIER/2 band.  Host numpy, memoized
+    per (prev identity, weight fingerprint)."""
+    if not any(rl for rl in rules):
+        return
+    prev_in = prev
+    prev = prev.cpu().numpy()
+    pw = pweights.cpu().numpy().astype(np.float64)
+    nw = nweights.cpu().numpy().astype(np.float64)
+    valid = valid.cpu().numpy().astype(bool)
+    stick = stickiness.cpu().numpy().astype(np.float64)
+    n = nw.shape[0]
+    if prev.size == 0 or n == 0:
+        return
+    key = (id(prev_in), prev.shape, n, tuple(constraints),
+           tuple(tuple(r) for r in rules))
+    fingerprint = (float(pw.sum()), float(stick.max()) if stick.size else 0.0,
+                   float(nw.min()), float(nw.max()), int(valid.sum()))
+    if _tier_scale_memo.get(key) == fingerprint:
+        return
+    total_w = float(pw.sum())
+    cap_w = np.where(valid & (nw >= 0), np.maximum(nw, 1.0), 0.0)
+    w_div = np.where(nw > 0, nw, 1.0)
+    k_total = float(sum(max(int(c), 0) for c in constraints))
+    rail_term = k_total * total_w / max(float(cap_w.sum()), 1.0)
+    ids = prev.reshape(prev.shape[0], -1)
+    w_rep = np.broadcast_to(pw[:, None], ids.shape)
+    m = ids >= 0
+    fill = np.bincount(ids[m].ravel(), weights=w_rep[m].ravel(),
+                       minlength=n)[:n]
+    seed_term = float((fill / w_div).max()) if n else 0.0
+    bound = max(rail_term, seed_term)
+    bound += float(stick.max()) if stick.size else 0.0
+    bound += float(np.maximum(-nw, 0.0).max())
+    if bound >= _TIER_BAND_HEADROOM * _RULE_TIER:
+        raise ValueError(
+            f"hierarchy tier band overflow: within-tier score mass "
+            f"~{bound:.0f} >= {_TIER_BAND_HEADROOM:.2f} * _RULE_TIER "
+            f"({_RULE_TIER:.0f}) — at this partitions-per-node scale "
+            f"(P={prev.shape[0]}, usable N={int(cap_w.nonzero()[0].size)}, "
+            f"slots={k_total:.0f}) the band test that separates hierarchy "
+            f"tiers would misclassify rule conformance.  Add nodes or "
+            f"split the problem")
+    if len(_tier_scale_memo) >= 256:
+        _tier_scale_memo.clear()
+    _tier_scale_memo[key] = fingerprint
+
+
+def solve_dense_converged(prev, pweights, nweights, valid, stickiness,
+                          gids, gid_valid, constraints: Constraints,
+                          rules: Rules, max_iterations: int = 10,
+                          fused_score: str = "off",
+                          stats: Optional[dict] = None) -> torch.Tensor:
+    """solve_dense iterated to a fixpoint (reference plan.go:23-58); the
+    first pass does the work, later passes confirm.  ``stats``, when
+    given, receives the executed sweep count under "sweeps"."""
+    _check_tier_band_scale(prev, pweights, nweights, valid, stickiness,
+                           constraints, rules)
+    out, sweeps = _solve_dense_converged_impl(
+        prev, pweights, nweights, valid, stickiness, gids, gid_valid,
+        constraints, rules, max_iterations, fused_score)
+    if stats is not None:
+        stats["sweeps"] = sweeps
+    return out
+
+
+def solve_converged_resilient(
+    prev, pweights, nweights, valid, stickiness, gids, gid_valid,
+    constraints, rules, *, max_iterations: int, mode: str,
+    allow_fallback: bool, context: str, stats: Optional[dict] = None,
+):
+    """solve_dense_converged with engine-failure degradation: with
+    ``allow_fallback`` (the mode came from "auto") a failed engine
+    retries once on the other kernel, with a UserWarning.  Returns
+    (assignment as numpy, engine mode that ran)."""
+    device = prev.device
+
+    def run(m: str) -> NPArray:
+        check_dense_memory(prev.shape[0], prev.shape[1], nweights.shape[-1],
+                           m, device)
+        return solve_dense_converged(
+            prev, pweights, nweights, valid, stickiness, gids, gid_valid,
+            constraints, rules, max_iterations=max_iterations,
+            fused_score=m, stats=stats).cpu().numpy()
+
+    try:
+        out = run(mode)
+    except (ValueError, TypeError):
+        raise
+    except Exception as e:
+        alt = {"off": "on", "on": "off"}.get(mode)
+        if not allow_fallback or alt is None or device.type != "cuda":
+            raise
+        first = (str(e).splitlines() or [""])[0][:200]
+        _warnings.warn(
+            f"blance_tpu_torch {context}: score engine {mode!r} failed "
+            f"({type(e).__name__}: {first}); retrying with {alt!r}",
+            UserWarning, stacklevel=3)
+        out = run(alt)
+        mode = alt
+    return out, mode
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def plan_next_map_cuda(
+    prev_map: PartitionMap,
+    partitions_to_assign: PartitionMap,
+    nodes_all: list[str],
+    nodes_to_remove: Optional[list[str]],
+    nodes_to_add: Optional[list[str]],
+    model: PartitionModel,
+    opts: Optional[PlanOptions] = None,
+    *,
+    device="cuda",
+    timings: Optional[dict] = None,
+) -> tuple[PartitionMap, dict[str, list[str]]]:
+    """The batched planner on one device: encode on the host, the
+    converged dense solve on ``device``, the audit, decode.  Same inputs
+    and outputs as the reference's plan_next_map_tpu.  ``timings``, when
+    given, receives encode_s / solve_s / audit_s / decode_s wall times (the device
+    synchronised before each clock read), the engine that ran and the
+    sweep count."""
+    opts = opts or PlanOptions()
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "plan_next_map_cuda: device 'cuda' requested but "
+            "torch.cuda.is_available() is False (pass device='cpu' to run "
+            "the plain PyTorch path on the CPU)")
+    del nodes_to_add
+    stamps = {"t0": time.perf_counter()}
+    problem = encode_problem(prev_map, partitions_to_assign, nodes_all,
+                             nodes_to_remove, model, opts)
+    stamps["t1"] = time.perf_counter()
+    if problem.P == 0 or problem.N == 0 or problem.S == 0:
+        return decode_assignment(
+            problem,
+            np.full((problem.P, problem.S, max(problem.R, 1)), -1, np.int32),
+            partitions_to_assign, nodes_to_remove)
+    rules = tuple(tuple(problem.rules.get(si, ()))
+                  for si in range(problem.S))
+    constraints = tuple(int(c) for c in problem.constraints)
+    args = problem_to_torch(
+        problem.prev, problem.partition_weights, problem.node_weights,
+        problem.valid_node, problem.stickiness, problem.gids,
+        problem.gid_valid, device=device)
+    stats: dict = {}
+    assign, engine = solve_converged_resilient(
+        *args, constraints, rules,
+        max_iterations=max(int(opts.max_iterations), 1),
+        mode=resolve_fused_score(_FUSED_SCORE_DEFAULT, problem.P, problem.N,
+                                 device),
+        allow_fallback=_FUSED_SCORE_DEFAULT == "auto",
+        context="plan_next_map_cuda", stats=stats)
+    _sync(device)
+    stamps["t2"] = time.perf_counter()
+    maybe_validate(problem, assign, opts.validate_assignment,
+                   "plan_next_map_cuda")
+    stamps["t2a"] = time.perf_counter()
+    result = decode_assignment(problem, assign, partitions_to_assign,
+                               nodes_to_remove)
+    stamps["t3"] = time.perf_counter()
+    if timings is not None:
+        timings.update(
+            encode_s=stamps["t1"] - stamps["t0"],
+            solve_s=stamps["t2"] - stamps["t1"],
+            audit_s=stamps["t2a"] - stamps["t2"],
+            decode_s=stamps["t3"] - stamps["t2a"],
+            engine={"off": "matrix", "on": "fused"}[engine],
+            sweeps=stats.get("sweeps"))
+    return result

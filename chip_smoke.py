@@ -1,0 +1,357 @@
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card, the CUDA toolkit (nvcc) and PyTorch; imports
+nothing of jax or of the JAX package.  In order:
+
+1. builds every kernel under blance_tpu_torch/ops/csrc with nvcc for
+   sm_90a, all at once, and times the build;
+2. holds each kernel against its plain PyTorch version on the card,
+   bitwise: the priced min2 at [100000, 10000] (quantized scores, many
+   ties) and at a ragged [4099, 777]; the in-kernel score at
+   [100000, 10000] with one rack rule and two anchors, all four outputs;
+3. drives plan_next_map(backend="cuda") at the north-star deployment
+   (100k partitions x 10k nodes, primary + 1 replica, racks of 25 under
+   one zone, replica on another rack, 5% of nodes removed) on the engine
+   auto picks, then again on the in-kernel score engine; each run must
+   pass the audit with every count 0, place nothing on a removed node,
+   fill every slot, and launch its engine's kernel.  A small plan on the
+   card must equal the plain CPU path's map for map;
+4. prints one JSON line of kernel measurements, the card's name and
+   power limit, and last ``{"ok": true, "device": {...}}``.
+
+After the checked runs, one more main-path run per engine goes under
+torch.profiler, for the device's kernel time beside the solve's wall
+time and the kernels that took it (the ``profile`` line).
+
+Any failure raises and exits non-zero; without a card it exits non-zero
+before printing any result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+import warnings
+
+import numpy as np
+import torch
+
+import blance_tpu_torch as bt
+from blance_tpu_torch.ops import _build, launch_counts, reset_launch_counts
+from blance_tpu_torch.ops import reduce2, score_fused
+from blance_tpu_torch.plan import tensor as T
+
+P_MAIN, N_MAIN = 100_000, 10_000
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+F32_OPS_PER_S = 67e12      # float32 outside the tensor cores, same sheet
+
+
+def log(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median per-call device time, CUDA events around each call."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def compare(got, want, what: str) -> float:
+    """Bitwise equality of output tuples; returns the max abs error over
+    the finite float outputs (0.0 when bitwise equal)."""
+    err = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{what}: output {i} is {g.dtype}{tuple(g.shape)}"
+                                 f", plain gives {w.dtype}{tuple(w.shape)}")
+        same = (g == w) | (torch.isnan(g) & torch.isnan(w)) \
+            if g.is_floating_point() else g == w
+        if not bool(same.all()):
+            bad = int((~same).sum())
+            row = int(torch.nonzero(~same)[0, 0])
+            raise AssertionError(
+                f"{what}: output {i} differs from the plain version in {bad}"
+                f" rows (first row {row}: kernel {g[row].item()!r}, plain "
+                f"{w[row].item()!r})")
+        if g.is_floating_point():
+            fin = torch.isfinite(g) & torch.isfinite(w)
+            if bool(fin.any()):
+                err = max(err, float((g[fin] - w[fin]).abs().max()))
+    return err
+
+
+def check_min2(dev: torch.device) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = {}
+    for p, n in ((P_MAIN, N_MAIN), (4099, 777)):
+        # Quantized scores force duplicate minima (tie-break coverage).
+        score = torch.randint(0, 50, (p, n), generator=gen, device=dev) \
+            .to(torch.float32) * 0.125
+        price = torch.randint(0, 8, (n,), generator=gen, device=dev) \
+            .to(torch.float32) * 0.25
+        got = reduce2.priced_min2_argmin(score, price)
+        want = reduce2.min2_argmin_reference(score + price[None, :])
+        err = compare(got, want, f"priced_min2_argmin [{p}, {n}]")
+        log(f"min2 kernel == plain at [{p}, {n}] (bitwise)")
+        if (p, n) == (P_MAIN, N_MAIN):
+            eff = score + price[None, :]
+            out = dict(
+                max_abs_err=err,
+                ms=time_ms(lambda: reduce2.priced_min2_argmin(score, price)),
+                plain_ms=time_ms(lambda: reduce2.min2_argmin_reference(
+                    score + price[None, :]), reps=3),
+                library_ms=time_ms(lambda: torch.topk(
+                    eff, 2, dim=1, largest=False), reps=3))
+            nbytes = p * n * 4 + n * 4 + p * 12
+            ops = p * n * 3  # price add + two compares per element
+            out.update(_bound(nbytes, ops))
+            del eff
+        del score, price, got, want
+    return out
+
+
+def _bound(nbytes: int, ops: int) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def fused_ops_per_cell(r: int, t: int, a: int, nrules: int) -> int:
+    """Operations the in-kernel score does per (row, column): column id
+    1, boost 3, same-ordinal 2, sticky 2R, rules nrules*(5A + 2) + 2,
+    taken/valid 2T + 2, jitter 6, priced min2 3."""
+    return 21 + 2 * r + 2 * t + nrules * (5 * a + 2)
+
+
+def check_fused(dev: torch.device) -> dict:
+    p, n = P_MAIN, N_MAIN
+    rng = np.random.default_rng(11)
+    t = lambda x: torch.from_numpy(np.asarray(x)).to(dev)  # noqa: E731
+    nodes = np.arange(n, dtype=np.int32)
+    gids = t(np.stack([nodes, nodes // 25, np.zeros(n, np.int32)]))
+    primary = rng.integers(0, n, p).astype(np.int32)
+    replica = ((primary + 1 + rng.integers(0, n - 1, p)) % n).astype(np.int32)
+    valid = np.ones(n, bool)
+    valid[rng.choice(n, n // 20, replace=False)] = False
+    anchors = np.stack([primary, np.where(rng.random(p) < 0.5, replica, -1)],
+                       axis=1).astype(np.int32)
+    si = score_fused.pack_score_inputs(
+        total_l=t(rng.integers(0, 40, n).astype(np.float32)), total_p=p,
+        w_div_l=t(np.ones(n, np.float32)),
+        neg_boost_l=t(np.zeros(n, np.float32)), valid_l=t(valid),
+        stickiness_si=t(np.full(p, 1.5, np.float32)),
+        prev_slot=t(replica), prev_state=t(replica[:, None]),
+        taken_ids=[t(primary)], anchors=t(anchors), gids_l=gids,
+        gid_valid=t(np.ones((3, n), bool)), gids=gids, rules=((2, 1),))
+    price = t((rng.integers(0, 3, n) * 0.5 + np.where(
+        rng.random(n) < 0.1, 1e9, 0)).astype(np.float32))
+    kw = dict(nrules=1, jitter_scale=T._JITTER)
+    got = score_fused.fused_score_min2(price, si, 0, 0, **kw)
+    want = score_fused.fused_score_min2_reference(price, si, 0, 0, **kw)
+    err = compare(got, want, f"fused_score_min2 [{p}, {n}]")
+    log(f"fused score kernel == plain at [{p}, {n}] (bitwise, 4 outputs)")
+    out = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: score_fused.fused_score_min2(price, si, 0, 0,
+                                                        **kw)),
+        plain_ms=time_ms(lambda: score_fused.fused_score_min2_reference(
+            price, si, 0, 0, **kw), reps=2, warmup=1),
+        library_ms=None)
+    in_bytes = sum(x.numel() * x.element_size() for x in si) + n * 4
+    out.update(_bound(in_bytes + p * 16,
+                      p * n * fused_ops_per_cell(1, 1, 2, 1)))
+    return out
+
+
+def north_star_map():
+    """The bench.py build_dense deployment as a PartitionMap, seed 0."""
+    rng = np.random.default_rng(0)
+    p, n = P_MAIN, N_MAIN
+    nodes = [f"n{i:05d}" for i in range(n)]
+    hier = {nd: f"r{i // 25:04d}" for i, nd in enumerate(nodes)}
+    hier.update({f"r{i:04d}": "z0" for i in range(n // 25)})
+    prim = rng.integers(0, n, p)
+    repl = (prim + 1 + rng.integers(0, n - 1, p)) % n
+    prev = {str(i): bt.Partition(str(i), {"primary": [nodes[a]],
+                                          "replica": [nodes[b]]})
+            for i, (a, b) in enumerate(zip(prim.tolist(), repl.tolist()))}
+    removed = [nodes[i] for i in rng.choice(n, n // 20, replace=False)]
+    opts = bt.PlanOptions(node_hierarchy=hier, hierarchy_rules={
+        "replica": [bt.HierarchyRule(include_level=2, exclude_level=1)]})
+    return prev, nodes, removed, bt.model(primary=(0, 1), replica=(1, 1)), \
+        opts
+
+
+def run_main_path(label, prev, nodes, removed, model, opts, dev) -> dict:
+    reset_launch_counts()
+    timings: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, warn = bt.plan_next_map(prev, prev, nodes, removed, [], model, opts,
+                                 backend="cuda", timings=timings)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    problem = bt.encode_problem(prev, prev, nodes, removed, model, opts)
+    after = bt.encode_problem(out, out, nodes, removed, model, opts)
+    audit = bt.check_assignment(problem, after.prev)
+    if any(audit.values()):
+        raise AssertionError(f"{label}: audit not clean: {audit}")
+    gone = set(removed)
+    unassigned = sum(len(p.nodes_by_state.get(s, [])) != 1
+                     for p in out.values() for s in ("primary", "replica"))
+    on_removed = sum(nd in gone for p in out.values()
+                     for ns in p.nodes_by_state.values() for nd in ns)
+    if warn or unassigned or on_removed or len(out) != len(prev):
+        raise AssertionError(f"{label}: {len(warn)} warnings, {unassigned} "
+                             f"unassigned slots, {on_removed} copies on "
+                             f"removed nodes")
+    load = {nd: 0 for nd in nodes if nd not in gone}
+    for p in out.values():
+        for ns in p.nodes_by_state.values():
+            for nd in ns:
+                load[nd] += 1
+    spread = max(load.values()) - min(load.values())
+    moved = sum(out[k].nodes_by_state != prev[k].nodes_by_state for k in prev)
+    info = dict(timings, wall_s=wall, launches=counts, audit=audit,
+                load_spread=spread, partitions_moved=moved)
+    log(f"{label}: {json.dumps(info)}")
+    return info
+
+
+def small_map_matches_cpu(dev) -> None:
+    rng = np.random.default_rng(3)
+    nodes = [f"s{i:02d}" for i in range(40)]
+    hier = {nd: f"r{i // 5}" for i, nd in enumerate(nodes)}
+    hier.update({f"r{i}": "z0" for i in range(8)})
+    prev = {str(i): bt.Partition(str(i), {
+        "primary": [nodes[int(rng.integers(0, 40))]]}) for i in range(500)}
+    opts = bt.PlanOptions(node_hierarchy=hier, hierarchy_rules={
+        "replica": [bt.HierarchyRule(2, 1)]})
+    model = bt.model(primary=(0, 1), replica=(1, 2))
+    want = bt.plan_next_map(prev, prev, nodes, nodes[:2], [], model, opts,
+                            device="cpu")
+    for mode in ("off", "on"):
+        T.set_fused_score_default(mode)
+        got = bt.plan_next_map(prev, prev, nodes, nodes[:2], [], model, opts,
+                               device=dev)
+        if bt.partition_map_to_json(got[0]) != \
+                bt.partition_map_to_json(want[0]) or got[1] != want[1]:
+            raise AssertionError(f"small plan on the card ({mode}) differs "
+                                 f"from the plain CPU path")
+    T.set_fused_score_default("auto")
+    log("small plan on the card == plain CPU path, both engines")
+
+
+def profile_main_path(mode, prev, nodes, removed, model, opts) -> dict:
+    """One more main-path run on engine ``mode`` under torch.profiler:
+    the device's kernel time against the solve's wall time (busy share)
+    and the kernels that took it, by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    T.set_fused_score_default(mode)
+    timings: dict = {}
+    with warnings.catch_warnings():
+        # The profiler's own notices are not engine fallbacks.
+        warnings.filterwarnings("ignore", module=r"torch\.")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            bt.plan_next_map(prev, prev, nodes, removed, [], model, opts,
+                             backend="cuda", timings=timings)
+    T.set_fused_score_default("auto")
+    cuda = torch.autograd.DeviceType.CUDA  # kernels, not the host ops
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) == cuda
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    wall_ms = timings["solve_s"] * 1e3
+    return {"engine": timings["engine"], "solve_wall_ms": wall_ms,
+            "device_kernel_ms": device_ms,
+            "device_busy_share": (device_ms / wall_ms) if rows else None,
+            "top": [{"kernel": k[:80], "ms": ms, "calls": c}
+                    for k, ms, c in rows[:10]]}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        log("chip_smoke: torch.cuda.is_available() is False; needs one GPU")
+        return 2
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    build_logs = _build.build_all()
+    build_s = time.perf_counter() - t0
+    for name, text in build_logs.items():
+        log(f"--- nvcc {name}.cu\n{text.strip()}")
+    log(f"kernels built in {build_s:.1f} s")
+
+    min2 = check_min2(dev)
+    fused = check_fused(dev)
+    torch.cuda.empty_cache()
+
+    warnings.simplefilter("error")  # an engine fallback must not hide
+    small_map_matches_cpu(dev)
+    prev, nodes, removed, model, opts = north_star_map()
+    T.set_fused_score_default("auto")
+    auto = run_main_path("main path, auto engine", prev, nodes, removed,
+                         model, opts, dev)
+    if auto["engine"] != "matrix" or auto["launches"]["priced_min2_argmin"] < 1:
+        raise AssertionError(f"auto run: engine {auto['engine']}, launches "
+                             f"{auto['launches']}")
+    T.set_fused_score_default("on")
+    opts.sparse = False
+    on = run_main_path("main path, fused engine", prev, nodes, removed,
+                       model, opts, dev)
+    T.set_fused_score_default("auto")
+    if on["engine"] != "fused" or on["launches"]["fused_score_min2"] < 1:
+        raise AssertionError(f"fused run: engine {on['engine']}, launches "
+                             f"{on['launches']}")
+
+    kernels = [
+        dict(name="priced_min2_argmin", route="cuda",
+             source="blance_tpu_torch/ops/csrc/min2.cu",
+             replaces="blance_tpu/ops/reduce2.py:115",
+             launches=auto["launches"]["priced_min2_argmin"],
+             bitwise=True, **min2),
+        dict(name="fused_score_min2", route="cuda",
+             source="blance_tpu_torch/ops/csrc/score_fused.cu",
+             replaces="blance_tpu/ops/score_fused.py:254",
+             launches=on["launches"]["fused_score_min2"],
+             bitwise=True, **fused),
+    ]
+    prof = [profile_main_path(m, prev, nodes, removed, model, opts)
+            for m in ("off", "on")]
+    print(json.dumps({"profile": prof}))
+    print(json.dumps({"build_s": build_s,
+                      "main_path": {"matrix": auto, "fused": on}}))
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,107 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+CUDA kernels have no CPU mode, so every test here is marked ``cuda`` and
+skips without a GPU.  Run them on a machine with an H100:
+
+    python -m pytest tests/test_torch_cuda.py -q
+
+No jax here: the machine with the card has none.  The CPU parity of the
+plain versions against the JAX package lives in tests/test_torch_ops.py
+and tests/test_torch_plan.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from blance_tpu_torch import problem_to_torch, solve_dense_converged
+from blance_tpu_torch.ops import launch_counts, reset_launch_counts
+from blance_tpu_torch.ops import reduce2, score_fused
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _same(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+
+
+@pytest.mark.parametrize("shape,quant", [((130, 300), False),
+                                         ((67, 513), True), ((5, 1), False)])
+def test_min2_kernel_matches_plain(dev, shape, quant):
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(shape, generator=g)
+    if quant:
+        x = torch.floor(x * 3) * 0.125
+    x[::4] = float("inf")
+    x = x.to(dev)
+    price = torch.linspace(0, 2, shape[1], device=dev)
+    before = reduce2.priced_min2_argmin.launches
+    got = reduce2.priced_min2_argmin(x, price)
+    assert reduce2.priced_min2_argmin.launches == before + 1
+    _same(got, reduce2.min2_argmin_reference(x + price[None, :]))
+
+
+@pytest.mark.parametrize("nrules", [0, 1, 2])
+def test_fused_kernel_matches_plain(dev, nrules):
+    rng = np.random.default_rng(nrules)
+    P, N, R, T, A = 300, 257, 2, 3, 2
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(dev)  # noqa: E731
+    rack = rng.integers(0, 5, N).astype(np.int32)
+    gids = t(np.stack([np.arange(N, dtype=np.int32), rack, rack // 3]))
+    taken = rng.integers(-1, N, (P, T)).astype(np.int32)
+    si = score_fused.pack_score_inputs(
+        total_l=t(rng.integers(0, 60, N).astype(np.float32)), total_p=P,
+        w_div_l=t(rng.integers(1, 4, N).astype(np.float32)),
+        neg_boost_l=t(np.where(rng.random(N) < 0.3, 2.0, 0.0)
+                      .astype(np.float32)),
+        valid_l=t(rng.random(N) < 0.85),
+        stickiness_si=t(np.full(P, 1.5, np.float32)),
+        prev_slot=t(rng.integers(-1, N, P).astype(np.int32)),
+        prev_state=t(rng.integers(-1, N, (P, R)).astype(np.int32)),
+        taken_ids=[t(taken[:, k]) for k in range(T)],
+        anchors=t(rng.integers(-1, N, (P, A)).astype(np.int32)),
+        gids_l=gids, gid_valid=t(rng.random((3, N)) < 0.9), gids=gids,
+        rules=((2, 1), (1, 0))[:nrules])
+    price = t((rng.random(N) + np.where(rng.random(N) < 0.2, 1e9, 0))
+              .astype(np.float32))
+    got = score_fused.fused_score_min2(price, si, 7, 0, nrules=nrules,
+                                       jitter_scale=1e-5)
+    _same(got, score_fused.fused_score_min2_reference(
+        price, si, 7, 0, nrules=nrules, jitter_scale=1e-5))
+
+
+@pytest.mark.parametrize("engine", ["off", "on"])
+def test_solve_on_card_matches_cpu(dev, engine):
+    """A small rack-rule solve on the card equals the CPU plain path
+    bitwise, and went through the engine's kernel."""
+    rng = np.random.default_rng(0)
+    P, N = 1024, 64
+    prev = np.full((P, 2, 1), -1, np.int32)
+    prev[:, 0, 0] = rng.integers(0, N, P)
+    prev[:, 1, 0] = (prev[:, 0, 0] + 1 + rng.integers(0, N - 1, P)) % N
+    valid = np.ones(N, bool)
+    valid[rng.choice(N, N // 20, replace=False)] = False
+    arrays = (prev, np.ones(P, np.float32), np.ones(N, np.float32), valid,
+              np.full((P, 2), 1.5, np.float32),
+              np.stack([np.arange(N, dtype=np.int32),
+                        np.arange(N, dtype=np.int32) // 25,
+                        np.zeros(N, np.int32)]),
+              np.ones((3, N), bool))
+    statics = ((1, 1), ((), ((2, 1),)))
+    cpu = solve_dense_converged(*problem_to_torch(*arrays, device="cpu"),
+                                *statics, fused_score=engine)
+    reset_launch_counts()
+    gpu = solve_dense_converged(*problem_to_torch(*arrays, device=dev),
+                                *statics, fused_score=engine)
+    kernel = "priced_min2_argmin" if engine == "off" else "fused_score_min2"
+    assert launch_counts()[kernel] > 0
+    np.testing.assert_array_equal(gpu.cpu().numpy(), cpu.numpy())

@@ -1,0 +1,115 @@
+"""The port stands alone: no jax, no blance_tpu, and no silent CPU run.
+
+blance_tpu_torch must run on a machine that has PyTorch and no jax, so
+neither the package nor chip_smoke.py may import jax or anything of the
+JAX package, and an entry point asked for the card must not quietly run
+on the CPU instead.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "blance_tpu_torch")
+
+
+def _port_modules():
+    mods = []
+    for dirpath, _dirs, files in os.walk(PKG):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f), ROOT)[:-3]
+                mod = rel.replace(os.sep, ".")
+                mods.append(mod[:-len(".__init__")]
+                            if mod.endswith(".__init__") else mod)
+    return sorted(mods)
+
+
+def test_importing_every_module_leaves_jax_out():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'blance_tpu' or "
+        "m.startswith('blance_tpu.'))\n"
+        "print('BAD', bad)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    return names
+
+
+def test_no_jax_or_reference_import_in_port_sources():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _dirs, fs in os.walk(PKG):
+        files += [os.path.join(dirpath, f) for f in fs if f.endswith(".py")]
+    assert len(files) > 10
+    for path in files:
+        for name in _imports(path):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "blance_tpu"), (path, name)
+
+
+def test_cuda_default_raises_without_gpu(monkeypatch):
+    """Called without ``device=``, the entry point targets the card; with
+    no card it raises rather than running on the CPU."""
+    import blance_tpu_torch as bt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    parts = {str(i): bt.Partition(str(i), {}) for i in range(8)}
+    with pytest.raises(RuntimeError, match="is_available"):
+        bt.plan_next_map(parts, parts, ["a", "b", "c"], [], [],
+                         bt.model(primary=(0, 1)), backend="cuda")
+
+
+@pytest.mark.parametrize("spec", [
+    dict(node_scorer=lambda ctx, node: 0.0),
+    dict(node_sorter=lambda ctx, nodes: nodes),
+    dict(node_score_booster=lambda w, s: 0.0),
+    dict(node_weights={"a": -1}),
+    dict(sparse=True),
+    dict(shape_bucketing=True),
+    dict(fused_pipeline=True),
+])
+def test_unported_options_raise(spec):
+    import blance_tpu_torch as bt
+
+    parts = {str(i): bt.Partition(str(i), {}) for i in range(8)}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        bt.plan_next_map(parts, parts, ["a", "b", "c"], [], [],
+                         bt.model(primary=(0, 1)), bt.PlanOptions(**spec),
+                         device="cpu")
+
+
+def test_cbgt_booster_and_sparse_none_plan_on_cpu():
+    """The cbgt booster with negative weights is supported, and
+    sparse=None resolves to the dense engine."""
+    import blance_tpu_torch as bt
+
+    parts = {str(i): bt.Partition(str(i), {}) for i in range(12)}
+    opts = bt.PlanOptions(node_weights={"a": -1},
+                          node_score_booster=bt.cbgt_node_score_booster,
+                          sparse=None)
+    out, warn = bt.plan_next_map(parts, parts, ["a", "b", "c"], [], [],
+                                 bt.model(primary=(0, 1)), opts,
+                                 backend="auto", device="cpu")
+    assert not warn
+    assert all(len(p.nodes_by_state["primary"]) == 1 for p in out.values())
