@@ -1,8 +1,9 @@
 """blance_tpu_torch — the PyTorch/CUDA port of blance_tpu's planner.
 
-The dense cold-solve main path of blance_tpu (``plan_next_map(...,
-backend="tpu")``) on PyTorch, with the two TPU kernels on that path
-rewritten as CUDA C++ kernels for Hopper (``ops/csrc``).  The package
+The cold-solve paths of blance_tpu (``plan_next_map(...,
+backend="tpu")``) on PyTorch: the dense engines and the sparse shortlist
+engine, with the three TPU kernels on those paths rewritten as CUDA C++
+kernels for Hopper (``ops/csrc``).  The package
 imports ``torch`` and never ``jax`` or ``blance_tpu``: the jax-free data
 model, encode/decode and audit are its own copies.  Entry points run on
 ``device="cuda"`` unless the caller asks for the CPU, where every kernel
@@ -29,10 +30,12 @@ from .plan.audit import check_assignment, maybe_validate
 from .plan.tensor import (
     plan_next_map_cuda,
     resolve_fused_score,
+    set_dense_score_budget,
     set_fused_score_default,
     solve_converged_resilient,
     solve_dense,
     solve_dense_converged,
+    solve_sparse,
 )
 
 __all__ = [
@@ -43,6 +46,7 @@ __all__ = [
     "maybe_validate", "model", "partition_map_from_json",
     "partition_map_to_json", "plan_next_map", "plan_next_map_cuda",
     "problem_to_torch", "resolve_fused_score", "score_inputs_to_torch",
-    "set_fused_score_default", "solve_converged_resilient", "solve_dense",
-    "solve_dense_converged",
+    "set_dense_score_budget", "set_fused_score_default",
+    "solve_converged_resilient", "solve_dense", "solve_dense_converged",
+    "solve_sparse",
 ]

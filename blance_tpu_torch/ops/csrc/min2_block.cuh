@@ -1,5 +1,5 @@
-// Block-wide (min, argmin, second-min) shared by min2.cu and
-// score_fused.cu: the merge rule of the Pallas kernels
+// Warp- and block-wide (min, argmin, second-min) shared by min2.cu,
+// score_fused.cu and sparse_min2.cu: the merge rule of the Pallas kernels
 // (blance_tpu/ops/reduce2.py:_kernel).  A thread pushes its columns in
 // increasing order (strict < keeps the first occurrence); partials merge
 // with second = min(max(b1, b2), min(s1, s2)) and the lower index winning
@@ -37,16 +37,23 @@ __device__ __forceinline__ Min2 merge(const Min2& a, const Min2& b) {
   return r;
 }
 
-__device__ __forceinline__ Min2 block_reduce(Min2 m) {
-  __shared__ Min2 warp_part[kWarps];
+// Merge the partials of the first ``width`` lanes of a warp (a power of
+// two, at most 32); every lane of the warp must call it.
+__device__ __forceinline__ Min2 warp_reduce(Min2 m, int width = 32) {
   const unsigned full = 0xffffffffu;
-  for (int off = 16; off > 0; off >>= 1) {
+  for (int off = width / 2; off > 0; off >>= 1) {
     Min2 o;
     o.best = __shfl_down_sync(full, m.best, off);
     o.idx = __shfl_down_sync(full, m.idx, off);
     o.second = __shfl_down_sync(full, m.second, off);
     m = merge(m, o);
   }
+  return m;  // valid in lane 0
+}
+
+__device__ __forceinline__ Min2 block_reduce(Min2 m) {
+  __shared__ Min2 warp_part[kWarps];
+  m = warp_reduce(m);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   if (lane == 0) warp_part[warp] = m;
@@ -55,13 +62,7 @@ __device__ __forceinline__ Min2 block_reduce(Min2 m) {
     m = lane < kWarps ? warp_part[lane]
                       : Min2{__int_as_float(0x7f800000), kEmpty,
                              __int_as_float(0x7f800000)};
-    for (int off = kWarps / 2; off > 0; off >>= 1) {
-      Min2 o;
-      o.best = __shfl_down_sync(full, m.best, off);
-      o.idx = __shfl_down_sync(full, m.idx, off);
-      o.second = __shfl_down_sync(full, m.second, off);
-      m = merge(m, o);
-    }
+    m = warp_reduce(m, kWarps);
   }
   return m;  // valid in thread 0
 }

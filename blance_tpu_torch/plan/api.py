@@ -3,7 +3,10 @@
 ``plan_next_map`` mirrors blance_tpu.plan.api.plan_next_map (the
 reference's PlanNextMapEx, api.go:147-157) for the batched planner:
 
-- "cuda": the dense cost-tensor planner (plan/tensor.py) on ``device``;
+- "cuda": the cost-tensor planner (plan/tensor.py) on ``device``: a
+  dense engine, or the sparse shortlist engine when ``PlanOptions.sparse``
+  asks for it or (``sparse=None``) when the dense footprint would exceed
+  the memory budget;
 - "auto": "cuda" at every size, because the exact greedy and native
   backends, which the reference's auto picks for small problems, are not
   ported yet (ROADMAP queue A).
@@ -44,8 +47,6 @@ def _unsupported(opts: PlanOptions) -> Optional[str]:
             any(w < 0 for w in opts.node_weights.values()):
         return ("negative node weights without the cbgt booster need the "
                 "exact greedy/native backends (ROADMAP A.11)")
-    if opts.sparse:
-        return "PlanOptions.sparse=True needs the sparse engine (ROADMAP A.6)"
     if opts.shape_bucketing:
         return "PlanOptions.shape_bucketing is not ported (ROADMAP A.13)"
     if opts.fused_pipeline:
@@ -69,9 +70,10 @@ def plan_next_map(
 
     Returns (next_map, warnings), warnings keyed by partition name
     (constraint shortfalls degrade to warnings, reference
-    plan.go:231-235).  ``sparse=None`` resolves to the dense engine while
-    the sparse engine is not ported.  ``timings`` receives the phase
-    wall times (see plan_next_map_cuda)."""
+    plan.go:231-235).  ``sparse=None`` picks the sparse engine once the
+    dense matrix engine's projected footprint passes the budget and the
+    rules nest.  ``timings`` receives the phase wall times, the engine
+    and its counts (see plan_next_map_cuda)."""
     if model is None:
         raise ValueError("model is required")
     if backend not in ("cuda", "auto"):

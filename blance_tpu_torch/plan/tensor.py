@@ -8,15 +8,21 @@ waterfall -> capacity top-up), then a force step, the whole sweep
 iterated to a fixpoint.  See the reference module's docstring for the
 score formula and the auction's rules.
 
-Two score engines sit behind ``_assign_slot``'s callables:
+Three score engines sit behind ``_assign_slot``'s callables:
 
 - "off" (the matrix engine): the [P, N] score matrix is built in plain
   PyTorch once per slot and reduced each round by the priced min2 kernel
   (ops/reduce2.py, csrc/min2.cu);
 - "on" (the fused engine): the score is evaluated inside the kernel
-  (ops/score_fused.py, csrc/score_fused.cu) and the matrix never exists.
+  (ops/score_fused.py, csrc/score_fused.cu) and the matrix never exists;
+- the sparse shortlist engine (``solve_sparse``): the same score formula
+  evaluated only at each row's K candidate columns (core/shortlist.py),
+  reduced each round by the sparse min2 kernel (ops/sparse2.py,
+  csrc/sparse_min2.cu), with fill, price and capacity kept at full [N]
+  width.  Rows whose shortlist cannot serve a slot are re-placed by a
+  per-row dense fallback on the host.
 
-On CPU tensors both kernels run their plain PyTorch versions; on CUDA
+On CPU tensors the kernels run their plain PyTorch versions; on CUDA
 tensors they launch the CUDA kernels.
 
 What JAX compiles into one program runs here eagerly: ``lax.while_loop``
@@ -31,8 +37,8 @@ are exact in any order, so atomic ``index_add_`` order on CUDA cannot
 change them); stable argsorts where JAX's are stable (all of them); and
 the fill/jitter rounding of ops/score_fused.py (``fill_scale``,
 ``jitter_add``).  Not ported here: node-axis and partition-axis
-sharding, the sparse engine, warm carries, shape bucketing and the
-fused pipeline.
+sharding, warm carries (dense and sparse), shape bucketing and the
+fused pipelines.
 """
 
 from __future__ import annotations
@@ -45,8 +51,15 @@ import numpy as np
 import torch
 
 from ..core.encode import NPArray, decode_assignment, encode_problem
+from ..core.shortlist import (
+    auto_shortlist_k,
+    build_shortlist_core,
+    shortlist_rules_nest,
+)
 from ..core.types import PartitionMap, PartitionModel, PlanOptions
+from ..ops import launch_counts
 from ..ops.reduce2 import priced_min2_argmin
+from ..ops.sparse2 import sparse_priced_min2
 from ..convert import problem_to_torch
 from ..ops.score_fused import (
     _ROW_CELLS,
@@ -61,7 +74,9 @@ from .audit import maybe_validate
 __all__ = ["plan_next_map_cuda", "solve_dense", "solve_dense_converged",
            "solve_converged_resilient", "resolve_fused_score",
            "set_fused_score_default", "check_dense_memory",
-           "DenseScoreMemoryError", "projected_score_bytes"]
+           "DenseScoreMemoryError", "projected_score_bytes",
+           "set_dense_score_budget", "dense_score_budget_bytes",
+           "solve_sparse", "sparse_rules_supported"]
 
 Constraints = tuple[int, ...]
 StateRules = tuple[tuple[int, int], ...]
@@ -120,6 +135,26 @@ def resolve_fused_score(mode: str, p: int, n: int,
 
 # --- dense-memory guard ------------------------------------------------------
 
+# Byte budget of the guard and of the sparse auto-routing; None = 60% of
+# the device's memory.
+_DENSE_GUARD_BUDGET: Optional[int] = None
+
+
+def set_dense_score_budget(n_bytes: Optional[int]) -> None:
+    """Override the dense-memory budget (None = derive from the device
+    again)."""
+    global _DENSE_GUARD_BUDGET
+    if n_bytes is not None and int(n_bytes) <= 0:
+        raise ValueError(f"budget must be positive, got {n_bytes}")
+    _DENSE_GUARD_BUDGET = None if n_bytes is None else int(n_bytes)
+
+
+def dense_score_budget_bytes(device: torch.device) -> int:
+    """The byte budget the dense-memory guard enforces on ``device``."""
+    if _DENSE_GUARD_BUDGET is not None:
+        return _DENSE_GUARD_BUDGET
+    return int(_HBM_BUDGET_FRACTION * _device_hbm_bytes(device))
+
 
 def projected_score_bytes(p: int, n: int) -> int:
     return int(p) * int(n) * _MATRIX_BYTES_PER_CELL
@@ -140,17 +175,19 @@ class DenseScoreMemoryError(ValueError):
             f"{projected_bytes / 2**30:.1f} GiB of [P, N] intermediates "
             f"(P={p}, S={s}, N={n}, ~{_MATRIX_BYTES_PER_CELL} B/cell) — "
             f"over the {budget_bytes / 2**30:.1f} GiB budget; use the "
+            f"sparse shortlist engine (PlanOptions(sparse=True)) or the "
             f"in-kernel fused engine (set_fused_score_default('on'))")
 
 
 def check_dense_memory(p: int, s: int, n: int, engine: str,
                        device: torch.device) -> None:
     """Raise DenseScoreMemoryError when the MATRIX engine is about to
-    materialize a [P, N] score sweep past 60% of the device's memory."""
+    materialize a [P, N] score sweep past the budget (60% of the
+    device's memory unless overridden)."""
     if engine != "off":
         return
     projected = projected_score_bytes(p, n)
-    budget = int(_HBM_BUDGET_FRACTION * _device_hbm_bytes(device))
+    budget = dense_score_budget_bytes(device)
     if projected > budget:
         raise DenseScoreMemoryError(projected, budget, (p, s, n))
 
@@ -436,6 +473,53 @@ def _pin_prev_holders(
     return _scatter_set(p, perm, keep_s)
 
 
+def _sparse_score_cols(
+    cols: torch.Tensor,  # [M, K] GLOBAL node ids; -1 = pad (scores +_INF)
+    rows: torch.Tensor,  # [M] row ids (global partition ids: one device)
+    *,
+    total: torch.Tensor,  # [N] fill vector
+    total_p: int,  # partition count (see fill_scale)
+    w_div: torch.Tensor,  # [N]
+    neg_boost: torch.Tensor,  # [N]
+    valid: torch.Tensor,  # [N] bool
+    gids: torch.Tensor,
+    gid_valid: torch.Tensor,
+    stick_si: torch.Tensor,  # [P]
+    prev_slot: torch.Tensor,  # [P] global ids
+    prev_state: torch.Tensor,  # [P, R]
+    taken_ids: tuple[torch.Tensor, ...],
+    anchors: Optional[torch.Tensor],  # [P, A] (rules only)
+    rules: StateRules,
+    jitter_scale: float,
+) -> torch.Tensor:
+    """The matrix engine's score formula at gathered columns, [M, K]:
+    term order as ``_matrix_score``, so a saturating shortlist (row r's
+    columns = 0..N-1) gives the dense matrix bitwise.  Pad columns score
+    +_INF like any forbidden node.  O(M * K); no [P, N] tensor."""
+    n = w_div.shape[0]
+    c = cols.clamp(0, n - 1)
+    cl = c.long()
+    okc = cols >= 0
+    st = stick_si[rows][:, None]
+    score = (total[cl] * fill_scale(total_p)) / w_div[cl]
+    score = score - 0.01 * ((prev_slot[rows][:, None] == cols) & okc)
+    nb = neg_boost[cl]
+    score = score + torch.maximum(nb, torch.where(nb > 0, st, 0.0))
+    sticky = torch.zeros(cols.shape, dtype=torch.bool, device=cols.device)
+    for r in range(prev_state.shape[1]):
+        sticky = sticky | ((prev_state[rows, r][:, None] == cols) & okc)
+    score = score - st * sticky
+    if rules:
+        score = score + _hier_tier_at(anchors[rows], c, gids, gid_valid,
+                                      rules)
+    taken = torch.zeros(cols.shape, dtype=torch.bool, device=cols.device)
+    for tid in taken_ids:
+        taken = taken | ((tid[rows][:, None] == cols) & okc)
+    score = score + _INF * (taken | ~valid[cl] | ~okc)
+    pi = rows[:, None].to(torch.int32)
+    return jitter_add(score, pi, c.to(torch.int32), jitter_scale)
+
+
 def _assign_slot(
     min2_fn: Callable,  # price_vec[N] -> (best, choice, second, raw)
     score_at_fn: Callable,  # (rows[K], cols[K]) -> unpriced score [K]
@@ -448,6 +532,9 @@ def _assign_slot(
     topup_share: Optional[torch.Tensor] = None,  # [N] top-up share
     has_rules: bool = True,
     feasible_hint: Optional[torch.Tensor] = None,  # [P] bool
+    allow: Optional[torch.Tensor] = None,  # [P] bool: rows that may take
+    # this slot at all (the sparse engine's shortlist gate); the others
+    # neither bid nor get forced and stay -1
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Auction: returns (slot_assign[P] int32 node id or -1, used[N]).
 
@@ -468,6 +555,8 @@ def _assign_slot(
     else:
         raw_best_all = None
         hard_feasible = feasible_hint
+    if allow is not None and hard_feasible is not None:
+        hard_feasible = hard_feasible & allow
 
     if init_assign is None:
         init_assign = torch.full((p,), -1, dtype=torch.int32, device=dev)
@@ -493,6 +582,8 @@ def _assign_slot(
             active = unassigned & (best < _INF / 2) & rule_ok
         else:
             active = unassigned & (best < _INF / 2)
+        if allow is not None:
+            active = active & allow
 
         # Sort bidders by (node, urgency desc) via two stable argsorts;
         # inactive bidders sort to the end.
@@ -569,6 +660,8 @@ def _assign_slot(
     if bool(unassigned.any()):
         best, choice, _second, _raw = min2_fn(used * price_scale)
         forced = unassigned & (best < _INF / 2)
+        if allow is not None:
+            forced = forced & allow
         slot_assign = torch.where(forced, choice, slot_assign)
         used = used + _scatter_add(n, choice, torch.where(forced, pweights,
                                                           0.0))
@@ -620,14 +713,25 @@ def _solve_assign(
     constraints: Constraints,
     rules: Rules,
     fused_score: str = "off",
-) -> torch.Tensor:
-    """One assignment sweep on one device; returns assign[P, S, R].
-    The dense branches of the reference's _solve_assign."""
+    shortlist: Optional[torch.Tensor] = None,  # [P, K] GLOBAL candidate
+    # node ids (-1 pads), ascending per row: the sparse engine
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One assignment sweep on one device; returns (assign[P, S, R],
+    exhausted[P]).  ``exhausted`` is all-False on the dense engines; on
+    the sparse engine it flags rows whose shortlist could not reach the
+    globally attainable rule tier (or had no feasible candidate) for
+    some slot, for the per-row dense fallback.  The single-device
+    branches of the reference's _solve_assign."""
     p, s, r_max = prev.shape
     n = nweights.shape[0]
     dev = prev.device
     if fused_score not in ("off", "on"):
         raise ValueError(f"unresolved fused-score mode: {fused_score!r}")
+    if shortlist is not None and not sparse_rules_supported(rules):
+        raise ValueError(
+            "sparse solve requires nesting hierarchy rules "
+            "(exclude_level < include_level for every rule); use the "
+            "dense engines for exotic rule shapes")
     if constraints and max(constraints) > r_max:
         raise ValueError(
             f"prev slot depth R={r_max} < max constraints {max(constraints)}")
@@ -643,6 +747,7 @@ def _solve_assign(
                          for si in range(s)]).sum(dim=0)
 
     assign = torch.full((p, s, r_max), -1, dtype=torch.int32, device=dev)
+    exhausted = torch.zeros(p, dtype=torch.bool, device=dev)
     taken_ids: list[torch.Tensor] = []
     top_anchor = prev[:, 0, 0]
     arange_p = torch.arange(p, device=dev)
@@ -730,14 +835,15 @@ def _solve_assign(
                 # no score, no auction.
                 slot_assign, used = init_assign, pin_used
             else:
-                slot_assign, used = _run_auction(
+                slot_assign, used, exh_slot = _run_auction(
                     fused_score, p, n, total, w_div, neg_boost, valid,
                     stickiness[:, si],
                     prev[:, si, ri] if ri < r_max else
                     torch.full((p,), -1, dtype=torch.int32, device=dev),
                     prev_state_ids, anchors, gids, gid_valid, rules[si],
                     tuple(taken_ids), pweights, total_w, cap_share,
-                    init_assign, pin_used)
+                    init_assign, pin_used, shortlist)
+                exhausted = exhausted | exh_slot
 
             assign[:, si, ri] = slot_assign
             total = total + used
@@ -747,18 +853,44 @@ def _solve_assign(
                 taken_ids.append(slot_assign)
             if rules[si]:
                 anchors[:, 1 + ri] = slot_assign
-    return assign
+    return assign, exhausted
 
 
 def _run_auction(fused_score, p, n, total, w_div, neg_boost, valid,
                  stick_si, prev_slot, prev_state_ids, anchors, gids,
                  gid_valid, state_rules, taken_ids, pweights, total_w,
-                 cap_share, init_assign, pin_used):
-    """Score + auction + force for one slot, through either engine."""
+                 cap_share, init_assign, pin_used, shortlist=None):
+    """Score + auction + force for one slot, through any engine; returns
+    (slot_assign, used, exhausted[P] for this slot)."""
     dev = total.device
     anchors_k = anchors if state_rules else \
         torch.full((p, 1), -1, dtype=torch.int32, device=dev)
-    if fused_score == "on":
+    if shortlist is not None:
+        # Sparse engine: the matrix formula at the [P, K] shortlist
+        # columns only; phase B's probes outside a row's shortlist score
+        # +_INF, so stragglers never leave their candidate set.
+        cand = shortlist
+        cand_c = cand.clamp(0, n - 1).long()
+        score_kw = dict(
+            total=total, total_p=p, w_div=w_div, neg_boost=neg_boost,
+            valid=valid, gids=gids, gid_valid=gid_valid, stick_si=stick_si,
+            prev_slot=prev_slot, prev_state=prev_state_ids,
+            taken_ids=taken_ids, anchors=anchors_k, rules=state_rules,
+            jitter_scale=_JITTER)
+        score_pk = _sparse_score_cols(cand, torch.arange(p, device=dev),
+                                      **score_kw)
+
+        def min2_fn(price_vec):
+            b, kidx, s2, raw = sparse_priced_min2(score_pk, price_vec[cand_c])
+            choice = cand.gather(1, kidx.long()[:, None])[:, 0].clamp(min=0)
+            return b, choice, s2, raw
+
+        def score_at_fn(rows, cols_global):
+            vals = _sparse_score_cols(cols_global[:, None], rows,
+                                      **score_kw)[:, 0]
+            in_sl = (cand[rows] == cols_global[:, None]).any(dim=1)
+            return torch.where(in_sl, vals, _INF)
+    elif fused_score == "on":
         si_pack = pack_score_inputs(
             total_l=total, total_p=p, w_div_l=w_div, neg_boost_l=neg_boost,
             valid_l=valid, stickiness_si=stick_si, prev_slot=prev_slot,
@@ -805,11 +937,35 @@ def _run_auction(fused_score, p, n, total, w_div, neg_boost, valid,
             tkn += ((tid >= 0) & valid[tid.clamp(0, n - 1).long()]) \
                 .to(torch.int32)
         feasible_hint = tkn < n_valid_total
+    allow = None
+    exh_slot = torch.zeros(p, dtype=torch.bool, device=dev)
+    if shortlist is not None:
+        # Shortlist adequacy against GLOBAL state: a row takes this slot
+        # only when its shortlist best reaches the globally attainable
+        # rule tier (group-counting floor, taken-aware) or, rule-less,
+        # offers a feasible candidate while one exists anywhere.  The
+        # others sit the slot out and are flagged for the fallback.
+        raw_best_sl = score_pk.amin(dim=1)
+        if state_rules:
+            floor_sl = _hier_floor_counts(
+                anchors, gids, gid_valid, valid, state_rules,
+                taken_stack=(torch.stack(list(taken_ids), dim=1)
+                             if taken_ids else None))
+            allow = raw_best_sl < floor_sl + _RULE_TIER * 0.5
+        else:
+            sl_feas = raw_best_sl < _INF / 2
+            allow = sl_feas | ~feasible_hint
+            # Top-up weighs shortlist-feasible rows, not the globally
+            # feasible ones the gate excluded.
+            feasible_hint = sl_feas
+        exh_slot = (init_assign < 0) & ~allow
     cap = torch.ceil(total_w * cap_share)
-    return _assign_slot(
+    slot_assign, used = _assign_slot(
         min2_fn, score_at_fn, p, pweights, cap, 1.0 / w_div,
         init_assign=init_assign, init_used=pin_used, topup_share=cap_share,
-        has_rules=bool(state_rules), feasible_hint=feasible_hint)
+        has_rules=bool(state_rules), feasible_hint=feasible_hint,
+        allow=allow)
+    return slot_assign, used, exh_slot
 
 
 def solve_dense(prev, pweights, nweights, valid, stickiness, gids,
@@ -817,7 +973,7 @@ def solve_dense(prev, pweights, nweights, valid, stickiness, gids,
                 fused_score: str = "off") -> torch.Tensor:
     """Solve the whole placement problem once; returns assign[P, S, R]."""
     return _solve_assign(prev, pweights, nweights, valid, stickiness, gids,
-                         gid_valid, constraints, rules, fused_score)
+                         gid_valid, constraints, rules, fused_score)[0]
 
 
 def _solve_dense_converged_impl(prev, pweights, nweights, valid, stickiness,
@@ -942,6 +1098,311 @@ def solve_converged_resilient(
     return out, mode
 
 
+# --- sparse shortlist solve --------------------------------------------------
+#
+# The dense engines score [P, N] per slot; 1M partitions x 10k nodes is a
+# 200 GB matrix-engine working set.  The sparse engine scores only a
+# [P, K] candidate shortlist (core/shortlist.py) while fill, price and
+# capacity stay full [N] width, so acceptance and the audit contracts
+# run against global state.  Rows whose shortlist cannot serve a slot
+# are flagged and re-placed by a per-row dense fallback on the host.  A
+# saturating K = N shortlist is bitwise the dense matrix engine.
+
+
+def sparse_rules_supported(rules: Rules) -> bool:
+    """True when the sparse engine can solve these rules (every exclude
+    level strictly finer than its include level)."""
+    return shortlist_rules_nest(rules)
+
+
+def _solve_sparse_converged_impl(prev, pweights, nweights, valid,
+                                 stickiness, gids, gid_valid, shortlist,
+                                 constraints, rules,
+                                 max_iterations: int = 10):
+    """The sparse fixpoint; returns (assign, sweeps, exhausted[P]).  The
+    exhaustion flags are the LAST executed sweep's: rows still unservable
+    at the fixpoint, which the host fallback re-places."""
+    def solve(x):
+        return _solve_assign(x, pweights, nweights, valid, stickiness, gids,
+                             gid_valid, constraints, rules, "off",
+                             shortlist=shortlist)
+
+    (out, exh), prev_i, it = solve(prev), prev, 1
+    while it < max_iterations and bool((out != prev_i).any()):
+        (new, exh), prev_i, it = solve(out), out, it + 1
+        out = new
+    return out, it, exh
+
+
+# Cells of one [B, N] score block in the host fallback; a slot's rows are
+# scored in chunks below this (bitwise the same: see _sparse_fallback_rows).
+_FALLBACK_CELLS = 1 << 26
+
+
+# Host numpy copy of blance_tpu/plan/tensor.py:2291 _sparse_fallback_rows,
+# with a slot's rows scored in chunks.
+def _sparse_fallback_rows(
+    assign: NPArray,  # [P, S, R] the sparse result (NOT mutated)
+    rows: NPArray,  # indices of exhausted rows
+    prev: NPArray,
+    pweights: NPArray,
+    nweights: NPArray,
+    valid: NPArray,
+    stickiness: NPArray,
+    gids: NPArray,
+    gid_valid: NPArray,
+    constraints: Constraints,
+    rules: Rules,
+) -> NPArray:
+    """Per-row DENSE fallback for shortlist-exhausted partitions.
+
+    Discards the flagged rows' sparse placements and re-places every slot
+    in order against the full node axis (anchors, taken set and rule
+    tiers as the audit judges them), priced by the live global fill so
+    the fallback rows spread.  Within one slot every row reads ``total``
+    and ``used_s`` from before the slot, and the slot's updates land
+    after all its rows chose; so scoring a slot's rows in chunks of at
+    most _FALLBACK_CELLS cells, then updating once, is bitwise the
+    reference's one [B, N] block.  Returns a patched copy."""
+    assign = np.array(np.asarray(assign), copy=True)
+    rows = np.asarray(rows)
+    P, S, R = assign.shape
+    nw = np.asarray(nweights, np.float32)
+    n = nw.shape[0]
+    if rows.size == 0 or n == 0:
+        return assign
+    pw = np.asarray(pweights, np.float32)
+    valid = np.asarray(valid, bool)
+    gids = np.asarray(gids)
+    gid_valid = np.asarray(gid_valid)
+    w_div = np.where(nw > 0, nw, 1.0)
+    neg_boost = np.maximum(-nw, 0.0)
+
+    kept = assign.copy()
+    kept[rows] = -1
+    used_s = np.zeros((S, n), np.float32)
+    for si in range(S):
+        ids = kept[:, si, :]
+        m = ids >= 0
+        if m.any():
+            w_rep = np.broadcast_to(pw[:, None], ids.shape)
+            used_s[si] = np.bincount(
+                ids[m].ravel(), weights=w_rep[m].ravel(),
+                minlength=n)[:n].astype(np.float32)
+    total = used_s.sum(axis=0)
+
+    B = rows.size
+    prev_b = np.asarray(prev)[rows]
+    stick_b = np.asarray(stickiness, np.float32)[rows]
+    pw_b = pw[rows]
+    top_anchor = prev_b[:, 0, 0]
+    new_rows = np.full((B, S, R), -1, np.int32)
+    taken: list[NPArray] = []
+    step = max(1, _FALLBACK_CELLS // n)
+
+    def pick_rows(lo, hi, si, prev_slot, anchors, rules_si):
+        """Choices of rows [lo, hi) for slot si (-1 where infeasible)."""
+        ar = np.arange(hi - lo)
+        score = (0.001 * total[None, :] / max(float(P), 1.0)) \
+            / w_div[None, :]
+        align = np.zeros((hi - lo, n), bool)
+        ps = prev_slot[lo:hi]
+        hold = ps >= 0
+        align[ar[hold], ps[hold]] = True
+        score = score - 0.01 * align
+        st = stick_b[lo:hi, si][:, None]
+        score = score + np.maximum(
+            neg_boost[None, :],
+            np.where(neg_boost[None, :] > 0, st, 0.0))
+        sticky = np.zeros((hi - lo, n), bool)
+        for r in range(prev_b.shape[2]):
+            ps = prev_b[lo:hi, si, r]
+            hold = ps >= 0
+            sticky[ar[hold], ps[hold]] = True
+        score = score - st * sticky
+        if rules_si:
+            pen = np.full((hi - lo, n), _RULE_MISS, np.float32)
+            for idx, (inc, exc) in enumerate(rules_si):
+                sat = np.ones((hi - lo, n), bool)
+                for a in anchors:
+                    a = a[lo:hi]
+                    aa = np.clip(a, 0, n - 1)
+                    inc_same = (gids[inc][aa][:, None]
+                                == gids[inc][None, :]) \
+                        & gid_valid[inc][aa][:, None]
+                    exc_same = (gids[exc][aa][:, None]
+                                == gids[exc][None, :]) \
+                        & gid_valid[exc][aa][:, None]
+                    sat &= np.where((a >= 0)[:, None],
+                                    inc_same & ~exc_same, True)
+                pen = np.where(sat, np.minimum(pen, idx * _RULE_TIER), pen)
+            any_anchor = np.zeros(hi - lo, bool)
+            for a in anchors:
+                any_anchor |= a[lo:hi] >= 0
+            score = score + np.where(any_anchor[:, None], pen, 0.0)
+        tk = np.zeros((hi - lo, n), bool)
+        for t in taken:
+            t = t[lo:hi]
+            held = t >= 0
+            tk[ar[held], t[held]] = True
+        score = score + _INF * (tk | ~valid[None, :])
+        # Price by the state's live global fill so concurrent fallback
+        # rows spread (the force step's pricing idiom).
+        score = score + used_s[si][None, :] / w_div[None, :]
+        choice = np.argmin(score, axis=1).astype(np.int32)
+        feas = score[ar, choice] < _INF / 2
+        return np.where(feas, choice, -1).astype(np.int32)
+
+    for si in range(S):
+        kcon = int(constraints[si])
+        if kcon <= 0:
+            continue
+        rules_si = list(rules[si]) if si < len(rules) else []
+        anchors: list[NPArray] = []
+        if rules_si:
+            base = top_anchor if si == 0 else np.where(
+                new_rows[:, 0, 0] >= 0, new_rows[:, 0, 0], top_anchor)
+            anchors = [base]
+        for ri in range(min(kcon, R)):
+            prev_slot = prev_b[:, si, ri] if ri < prev_b.shape[2] \
+                else np.full(B, -1, np.int32)
+            pick = np.concatenate([
+                pick_rows(lo, min(B, lo + step), si, prev_slot, anchors,
+                          rules_si) for lo in range(0, B, step)])
+            feas = pick >= 0
+            new_rows[:, si, ri] = pick
+            placed = pick[feas]
+            np.add.at(used_s[si], placed, pw_b[feas])
+            np.add.at(total, placed, pw_b[feas])
+            taken.append(pick)
+            if rules_si:
+                anchors.append(pick)
+    assign[rows] = new_rows
+    return assign
+
+
+def _np(x) -> NPArray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _apply_sparse_fallback(assign: NPArray, exhausted: NPArray, prev,
+                           pweights, nweights, valid, stickiness, gids,
+                           gid_valid, constraints, rules
+                           ) -> tuple[NPArray, int]:
+    """Route flagged rows through the dense fallback; returns (patched
+    assign, rows whose placement the fallback changed)."""
+    rows = np.nonzero(np.asarray(exhausted))[0]
+    if rows.size == 0:
+        return np.asarray(assign), 0
+    patched = _sparse_fallback_rows(
+        assign, rows, _np(prev), _np(pweights), _np(nweights), _np(valid),
+        _np(stickiness), _np(gids), _np(gid_valid), constraints, rules)
+    replaced = int(np.any(
+        patched[rows] != np.asarray(assign)[rows], axis=(1, 2)).sum())
+    return patched, replaced
+
+
+def _build_or_adopt_shortlist(prev, pweights, nweights, valid, gids,
+                              gid_valid, constraints, rules, shortlist,
+                              k) -> torch.Tensor:
+    """Adopt a caller-built [P, K] table (moved to prev's device) or
+    derive one with ``k`` columns (auto-sized when None)."""
+    if shortlist is None:
+        n = nweights.shape[-1]
+        kk = int(k) if k is not None \
+            else auto_shortlist_k(n, constraints, rules)
+        return build_shortlist_core(prev, pweights, nweights, valid, gids,
+                                    gid_valid, constraints, rules, kk)
+    return torch.as_tensor(shortlist, dtype=torch.int32, device=prev.device)
+
+
+def solve_sparse(
+    prev, pweights, nweights, valid, stickiness, gids, gid_valid,
+    constraints, rules, *, shortlist=None, k: Optional[int] = None,
+    max_iterations: int = 10, carry_used=None, return_carry: bool = False,
+    p_real=None, stats: Optional[dict] = None,
+) -> NPArray:
+    """Sparse converged solve, cold: shortlist -> [P, S, K] auction ->
+    per-row dense fallback for exhausted rows.  Same positional
+    contract as solve_dense_converged (tensors on one device); returns
+    the assignment as numpy.
+
+    ``shortlist`` adopts a caller-built [P, K] table; otherwise one is
+    derived with ``k`` columns (auto-sized when None).  A saturating
+    K >= N is bitwise the dense matrix engine.  The sparse min2 runs its
+    CUDA kernel on a card and its plain version on the CPU: the tensors'
+    device decides (the reference's ``sparse_impl`` has no counterpart).
+    ``stats``, when given, receives sweeps, k, shortlist_s (build wall
+    time, device synchronised), exhausted_rows (the last sweep's flags)
+    and fallback_rows (rows the fallback changed)."""
+    if carry_used is not None or return_carry:
+        raise NotImplementedError(
+            "warm sparse solves (carry_used / return_carry) are not "
+            "ported (ROADMAP A.4)")
+    if p_real is not None:
+        raise NotImplementedError(
+            "p_real (shape bucketing) is not ported (ROADMAP A.13)")
+    constraints = tuple(int(c) for c in constraints)
+    rules = tuple(tuple(r) for r in rules)
+    if not sparse_rules_supported(rules):
+        raise ValueError(
+            "sparse solve requires nesting hierarchy rules "
+            "(exclude_level < include_level); use the dense engines")
+    _check_tier_band_scale(prev, pweights, nweights, valid, stickiness,
+                           constraints, rules)
+    t0 = time.perf_counter()
+    shortlist = _build_or_adopt_shortlist(
+        prev, pweights, nweights, valid, gids, gid_valid, constraints,
+        rules, shortlist, k)
+    _sync(prev.device)
+    shortlist_s = time.perf_counter() - t0
+    out, sweeps, exh = _solve_sparse_converged_impl(
+        prev, pweights, nweights, valid, stickiness, gids, gid_valid,
+        shortlist, constraints, rules, max(int(max_iterations), 1))
+    out_np = out.cpu().numpy()
+    exh_np = exh.cpu().numpy()
+    out_np, replaced = _apply_sparse_fallback(
+        out_np, exh_np, prev, pweights, nweights, valid, stickiness, gids,
+        gid_valid, constraints, rules)
+    if stats is not None:
+        stats.update(sweeps=sweeps, k=int(shortlist.shape[1]),
+                     shortlist_s=shortlist_s,
+                     exhausted_rows=int(exh_np.sum()),
+                     fallback_rows=replaced)
+    return out_np
+
+
+def _sparse_selected(opts: PlanOptions, p: int, n: int, rules: Rules,
+                     device: torch.device) -> bool:
+    """Route a plan through the sparse engine?  ``opts.sparse`` True or
+    False forces it (True with non-nesting rules is an error); None =
+    sparse exactly when the matrix engine's projected [P, N] footprint
+    exceeds the budget and the rules nest."""
+    sel = opts.sparse
+    if sel is False:
+        return False
+    nest = sparse_rules_supported(rules)
+    if sel:
+        if not nest:
+            raise ValueError(
+                "PlanOptions(sparse=True) requires nesting hierarchy "
+                "rules (exclude_level < include_level for every rule)")
+        return True
+    return nest and projected_score_bytes(p, n) > \
+        dense_score_budget_bytes(device)
+
+
+def _opts_shortlist_k(opts: PlanOptions, n: int, constraints: Constraints,
+                      rules: Rules) -> int:
+    """PlanOptions.sparse_k, or the auto-derived K."""
+    k = opts.sparse_k
+    if k is not None:
+        if int(k) < 1:
+            raise ValueError(f"PlanOptions.sparse_k must be >= 1, got {k}")
+        return min(int(k), max(n, 1))
+    return auto_shortlist_k(n, constraints, rules)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -960,11 +1421,16 @@ def plan_next_map_cuda(
     timings: Optional[dict] = None,
 ) -> tuple[PartitionMap, dict[str, list[str]]]:
     """The batched planner on one device: encode on the host, the
-    converged dense solve on ``device``, the audit, decode.  Same inputs
-    and outputs as the reference's plan_next_map_tpu.  ``timings``, when
-    given, receives encode_s / solve_s / audit_s / decode_s wall times (the device
-    synchronised before each clock read), the engine that ran and the
-    sweep count."""
+    converged solve on ``device`` (the sparse engine when
+    ``opts.sparse`` asks for it or, with ``sparse=None``, when the
+    matrix engine's projected footprint exceeds the budget and the rules
+    nest; else a dense engine), the audit, decode.  Same inputs and
+    outputs as the reference's plan_next_map_tpu.  ``timings``, when
+    given, receives encode_s / solve_s / audit_s / decode_s wall times
+    (the device synchronised before each clock read), the engine that
+    ran ("matrix", "fused" or "sparse"), the sweep count and the kernel
+    launches of the solve; on the sparse engine also k, shortlist_s,
+    exhausted_rows and fallback_rows (see solve_sparse)."""
     opts = opts or PlanOptions()
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -990,13 +1456,22 @@ def plan_next_map_cuda(
         problem.valid_node, problem.stickiness, problem.gids,
         problem.gid_valid, device=device)
     stats: dict = {}
-    assign, engine = solve_converged_resilient(
-        *args, constraints, rules,
-        max_iterations=max(int(opts.max_iterations), 1),
-        mode=resolve_fused_score(_FUSED_SCORE_DEFAULT, problem.P, problem.N,
-                                 device),
-        allow_fallback=_FUSED_SCORE_DEFAULT == "auto",
-        context="plan_next_map_cuda", stats=stats)
+    launches0 = launch_counts()
+    max_iterations = max(int(opts.max_iterations), 1)
+    if _sparse_selected(opts, problem.P, problem.N, rules, device):
+        assign = solve_sparse(
+            *args, constraints, rules,
+            k=_opts_shortlist_k(opts, problem.N, constraints, rules),
+            max_iterations=max_iterations, stats=stats)
+        engine = "sparse"
+    else:
+        assign, mode = solve_converged_resilient(
+            *args, constraints, rules, max_iterations=max_iterations,
+            mode=resolve_fused_score(_FUSED_SCORE_DEFAULT, problem.P,
+                                     problem.N, device),
+            allow_fallback=_FUSED_SCORE_DEFAULT == "auto",
+            context="plan_next_map_cuda", stats=stats)
+        engine = {"off": "matrix", "on": "fused"}[mode]
     _sync(device)
     stamps["t2"] = time.perf_counter()
     maybe_validate(problem, assign, opts.validate_assignment,
@@ -1011,6 +1486,8 @@ def plan_next_map_cuda(
             solve_s=stamps["t2"] - stamps["t1"],
             audit_s=stamps["t2a"] - stamps["t2"],
             decode_s=stamps["t3"] - stamps["t2a"],
-            engine={"off": "matrix", "on": "fused"}[engine],
-            sweeps=stats.get("sweeps"))
+            engine=engine,
+            launches={name: c - launches0[name]
+                      for name, c in launch_counts().items()},
+            **stats)
     return result

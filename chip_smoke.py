@@ -11,15 +11,25 @@ nothing of jax or of the JAX package.  In order:
    bitwise: the priced min2 at [100000, 10000] (quantized scores, many
    ties) and at a ragged [4099, 777]; the in-kernel score at
    [100000, 10000] with one rack rule and two anchors, all four outputs;
-3. drives plan_next_map(backend="cuda") at the north-star deployment
+   the sparse min2 at [1000000, 16] (ties, +inf pad columns, all-+inf
+   rows), [4099, 37] and [7, 1], all four outputs;
+3. small plans on the card equal the plain CPU path's map for map (both
+   dense engines, and the sparse engine with K < N), and a saturating
+   K = N sparse plan equals the dense matrix engine's;
+4. drives plan_next_map(backend="cuda") at the north-star deployment
    (100k partitions x 10k nodes, primary + 1 replica, racks of 25 under
    one zone, replica on another rack, 5% of nodes removed) on the engine
-   auto picks, then again on the in-kernel score engine; each run must
-   pass the audit with every count 0, place nothing on a removed node,
-   fill every slot, and launch its engine's kernel.  A small plan on the
-   card must equal the plain CPU path's map for map;
-4. prints one JSON line of kernel measurements, the card's name and
-   power limit, and last ``{"ok": true, "device": {...}}``.
+   auto picks, then again on the in-kernel score engine;
+5. builds the sparse deployment's shortlist (the same shape at 1M
+   partitions x 10k nodes) and runs its converged sparse solve on the
+   card and on the CPU, array for array equal, then drives
+   plan_next_map(backend="cuda") there with ``sparse=None``, which must
+   route to the sparse engine.  Every main-path run must pass the audit
+   with every count 0, place nothing on a removed node, fill every slot,
+   and launch its engine's kernel;
+6. prints one JSON line of kernel measurements, the card's name and
+   power limit, the script's wall time, and last
+   ``{"ok": true, "device": {...}}``.
 
 After the checked runs, one more main-path run per engine goes under
 torch.profiler, for the device's kernel time beside the solve's wall
@@ -42,10 +52,12 @@ import torch
 
 import blance_tpu_torch as bt
 from blance_tpu_torch.ops import _build, launch_counts, reset_launch_counts
-from blance_tpu_torch.ops import reduce2, score_fused
+from blance_tpu_torch.core.shortlist import build_shortlist_core
+from blance_tpu_torch.ops import reduce2, score_fused, sparse2
 from blance_tpu_torch.plan import tensor as T
 
 P_MAIN, N_MAIN = 100_000, 10_000
+P_SPARSE = 1_000_000  # the sparse engine's deployment: 1M x 10k
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12      # float32 outside the tensor cores, same sheet
 
@@ -178,10 +190,46 @@ def check_fused(dev: torch.device) -> dict:
     return out
 
 
-def north_star_map():
-    """The bench.py build_dense deployment as a PartitionMap, seed 0."""
+def check_sparse_min2(dev: torch.device) -> dict:
+    """The sparse min2 kernel against its plain version, all four
+    outputs bitwise, at the sparse main path's [1M, 16] and two ragged
+    shapes; timed at [1M, 16]."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    out = {}
+    for p, k in ((P_SPARSE, 16), (4099, 37), (7, 1)):
+        # Quantized scores (many ties), +inf pad columns at the tail of
+        # every eighth row and whole +inf rows, as the engine makes them.
+        score = torch.randint(0, 40, (p, k), generator=gen, device=dev) \
+            .to(torch.float32) * 0.125
+        price = torch.randint(0, 6, (p, k), generator=gen, device=dev) \
+            .to(torch.float32) * 0.25
+        if k > 4:
+            score[::8, -3:] = float("inf")
+        score[3::97] = float("inf")
+        got = sparse2.sparse_priced_min2(score, price)
+        want = sparse2.sparse_min2_reference(score, price)
+        err = compare(got, want, f"sparse_priced_min2 [{p}, {k}]")
+        log(f"sparse min2 kernel == plain at [{p}, {k}] (bitwise, 4 outputs)")
+        if p == P_SPARSE:
+            out = dict(
+                max_abs_err=err,
+                ms=time_ms(lambda: sparse2.sparse_priced_min2(score, price)),
+                plain_ms=time_ms(lambda: sparse2.sparse_min2_reference(
+                    score, price), reps=3),
+                library_ms=time_ms(lambda: torch.topk(
+                    score + price, 2, dim=1, largest=False), reps=3))
+            # score and price read once, four [P] outputs written; a price
+            # add and two compares per element.
+            out.update(_bound(p * k * 8 + p * 16, p * k * 3))
+        del score, price, got, want
+    return out
+
+
+def north_star_map(p: int = P_MAIN):
+    """The bench.py build_dense deployment as a PartitionMap, seed 0, at
+    ``p`` partitions x 10k nodes."""
     rng = np.random.default_rng(0)
-    p, n = P_MAIN, N_MAIN
+    n = N_MAIN
     nodes = [f"n{i:05d}" for i in range(n)]
     hier = {nd: f"r{i // 25:04d}" for i, nd in enumerate(nodes)}
     hier.update({f"r{i:04d}": "z0" for i in range(n // 25)})
@@ -197,7 +245,7 @@ def north_star_map():
         opts
 
 
-def run_main_path(label, prev, nodes, removed, model, opts, dev) -> dict:
+def run_main_path(label, prev, nodes, removed, model, opts) -> dict:
     reset_launch_counts()
     timings: dict = {}
     torch.cuda.synchronize()
@@ -240,25 +288,86 @@ def small_map_matches_cpu(dev) -> None:
     hier.update({f"r{i}": "z0" for i in range(8)})
     prev = {str(i): bt.Partition(str(i), {
         "primary": [nodes[int(rng.integers(0, 40))]]}) for i in range(500)}
-    opts = bt.PlanOptions(node_hierarchy=hier, hierarchy_rules={
-        "replica": [bt.HierarchyRule(2, 1)]})
+    rules = {"replica": [bt.HierarchyRule(2, 1)]}
     model = bt.model(primary=(0, 1), replica=(1, 2))
-    want = bt.plan_next_map(prev, prev, nodes, nodes[:2], [], model, opts,
-                            device="cpu")
-    for mode in ("off", "on"):
+
+    def plan(device, mode="auto", **kw):
         T.set_fused_score_default(mode)
-        got = bt.plan_next_map(prev, prev, nodes, nodes[:2], [], model, opts,
-                               device=dev)
-        if bt.partition_map_to_json(got[0]) != \
-                bt.partition_map_to_json(want[0]) or got[1] != want[1]:
-            raise AssertionError(f"small plan on the card ({mode}) differs "
-                                 f"from the plain CPU path")
-    T.set_fused_score_default("auto")
-    log("small plan on the card == plain CPU path, both engines")
+        timings: dict = {}
+        out = bt.plan_next_map(
+            prev, prev, nodes, nodes[:2], [], model,
+            bt.PlanOptions(node_hierarchy=hier, hierarchy_rules=rules, **kw),
+            device=device, timings=timings)
+        T.set_fused_score_default("auto")
+        return bt.partition_map_to_json(out[0]), out[1], timings["engine"]
+
+    def same(got, want, what):
+        if got[:2] != want[:2]:
+            raise AssertionError(f"small plan: {what} differ")
+
+    want = plan("cpu")
+    for mode in ("off", "on"):
+        same(plan(dev, mode), want, f"card ({mode}) and plain CPU path")
+    sparse_cpu = plan("cpu", sparse=True, sparse_k=6)
+    sparse_dev = plan(dev, sparse=True, sparse_k=6)
+    if sparse_dev[2] != "sparse":
+        raise AssertionError(f"sparse=True ran engine {sparse_dev[2]}")
+    same(sparse_dev, sparse_cpu, "sparse K=6 on the card and on the CPU")
+    same(plan(dev, sparse=True, sparse_k=len(nodes)), plan(dev, "off"),
+         "saturating sparse K=N and the matrix engine on the card")
+    log("small plans on the card == plain CPU path (both dense engines, "
+        "sparse K=6); sparse K=N == matrix engine")
+
+
+def sparse_engine_matches_cpu(prev, nodes, removed, model, opts,
+                              dev) -> dict:
+    """At the sparse deployment's full size, the shortlist and then the
+    converged sparse solve (fallback included) on the card equal the
+    plain CPU path's, array for array.  The rotated window's int32
+    product wraps from row 53,021 on, so an int64 slip shows here.
+    Returns the card's and the CPU's seconds for each (device
+    synchronised)."""
+    problem = bt.encode_problem(prev, prev, nodes, removed, model, opts)
+    rules = tuple(tuple(problem.rules.get(si, ())) for si in range(problem.S))
+    cons = tuple(int(c) for c in problem.constraints)
+    k = T._opts_shortlist_k(opts, problem.N, cons, rules)
+    arrays = (problem.prev, problem.partition_weights, problem.node_weights,
+              problem.valid_node, problem.stickiness, problem.gids,
+              problem.gid_valid)
+    built, solved, secs = [], [], {}
+    for device in (dev, torch.device("cpu")):
+        a = bt.problem_to_torch(*arrays, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        built.append(build_shortlist_core(
+            a[0], a[1], a[2], a[3], a[5], a[6], cons, rules, k).cpu())
+        t1 = time.perf_counter()
+        stats: dict = {}
+        solved.append(T.solve_sparse(*a, cons, rules, shortlist=built[-1],
+                                     stats=stats))
+        t2 = time.perf_counter()
+        secs[device.type] = {"shortlist_s": t1 - t0, "solve_s": t2 - t1,
+                             "sweeps": stats["sweeps"],
+                             "exhausted_rows": stats["exhausted_rows"]}
+    got, want = built
+    if got.shape != want.shape or not bool((got == want).all()):
+        bad = int((got != want).any(dim=1).sum()) \
+            if got.shape == want.shape else -1
+        raise AssertionError(f"shortlist [{problem.P}, {k}] on the card "
+                             f"differs from the CPU's in {bad} rows")
+    log(f"shortlist [{problem.P}, {k}] on the card == CPU (array for array)")
+    bad = np.argwhere(solved[0] != solved[1])
+    if bad.size:
+        raise AssertionError(f"sparse solve [{problem.P}, {problem.N}] on the "
+                             f"card differs from the CPU's at [p, s, r] "
+                             f"{bad[:3].tolist()}")
+    log(f"sparse solve [{problem.P}, {problem.N}] on the card == CPU: {secs}")
+    return secs
 
 
 def profile_main_path(mode, prev, nodes, removed, model, opts) -> dict:
-    """One more main-path run on engine ``mode`` under torch.profiler:
+    """One more main-path run on engine ``mode`` (the dense engine mode;
+    the sparse deployment routes itself) under torch.profiler:
     the device's kernel time against the solve's wall time (busy share)
     and the kernels that took it, by name."""
     from torch.profiler import ProfilerActivity, profile
@@ -293,6 +402,7 @@ def main() -> int:
         log("chip_smoke: torch.cuda.is_available() is False; needs one GPU")
         return 2
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -308,6 +418,7 @@ def main() -> int:
 
     min2 = check_min2(dev)
     fused = check_fused(dev)
+    sparse = check_sparse_min2(dev)
     torch.cuda.empty_cache()
 
     warnings.simplefilter("error")  # an engine fallback must not hide
@@ -315,18 +426,28 @@ def main() -> int:
     prev, nodes, removed, model, opts = north_star_map()
     T.set_fused_score_default("auto")
     auto = run_main_path("main path, auto engine", prev, nodes, removed,
-                         model, opts, dev)
+                         model, opts)
     if auto["engine"] != "matrix" or auto["launches"]["priced_min2_argmin"] < 1:
         raise AssertionError(f"auto run: engine {auto['engine']}, launches "
                              f"{auto['launches']}")
     T.set_fused_score_default("on")
     opts.sparse = False
     on = run_main_path("main path, fused engine", prev, nodes, removed,
-                       model, opts, dev)
+                       model, opts)
     T.set_fused_score_default("auto")
     if on["engine"] != "fused" or on["launches"]["fused_score_min2"] < 1:
         raise AssertionError(f"fused run: engine {on['engine']}, launches "
                              f"{on['launches']}")
+
+    t0 = time.perf_counter()
+    sp_map = north_star_map(P_SPARSE)
+    log(f"sparse deployment map built in {time.perf_counter() - t0:.1f} s")
+    parity = sparse_engine_matches_cpu(*sp_map, dev)
+    sp = run_main_path("main path, sparse engine (1M x 10k)", *sp_map)
+    sp["card_vs_cpu"] = parity
+    if sp["engine"] != "sparse" or sp["launches"]["sparse_priced_min2"] < 1:
+        raise AssertionError(f"sparse run: engine {sp['engine']}, launches "
+                             f"{sp['launches']}")
 
     kernels = [
         dict(name="priced_min2_argmin", route="cuda",
@@ -339,12 +460,19 @@ def main() -> int:
              replaces="blance_tpu/ops/score_fused.py:254",
              launches=on["launches"]["fused_score_min2"],
              bitwise=True, **fused),
+        dict(name="sparse_priced_min2", route="cuda",
+             source="blance_tpu_torch/ops/csrc/sparse_min2.cu",
+             replaces="blance_tpu/ops/sparse2.py:130",
+             launches=sp["launches"]["sparse_priced_min2"],
+             bitwise=True, **sparse),
     ]
     prof = [profile_main_path(m, prev, nodes, removed, model, opts)
             for m in ("off", "on")]
+    prof.append(profile_main_path("auto", *sp_map))
     print(json.dumps({"profile": prof}))
-    print(json.dumps({"build_s": build_s,
-                      "main_path": {"matrix": auto, "fused": on}}))
+    print(json.dumps({"build_s": build_s, "main_path": {
+        "matrix": auto, "fused": on, "sparse": sp}}))
+    print(json.dumps({"wall_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

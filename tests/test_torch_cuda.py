@@ -14,9 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from blance_tpu_torch import problem_to_torch, solve_dense_converged
+from blance_tpu_torch import (problem_to_torch, solve_dense_converged,
+                              solve_sparse)
 from blance_tpu_torch.ops import launch_counts, reset_launch_counts
-from blance_tpu_torch.ops import reduce2, score_fused
+from blance_tpu_torch.ops import reduce2, score_fused, sparse2
 
 pytestmark = pytest.mark.cuda
 
@@ -79,10 +80,24 @@ def test_fused_kernel_matches_plain(dev, nrules):
         price, si, 7, 0, nrules=nrules, jitter_scale=1e-5))
 
 
-@pytest.mark.parametrize("engine", ["off", "on"])
-def test_solve_on_card_matches_cpu(dev, engine):
-    """A small rack-rule solve on the card equals the CPU plain path
-    bitwise, and went through the engine's kernel."""
+@pytest.mark.parametrize("shape", [(2048, 16), (4099, 37), (7, 1)])
+def test_sparse_min2_kernel_matches_plain(dev, shape):
+    """All four outputs, bitwise: quantized scores (many ties), +inf pad
+    columns and all-+inf rows."""
+    g = torch.Generator().manual_seed(2)
+    score = torch.randint(0, 6, shape, generator=g).to(torch.float32) * 0.125
+    price = torch.randint(0, 3, shape, generator=g).to(torch.float32) * 0.25
+    if shape[1] > 4:
+        score[:, -3:] = float("inf")
+    score[::5] = float("inf")
+    score, price = score.to(dev), price.to(dev)
+    before = sparse2.sparse_priced_min2.launches
+    got = sparse2.sparse_priced_min2(score, price)
+    assert sparse2.sparse_priced_min2.launches == before + 1
+    _same(got, sparse2.sparse_min2_reference(score, price))
+
+
+def _rack_rule_arrays():
     rng = np.random.default_rng(0)
     P, N = 1024, 64
     prev = np.full((P, 2, 1), -1, np.int32)
@@ -96,7 +111,14 @@ def test_solve_on_card_matches_cpu(dev, engine):
                         np.arange(N, dtype=np.int32) // 25,
                         np.zeros(N, np.int32)]),
               np.ones((3, N), bool))
-    statics = ((1, 1), ((), ((2, 1),)))
+    return arrays, ((1, 1), ((), ((2, 1),)))
+
+
+@pytest.mark.parametrize("engine", ["off", "on"])
+def test_solve_on_card_matches_cpu(dev, engine):
+    """A small rack-rule solve on the card equals the CPU plain path
+    bitwise, and went through the engine's kernel."""
+    arrays, statics = _rack_rule_arrays()
     cpu = solve_dense_converged(*problem_to_torch(*arrays, device="cpu"),
                                 *statics, fused_score=engine)
     reset_launch_counts()
@@ -105,3 +127,19 @@ def test_solve_on_card_matches_cpu(dev, engine):
     kernel = "priced_min2_argmin" if engine == "off" else "fused_score_min2"
     assert launch_counts()[kernel] > 0
     np.testing.assert_array_equal(gpu.cpu().numpy(), cpu.numpy())
+
+
+@pytest.mark.parametrize("k", [3, 16])
+def test_sparse_solve_on_card_matches_cpu(dev, k):
+    """A small sparse solve (K < N; K = 3 exercises the host fallback)
+    on the card equals the CPU plain path bitwise, through the kernel."""
+    arrays, statics = _rack_rule_arrays()
+    cpu_stats, gpu_stats = {}, {}
+    cpu = solve_sparse(*problem_to_torch(*arrays, device="cpu"), *statics,
+                       k=k, stats=cpu_stats)
+    reset_launch_counts()
+    gpu = solve_sparse(*problem_to_torch(*arrays, device=dev), *statics,
+                       k=k, stats=gpu_stats)
+    assert launch_counts()["sparse_priced_min2"] > 0
+    np.testing.assert_array_equal(gpu, cpu)
+    assert gpu_stats["exhausted_rows"] == cpu_stats["exhausted_rows"]

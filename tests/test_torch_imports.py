@@ -85,7 +85,6 @@ def test_cuda_default_raises_without_gpu(monkeypatch):
     dict(node_sorter=lambda ctx, nodes: nodes),
     dict(node_score_booster=lambda w, s: 0.0),
     dict(node_weights={"a": -1}),
-    dict(sparse=True),
     dict(shape_bucketing=True),
     dict(fused_pipeline=True),
 ])
