@@ -29,18 +29,51 @@
 // What bounds it on an H100: it reads O(P + N) bytes and never the
 // [P, N] matrix, so it is bound by the integer and float32 operations
 // per cell (21 + 2R + 2T + nrules (5A + 2) by chip_smoke.py's count,
-// which gives its bound).  Design: one 256-thread block per row, like min2.cu.
-// The row's id columns (prev_state, taken, the anchors' group ids and
-// presence) are loaded once into shared memory; the [N] vectors stream
-// through coalesced.  No tensor cores: the work is compares and adds.
+// which gives its bound), and in practice by the rate at which the SMs
+// issue them: every compare and select takes an issue slot.
+//
+// Design: a block owns a tile of kRowsPerTile rows and walks the columns
+// in chunks of kColsPerThread columns a thread (thread t takes columns
+// t, t + 256, ... so each thread's columns rise and a strict < keeps the
+// first occurrence).  A thread loads its columns' terms once per chunk
+// (base, neg_boost, validf, price, the rules' candidate group ids, g and
+// the hash's column term) and evaluates them for every row of the tile,
+// keeping one running Min2 per row in registers: each [N]-vector load
+// serves kRowsPerTile cells.  The rows' terms (stick, prev_slot, the
+// hash's row term, the rule gate, the prev_state, taken and anchor ids)
+// are staged once per tile in shared memory; the present anchors are
+// compacted first and the absent slots repeat a present one, so an
+// absent anchor costs nothing per cell (the AND is idempotent), and the
+// gate is cleared where no anchor is present (every rule is then met and
+// the term is + 0 either way).  The widths (nrules, R, T, A) are template
+// parameters, so the loops unroll and a row's terms come from shared
+// memory in 16-byte loads; the main path's widths and the test
+// fixtures' have their own instantiation, and one with runtime widths
+// takes any other shape.  Every cell costs issue slots, so the inner loop
+// has no branch: only the last column chunk tests j < n, the running
+// Min2 is updated by selects (push_finite), the forbidden term is one
+// select against a per-column 0 / 1e9, and the hash's h / 65536 is built
+// from its bits (128 + h * 2^-16, minus 128: exact) instead of an
+// integer-to-float conversion, which issues at a quarter of the rate.
+// At the end of a tile each row is merged across its warp by shuffles,
+// then across the block's eight warps by one warp.  Index arithmetic is
+// 32-bit (the launcher refuses shapes that overflow it).  No tensor
+// cores: the work is compares and adds.  (Measured on the H100 at the
+// main path's widths: 16 rows x 2 columns a chunk beat 8 x 2, 8 x 4,
+// 16 x 1, 16 x 4 and 32 x 2.)
 
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
 #include "min2_block.cuh"
+
+constexpr int kRowsPerTile = 16;
+constexpr int kColsPerThread = 2;
+constexpr int kDyn = -1;  // template width read from Args at run time
 
 struct Args {
   const float* price;      // [n]
@@ -61,81 +94,256 @@ struct Args {
   float* second;
   float* raw;
   float jitter_scale;
-  int n, nrules, r_width, t_width, a_width, g_width, pbase, noff;
+  int p, n, nrules, r_width, t_width, a_width, g_width, pbase, noff;
 };
 
-__global__ void __launch_bounds__(kThreads) fused_score_min2_kernel(Args a) {
-  extern __shared__ int smem[];
-  const int row = blockIdx.x;
-  int* s_pstate = smem;                       // r_width
-  int* s_taken = s_pstate + a.r_width;        // t_width
-  int* s_inc = s_taken + a.t_width;           // g_width
-  int* s_exc = s_inc + a.g_width;             // g_width
-  float* s_present = reinterpret_cast<float*>(s_exc + a.g_width);  // a_width
+// A row's staged terms, in 32-bit words: stick and stick * 0 (float
+// bits), prev_slot, the hash's row term, the rule gate, then R prev_state
+// ids, T taken ids, nrules * A include ids and as many exclude ids
+// (anchor-major), padded to whole 16-byte words.
+constexpr int kHead = 5;
+__host__ __device__ constexpr int row_words(int nr, int r, int t, int a) {
+  return (kHead + r + t + 2 * nr * a + 3) / 4 * 4;
+}
 
-  const long long r64 = row;
-  for (int k = threadIdx.x; k < a.r_width; k += kThreads)
-    s_pstate[k] = a.prev_state[r64 * a.r_width + k];
-  for (int k = threadIdx.x; k < a.t_width; k += kThreads)
-    s_taken[k] = a.taken[r64 * a.t_width + k];
-  for (int k = threadIdx.x; k < a.g_width; k += kThreads) {
-    s_inc[k] = a.a_inc_g[r64 * a.g_width + k];
-    s_exc[k] = a.a_exc_g[r64 * a.g_width + k];
+// One column's terms, loaded once per chunk.
+template <int kNR>
+struct Col {
+  float base, nb, price;
+  float badv;     // 1e9 where validf == 0, else 0: the forbidden term
+  int g;
+  uint32_t hcol;  // g * 40503, the hash's column term
+  int cinc[kNR > 0 ? kNR : 1];
+  int cexc[kNR > 0 ? kNR : 1];
+};
+
+template <int kNR>
+__device__ __forceinline__ Col<kNR> load_col(const Args& a, int j) {
+  Col<kNR> c;
+  c.base = __ldg(a.base + j);
+  c.nb = __ldg(a.neg_boost + j);
+  c.price = __ldg(a.price + j);
+  c.badv = __ldg(a.validf + j) == 0.0f ? 1.0e9f : 0.0f;
+  c.g = a.noff + j;
+  c.hcol = (uint32_t)c.g * 40503u;
+  if constexpr (kNR > 0) {
+#pragma unroll
+    for (int i = 0; i < kNR; ++i) {
+      c.cinc[i] = __ldg(a.cand_g + i * a.n + j);
+      c.cexc[i] = __ldg(a.cand_g + (kNR + i) * a.n + j);
+    }
   }
-  for (int k = threadIdx.x; k < a.a_width; k += kThreads)
-    s_present[k] = a.present[r64 * a.a_width + k];
+  return c;
+}
+
+// The score of one cell, term order as the reference kernel; w is the
+// row's staged words (registers in a fixed-width instantiation, shared
+// memory in the runtime one).
+template <int kNR>
+__device__ __forceinline__ float cell(const Args& a, const int* w,
+                                      const Col<kNR>& c, int j, int nr,
+                                      int rw, int tw, int aw) {
+  const float stick = __int_as_float(w[0]);
+  float s = c.base + (c.nb > 0.0f ? fmaxf(c.nb, stick) : 0.0f);
+  s = s - 0.01f * (w[2] == c.g ? 1.0f : 0.0f);
+  bool sticky = false;
+#pragma unroll
+  for (int r = 0; r < rw; ++r) sticky |= (w[kHead + r] == c.g);
+  // stick * (0 or 1), the product taken once per row
+  s = s - (sticky ? stick : __int_as_float(w[1]));
+  if (nr > 0) {
+    const int* inc = w + kHead + rw + tw;
+    const int* exc = inc + nr * aw;
+    float pen = 1.0e6f;
+#pragma unroll
+    for (int i = 0; i < nr; ++i) {
+      int ci, ce;
+      if constexpr (kNR > 0) {
+        ci = c.cinc[i];
+        ce = c.cexc[i];
+      } else {
+        ci = __ldg(a.cand_g + i * a.n + j);
+        ce = __ldg(a.cand_g + (nr + i) * a.n + j);
+      }
+      bool sat = true;
+#pragma unroll
+      for (int ai = 0; ai < aw; ++ai)
+        sat = sat && inc[ai * nr + i] == ci && exc[ai * nr + i] != ce;
+      if (sat) pen = fminf(pen, (float)i * 1.0e4f);
+    }
+    s = s + (w[4] ? pen : 0.0f);
+  }
+  bool tk = false;
+#pragma unroll
+  for (int t = 0; t < tw; ++t) tk |= (w[kHead + rw + t] == c.g);
+  s = s + (tk ? 1.0e9f : c.badv);  // = 1e9 * (tk || invalid), exactly
+  // h / 65536 for the 16-bit hash h, exactly and without a conversion:
+  // the float 128 + h * 2^-16 (h in the low mantissa bits: one byte
+  // permute), minus 128.
+  const uint32_t sum = (uint32_t)w[3] + c.hcol;
+  const float frac = __uint_as_float(__byte_perm(sum, 0x43000000u, 0x7610))
+                     - 128.0f;
+  s = fmaf(a.jitter_scale, frac, s);
+  return s + c.price;
+}
+
+// push without the first-column test, as two compares and four selects
+// (PTX, so that the compiler keeps them selects: a branch per cell would
+// cut the unrolled tile into blocks it cannot interleave).  A partial
+// that has seen only +inf keeps idx == kEmpty, which the row's final
+// merge maps to 0 (the first column, as for an all-+inf row).  Scores
+// are never NaN.
+__device__ __forceinline__ void push_finite(Min2& m, float x, int j) {
+  asm("{\n\t.reg .pred lt, lt2;\n\t"
+      "setp.lt.f32 lt, %3, %0;\n\t"
+      "setp.lt.f32 lt2, %3, %2;\n\t"
+      "selp.f32 %2, %3, %2, lt2;\n\t"
+      "selp.f32 %2, %0, %2, lt;\n\t"
+      "selp.b32 %1, %4, %1, lt;\n\t"
+      "selp.f32 %0, %3, %0, lt;\n\t}"
+      : "+f"(m.best), "+r"(m.idx), "+f"(m.second)
+      : "f"(x), "r"(j));
+}
+
+// Thread e < kRowsPerTile writes row0 + e's words (zeros past the end).
+__device__ void stage_row(const Args& a, int* w, int row, int nr, int rw,
+                          int tw, int aw, int nwords) {
+  for (int k = 0; k < nwords; ++k) w[k] = 0;
+  if (row >= a.p) return;
+  w[0] = __float_as_int(a.stick[row]);
+  w[1] = __float_as_int(a.stick[row] * 0.0f);
+  w[2] = a.prev_slot[row];
+  w[3] = (int)((uint32_t)(a.pbase + row) * 2654435761u);
+  for (int r = 0; r < rw; ++r) w[kHead + r] = a.prev_state[row * rw + r];
+  for (int t = 0; t < tw; ++t) w[kHead + rw + t] = a.taken[row * tw + t];
+  if (nr == 0) return;
+  int* inc = w + kHead + rw + tw;
+  int* exc = inc + nr * aw;
+  int np = 0;
+  for (int ai = 0; ai < a.a_width; ++ai) {
+    if (a.present[row * a.a_width + ai] <= 0.0f) continue;
+    for (int i = 0; i < nr; ++i) {
+      inc[np * nr + i] = a.a_inc_g[row * a.g_width + ai * nr + i];
+      exc[np * nr + i] = a.a_exc_g[row * a.g_width + ai * nr + i];
+    }
+    ++np;
+  }
+  for (int ai = np; ai < aw && np > 0; ++ai) {
+    for (int i = 0; i < nr; ++i) {
+      inc[ai * nr + i] = inc[i];
+      exc[ai * nr + i] = exc[i];
+    }
+  }
+  w[4] = (a.any_anchor[row] > 0.0f && np > 0) ? 1 : 0;
+}
+
+template <int kNR, int kR, int kT, int kA>
+__global__ void __launch_bounds__(kThreads) fused_score_min2_kernel(Args a) {
+  constexpr bool kFixed = kNR != kDyn;
+  constexpr int kW = kFixed ? row_words(kNR, kR, kT, kA) : 4;
+  const int nr = kFixed ? kNR : a.nrules;
+  const int rw = kFixed ? kR : a.r_width;
+  const int tw = kFixed ? kT : a.t_width;
+  const int aw = kFixed ? kA : a.a_width;
+  const int nwords = kFixed ? kW : row_words(nr, rw, tw, aw);
+  extern __shared__ int4 smem4[];
+  int* srow = reinterpret_cast<int*>(smem4);  // [kRowsPerTile][nwords]
+  Min2* spart = reinterpret_cast<Min2*>(srow + kRowsPerTile * nwords);
+  const int row0 = blockIdx.x * kRowsPerTile;
+  if (threadIdx.x < kRowsPerTile)
+    stage_row(a, srow + threadIdx.x * nwords, row0 + threadIdx.x, nr, rw,
+              tw, aw, nwords);
   __syncthreads();
 
-  const float stick = a.stick[row];
-  const int pslot = a.prev_slot[row];
-  const bool gate = a.any_anchor[row] > 0.0f;
-  const uint32_t pi_term = (uint32_t)(a.pbase + row) * 2654435761u;
-
   const float inf = __int_as_float(0x7f800000);
-  Min2 m{inf, kEmpty, inf};
-  for (int j = threadIdx.x; j < a.n; j += kThreads) {
-    const int g = a.noff + j;
-    const float nb = a.neg_boost[j];
-    float s = a.base[j] + (nb > 0.0f ? fmaxf(nb, stick) : 0.0f);
-    s = s - 0.01f * (pslot == g ? 1.0f : 0.0f);
-    bool sticky = false;
-    for (int r = 0; r < a.r_width; ++r) sticky |= (s_pstate[r] == g);
-    s = s - stick * (sticky ? 1.0f : 0.0f);
-    if (a.nrules > 0) {
-      float pen = 1.0e6f;
-      for (int i = 0; i < a.nrules; ++i) {
-        const int cinc = a.cand_g[(long long)i * a.n + j];
-        const int cexc = a.cand_g[(long long)(a.nrules + i) * a.n + j];
-        bool sat = true;
-        for (int ai = 0; ai < a.a_width; ++ai) {
-          const int col = ai * a.nrules + i;
-          const bool inc_same = s_inc[col] == cinc;
-          const bool exc_same = s_exc[col] == cexc;
-          sat = sat && ((s_present[ai] <= 0.0f) || (inc_same && !exc_same));
-        }
-        if (sat) pen = fminf(pen, (float)i * 1.0e4f);
-      }
-      s = s + (gate ? pen : 0.0f);
+  Min2 m[kRowsPerTile];
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerTile; ++rr) m[rr] = Min2{inf, kEmpty, inf};
+
+  // One chunk: each thread's kColsPerThread columns against every row of
+  // the tile.  Only the last chunk (kTail) tests j < n.
+  auto chunk = [&](int j0, auto tail) {
+    constexpr bool kTail = decltype(tail)::value;
+    Col<kFixed ? kNR : 0> col[kColsPerThread];
+#pragma unroll
+    for (int c = 0; c < kColsPerThread; ++c) {
+      const int j = j0 + c * kThreads;
+      col[c] = load_col<kFixed ? kNR : 0>(a, !kTail || j < a.n ? j : 0);
     }
-    bool tk = false;
-    for (int t = 0; t < a.t_width; ++t) tk |= (s_taken[t] == g);
-    s = s + 1.0e9f * ((tk || a.validf[j] == 0.0f) ? 1.0f : 0.0f);
-    const uint32_t h = (pi_term + (uint32_t)g * 40503u) & 0xFFFFu;
-    s = fmaf(a.jitter_scale, (float)h / 65536.0f, s);
-    push(m, s + a.price[j], j);
+#pragma unroll
+    for (int rr = 0; rr < kRowsPerTile; ++rr) {
+      const int* w = srow + rr * nwords;
+      int v[kW];  // a fixed-width row's words, in registers
+      if constexpr (kFixed) {
+#pragma unroll
+        for (int q = 0; q < kW / 4; ++q) {
+          const int4 x = reinterpret_cast<const int4*>(w)[q];
+          v[4 * q] = x.x;
+          v[4 * q + 1] = x.y;
+          v[4 * q + 2] = x.z;
+          v[4 * q + 3] = x.w;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < kColsPerThread; ++c) {
+        const int j = j0 + c * kThreads;
+        if (!kTail || j < a.n)
+          push_finite(m[rr], cell(a, kFixed ? v : w, col[c], j, nr, rw, tw,
+                                  aw), j);
+      }
+    }
+  };
+  constexpr int kStep = kThreads * kColsPerThread;
+  const int n_full = a.n / kStep * kStep;
+  for (int j0 = threadIdx.x; j0 < n_full; j0 += kStep)
+    chunk(j0, std::false_type{});
+  if (n_full < a.n) chunk(n_full + threadIdx.x, std::true_type{});
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerTile; ++rr) {
+    const Min2 r = warp_reduce(m[rr]);
+    if (lane == 0) spart[rr * kWarps + warp] = r;
   }
-  m = block_reduce(m);
-  if (threadIdx.x == 0) {
-    a.best[row] = m.best;
-    a.idx[row] = m.idx;
-    a.second[row] = m.second;
-    a.raw[row] = m.best - a.price[m.idx];
+  __syncthreads();
+  for (int rr = warp; rr < kRowsPerTile; rr += kWarps) {
+    Min2 r = lane < kWarps ? spart[rr * kWarps + lane]
+                           : Min2{inf, kEmpty, inf};
+    r = warp_reduce(r, kWarps);
+    if (r.idx == kEmpty) r.idx = 0;  // an all-+inf row: the first column
+    const int row = row0 + rr;
+    if (lane == 0 && row < a.p) {
+      a.best[row] = r.best;
+      a.idx[row] = r.idx;
+      a.second[row] = r.second;
+      a.raw[row] = r.best - a.price[r.idx];
+    }
   }
+}
+
+template <int kNR, int kR, int kT, int kA>
+int launch(const Args& a, cudaStream_t stream) {
+  if (kNR != kDyn && (a.nrules != kNR || a.r_width != kR ||
+                      a.t_width != kT || (kNR > 0 && a.a_width != kA)))
+    return (int)cudaErrorInvalidValue;  // widths of another instantiation
+  const int nwords = row_words(a.nrules, a.r_width, a.t_width,
+                               a.nrules > 0 ? a.a_width : 0);
+  const size_t smem = sizeof(int) * (size_t)kRowsPerTile * nwords +
+                      sizeof(Min2) * (size_t)kRowsPerTile * kWarps;
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const unsigned blocks =
+      (unsigned)(((long long)a.p + kRowsPerTile - 1) / kRowsPerTile);
+  fused_score_min2_kernel<kNR, kR, kT, kA><<<blocks, kThreads, smem,
+                                             stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Shapes as in Args; every array row-major contiguous.  Returns
+// Shapes as in Args; every array row-major contiguous.  variant picks the
+// instantiation, as score_fused.py's FUSED_VARIANTS lists them by
+// (nrules, R, T, A); -1 is the runtime-width one.  Returns
 // cudaGetLastError() after the launch (0 = launched).
 extern "C" int blance_fused_score_min2(
     const float* price, const float* base, const float* neg_boost,
@@ -144,18 +352,26 @@ extern "C" int blance_fused_score_min2(
     const float* present, const int* a_inc_g, const int* a_exc_g,
     const float* any_anchor, float* best, int* idx, float* second,
     float* raw, float jitter_scale, long long p, long long n, int nrules,
-    int r_width,
-    int t_width, int a_width, int g_width, int pbase, int noff,
-    void* stream) {
+    int r_width, int t_width, int a_width, int g_width, int pbase, int noff,
+    int variant, void* stream) {
   if (p <= 0) return 0;
-  if (n <= 0 || n > INT_MAX || p > INT_MAX) return (int)cudaErrorInvalidValue;
+  long long widest = 1;
+  const int widths[] = {r_width, t_width, a_width, g_width};
+  for (int w : widths) widest = w > widest ? w : widest;
+  if (n <= 0 || n > INT_MAX || p > INT_MAX || nrules < 0 ||
+      p * widest > INT_MAX || (2LL * nrules + 1) * n > INT_MAX)
+    return (int)cudaErrorInvalidValue;
   Args a{price, base, neg_boost, validf, cand_g, stick, prev_slot,
          prev_state, taken, present, a_inc_g, a_exc_g, any_anchor,
-         best, idx, second, raw, jitter_scale, (int)n, nrules, r_width, t_width,
-         a_width, g_width, pbase, noff};
-  const size_t smem = sizeof(int) * (size_t)(r_width + t_width + 2 * g_width)
-                      + sizeof(float) * (size_t)a_width;
-  fused_score_min2_kernel<<<(unsigned)p, kThreads, smem,
-                            (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+         best, idx, second, raw, jitter_scale, (int)p, (int)n, nrules,
+         r_width, t_width, a_width, g_width, pbase, noff};
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (variant) {
+    case 0: return launch<1, 1, 2, 2>(a, s);
+    case 1: return launch<0, 1, 1, 0>(a, s);
+    case 2: return launch<0, 2, 1, 0>(a, s);
+    case 3: return launch<1, 2, 3, 3>(a, s);
+    case -1: return launch<kDyn, kDyn, kDyn, kDyn>(a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

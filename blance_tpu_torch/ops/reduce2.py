@@ -10,11 +10,13 @@ Port of blance_tpu/ops/reduce2.py.  Per row of ``eff = score + price``:
 (``csrc/min2.cu``) on a CUDA tensor and runs the plain PyTorch version
 (``min2_argmin_reference``) on a CPU tensor; on any other device it
 raises.  There is no fallback from the kernel to the plain version.
-``priced_min2_argmin.launches`` counts kernel launches.
+``priced_min2_argmin.launches`` counts kernel launches (``variants`` by
+instantiation: there is one, "block_per_row").
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -66,6 +68,7 @@ def _launch(score: torch.Tensor, price: torch.Tensor):
     if err != 0:
         raise RuntimeError(f"min2 kernel launch failed: CUDA error {err}")
     priced_min2_argmin.launches += 1
+    priced_min2_argmin.variants["block_per_row"] += 1
     return best, choice, second
 
 
@@ -89,6 +92,7 @@ def priced_min2_argmin(score: torch.Tensor, price: torch.Tensor):
 
 
 priced_min2_argmin.launches = 0
+priced_min2_argmin.variants = collections.Counter()
 
 
 def min2_argmin(eff: torch.Tensor):

@@ -22,11 +22,14 @@ on the CPU (XLA):
 
 On a CPU tensor ``fused_score_min2`` runs the plain PyTorch version
 (:func:`fused_score_min2_reference`); on a CUDA tensor it launches the
-kernel or raises.  ``fused_score_min2.launches`` counts launches.
+kernel or raises.  ``fused_score_min2.launches`` counts launches, and
+``fused_score_min2.variants`` counts them by kernel instantiation (the
+name :func:`fused_variant` gives).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import NamedTuple, Optional
 
@@ -35,7 +38,7 @@ import torch
 
 __all__ = ["fused_score_min2", "fused_score_min2_reference", "ScoreInputs",
            "pack_score_inputs", "score_at_columns", "jitter_hash",
-           "jitter_add", "fill_scale"]
+           "jitter_add", "fill_scale", "FUSED_VARIANTS", "fused_variant"]
 
 _INF = 1.0e9
 _RULE_MISS = 1.0e6
@@ -241,6 +244,28 @@ def fused_score_min2_reference(price: torch.Tensor, si: ScoreInputs,
     return tuple(torch.cat(t) for t in zip(*outs))
 
 
+# The kernel's fixed-width instantiations, by (nrules, R, T, A), in the
+# order of their ids in csrc/score_fused.cu; A is 0 without rules.  The
+# main path's two slots (a rule-less primary; a replica with one rule,
+# two anchors and two taken columns) and the fixtures' small plans.
+FUSED_VARIANTS = ((1, 1, 2, 2), (0, 1, 1, 0), (0, 2, 1, 0), (1, 2, 3, 3))
+
+
+def fused_variant(nrules: int, r_width: int, t_width: int,
+                  a_width: int) -> str:
+    """The name of the kernel instantiation that runs these widths:
+    ``"n{nrules}r{R}t{T}a{A}"`` for a fixed-width one, else
+    ``"generic"`` (runtime widths)."""
+    key = (nrules, r_width, t_width, a_width if nrules else 0)
+    if key in FUSED_VARIANTS:
+        return "n%dr%dt%da%d" % key
+    return "generic"
+
+
+# Instantiation name -> its id in the kernel's launcher ("generic": -1).
+_VARIANT_IDS = {fused_variant(*v): i for i, v in enumerate(FUSED_VARIANTS)}
+
+
 _C_FN = None
 
 
@@ -252,7 +277,7 @@ def _kernel():
         fn = load("score_fused").blance_fused_score_min2
         fn.argtypes = [ctypes.c_void_p] * 17 + [
             ctypes.c_float, ctypes.c_longlong, ctypes.c_longlong] + \
-            [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _C_FN = fn
     return _C_FN
@@ -275,12 +300,15 @@ def _launch(price, si: ScoreInputs, pbase: int, noff: int, nrules: int,
                             f"{dev}, got {t.dtype} on {t.device}")
     si = ScoreInputs(*(t.contiguous() for t in si))
     price = price.contiguous()
+    r_width = si.prev_state.shape[1]
+    t_width = si.taken.shape[1]
     a_width = si.present.shape[1]
     g_width = si.a_inc_g.shape[1]
     if nrules and (si.cand_g.shape != (2 * nrules, n)
                    or g_width != a_width * nrules):
         raise ValueError("fused_score_min2: rule columns do not match "
                          f"nrules={nrules}")
+    variant = fused_variant(nrules, r_width, t_width, a_width)
     best = torch.empty(p, dtype=torch.float32, device=dev)
     choice = torch.empty(p, dtype=torch.int32, device=dev)
     second = torch.empty(p, dtype=torch.float32, device=dev)
@@ -293,12 +321,14 @@ def _launch(price, si: ScoreInputs, pbase: int, noff: int, nrules: int,
         si.taken.data_ptr(), si.present.data_ptr(), si.a_inc_g.data_ptr(),
         si.a_exc_g.data_ptr(), si.any_anchor.data_ptr(), best.data_ptr(),
         choice.data_ptr(), second.data_ptr(), raw.data_ptr(),
-        float(jitter_scale), p, n, int(nrules), si.prev_state.shape[1],
-        si.taken.shape[1], a_width, g_width, int(pbase), int(noff), stream)
+        float(jitter_scale), p, n, int(nrules), r_width, t_width, a_width,
+        g_width, int(pbase), int(noff), _VARIANT_IDS.get(variant, -1),
+        stream)
     if err != 0:
         raise RuntimeError(
             f"score_fused kernel launch failed: CUDA error {err}")
     fused_score_min2.launches += 1
+    fused_score_min2.variants[variant] += 1
     return best, choice, second, raw
 
 
@@ -320,6 +350,7 @@ def fused_score_min2(price: torch.Tensor, si: ScoreInputs, pbase: int,
 
 
 fused_score_min2.launches = 0
+fused_score_min2.variants = collections.Counter()
 
 
 def score_at_columns(

@@ -17,10 +17,11 @@ Three score engines sit behind ``_assign_slot``'s callables:
   (ops/score_fused.py, csrc/score_fused.cu) and the matrix never exists;
 - the sparse shortlist engine (``solve_sparse``): the same score formula
   evaluated only at each row's K candidate columns (core/shortlist.py),
-  reduced each round by the sparse min2 kernel (ops/sparse2.py,
-  csrc/sparse_min2.cu), with fill, price and capacity kept at full [N]
-  width.  Rows whose shortlist cannot serve a slot are re-placed by a
-  per-row dense fallback on the host.
+  reduced each round by the sparse min2 kernel, which gathers each
+  candidate's price from the [N] price row itself (ops/sparse2.py
+  ``sparse_priced_min2_cand``, csrc/sparse_min2.cu), with fill, price
+  and capacity kept at full [N] width.  Rows whose shortlist cannot
+  serve a slot are re-placed by a per-row dense fallback on the host.
 
 On CPU tensors the kernels run their plain PyTorch versions; on CUDA
 tensors they launch the CUDA kernels.
@@ -59,7 +60,7 @@ from ..core.shortlist import (
 from ..core.types import PartitionMap, PartitionModel, PlanOptions
 from ..ops import launch_counts
 from ..ops.reduce2 import priced_min2_argmin
-from ..ops.sparse2 import sparse_priced_min2
+from ..ops.sparse2 import sparse_priced_min2_cand
 from ..convert import problem_to_torch
 from ..ops.score_fused import (
     _ROW_CELLS,
@@ -869,8 +870,7 @@ def _run_auction(fused_score, p, n, total, w_div, neg_boost, valid,
         # Sparse engine: the matrix formula at the [P, K] shortlist
         # columns only; phase B's probes outside a row's shortlist score
         # +_INF, so stragglers never leave their candidate set.
-        cand = shortlist
-        cand_c = cand.clamp(0, n - 1).long()
+        cand = shortlist.contiguous()
         score_kw = dict(
             total=total, total_p=p, w_div=w_div, neg_boost=neg_boost,
             valid=valid, gids=gids, gid_valid=gid_valid, stick_si=stick_si,
@@ -881,8 +881,8 @@ def _run_auction(fused_score, p, n, total, w_div, neg_boost, valid,
                                       **score_kw)
 
         def min2_fn(price_vec):
-            b, kidx, s2, raw = sparse_priced_min2(score_pk, price_vec[cand_c])
-            choice = cand.gather(1, kidx.long()[:, None])[:, 0].clamp(min=0)
+            b, _kidx, s2, raw, choice = sparse_priced_min2_cand(
+                score_pk, cand, price_vec)
             return b, choice, s2, raw
 
         def score_at_fn(rows, cols_global):

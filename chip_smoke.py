@@ -9,10 +9,15 @@ nothing of jax or of the JAX package.  In order:
    sm_90a, all at once, and times the build;
 2. holds each kernel against its plain PyTorch version on the card,
    bitwise: the priced min2 at [100000, 10000] (quantized scores, many
-   ties) and at a ragged [4099, 777]; the in-kernel score at
-   [100000, 10000] with one rack rule and two anchors, all four outputs;
-   the sparse min2 at [1000000, 16] (ties, +inf pad columns, all-+inf
-   rows), [4099, 37] and [7, 1], all four outputs;
+   ties) and at a ragged [4099, 777]; the in-kernel score, all four
+   outputs, at [100000, 10000] in the main path's two instantiations
+   (the replica's one rack rule, two anchors, two taken columns; the
+   rule-less primary) and in the runtime-width one (two rules, R = 2,
+   T = 2) at [4099, 777], whose last row tile is ragged; the sparse min2
+   at [1000000, 16] (ties, +inf pad columns, all-+inf rows), [4099, 37]
+   and [7, 1] in both instantiations: the [P, K]-price one on all four
+   outputs, and the gathered one the sparse engine calls (candidate ids
+   with -1 pads, ids >= N and repeats, an [N] price row) on all five;
 3. small plans on the card equal the plain CPU path's map for map (both
    dense engines, and the sparse engine with K < N), and a saturating
    K = N sparse plan equals the dense matrix engine's;
@@ -26,10 +31,15 @@ nothing of jax or of the JAX package.  In order:
    plan_next_map(backend="cuda") there with ``sparse=None``, which must
    route to the sparse engine.  Every main-path run must pass the audit
    with every count 0, place nothing on a removed node, fill every slot,
-   and launch its engine's kernel;
+   and launch its engine's kernel in the instantiation that step 2
+   timed;
 6. prints one JSON line of kernel measurements, the card's name and
    power limit, the script's wall time, and last
-   ``{"ok": true, "device": {...}}``.
+   ``{"ok": true, "device": {...}}``.  A kernel's ``ms`` is its device
+   time per call, from back-to-back calls in a CUDA graph
+   (``graph_ms``); ``ms_events`` times one call at a time between CUDA
+   events, host launch time included (``time_ms``); plain and library
+   times are per call between events.
 
 After the checked runs, one more main-path run per engine goes under
 torch.profiler, for the device's kernel time beside the solve's wall
@@ -51,7 +61,8 @@ import numpy as np
 import torch
 
 import blance_tpu_torch as bt
-from blance_tpu_torch.ops import _build, launch_counts, reset_launch_counts
+from blance_tpu_torch.ops import (_build, launch_counts, launch_variants,
+                                  reset_launch_counts)
 from blance_tpu_torch.core.shortlist import build_shortlist_core
 from blance_tpu_torch.ops import reduce2, score_fused, sparse2
 from blance_tpu_torch.plan import tensor as T
@@ -60,6 +71,9 @@ P_MAIN, N_MAIN = 100_000, 10_000
 P_SPARSE = 1_000_000  # the sparse engine's deployment: 1M x 10k
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12      # float32 outside the tensor cores, same sheet
+# Lane-instructions the card issues per second: 132 SMs x 4 schedulers x
+# 32 lanes at the 1.98 GHz boost clock (same sheet).
+LANE_INSTR_PER_S = 132 * 4 * 32 * 1.98e9
 
 
 def log(msg: str) -> None:
@@ -67,7 +81,9 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median per-call device time, CUDA events around each call."""
+    """Median per-call time, CUDA events around each call: device time
+    plus whatever the host adds before the launch reaches the card
+    (right for calls that take milliseconds)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -79,6 +95,33 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device time per call of a kernel wrapper: ``calls`` calls captured
+    in one CUDA graph, the graph replayed between two CUDA events, the
+    median over ``replays`` divided by ``calls``.  No host time between
+    launches, so a kernel of tens of microseconds is timed as the card
+    runs it."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del g
     return float(np.median(times))
 
 
@@ -121,9 +164,9 @@ def check_min2(dev: torch.device) -> dict:
         log(f"min2 kernel == plain at [{p}, {n}] (bitwise)")
         if (p, n) == (P_MAIN, N_MAIN):
             eff = score + price[None, :]
+            kernel = lambda: reduce2.priced_min2_argmin(score, price)  # noqa: E731
             out = dict(
-                max_abs_err=err,
-                ms=time_ms(lambda: reduce2.priced_min2_argmin(score, price)),
+                max_abs_err=err, ms=graph_ms(kernel), ms_events=time_ms(kernel),
                 plain_ms=time_ms(lambda: reduce2.min2_argmin_reference(
                     score + price[None, :]), reps=3),
                 library_ms=time_ms(lambda: torch.topk(
@@ -150,8 +193,13 @@ def fused_ops_per_cell(r: int, t: int, a: int, nrules: int) -> int:
     return 21 + 2 * r + 2 * t + nrules * (5 * a + 2)
 
 
-def check_fused(dev: torch.device) -> dict:
-    p, n = P_MAIN, N_MAIN
+def fused_inputs(dev: torch.device, p: int = P_MAIN, n: int = N_MAIN,
+                 state: str = "replica"):
+    """The in-kernel score's inputs in the main path's instantiations:
+    the replica slot (one rack rule; anchors the primary and, on half the
+    rows, a pinned replica; taken the primary and that pin, T = 2;
+    R = 1) or the rule-less primary slot (taken the primary's pin).
+    Returns (price, ScoreInputs, nrules)."""
     rng = np.random.default_rng(11)
     t = lambda x: torch.from_numpy(np.asarray(x)).to(dev)  # noqa: E731
     nodes = np.arange(n, dtype=np.int32)
@@ -162,66 +210,162 @@ def check_fused(dev: torch.device) -> dict:
     valid[rng.choice(n, n // 20, replace=False)] = False
     anchors = np.stack([primary, np.where(rng.random(p) < 0.5, replica, -1)],
                        axis=1).astype(np.int32)
+    rules = ((2, 1),) if state == "replica" else ()
     si = score_fused.pack_score_inputs(
         total_l=t(rng.integers(0, 40, n).astype(np.float32)), total_p=p,
         w_div_l=t(np.ones(n, np.float32)),
         neg_boost_l=t(np.zeros(n, np.float32)), valid_l=t(valid),
         stickiness_si=t(np.full(p, 1.5, np.float32)),
-        prev_slot=t(replica), prev_state=t(replica[:, None]),
-        taken_ids=[t(primary)], anchors=t(anchors), gids_l=gids,
-        gid_valid=t(np.ones((3, n), bool)), gids=gids, rules=((2, 1),))
+        prev_slot=t(replica if rules else primary),
+        prev_state=t((replica if rules else primary)[:, None]),
+        taken_ids=[t(primary), t(anchors[:, 1])] if rules else [t(primary)],
+        anchors=t(anchors), gids_l=gids,
+        gid_valid=t(np.ones((3, n), bool)), gids=gids, rules=rules)
     price = t((rng.integers(0, 3, n) * 0.5 + np.where(
         rng.random(n) < 0.1, 1e9, 0)).astype(np.float32))
-    kw = dict(nrules=1, jitter_scale=T._JITTER)
-    got = score_fused.fused_score_min2(price, si, 0, 0, **kw)
-    want = score_fused.fused_score_min2_reference(price, si, 0, 0, **kw)
-    err = compare(got, want, f"fused_score_min2 [{p}, {n}]")
-    log(f"fused score kernel == plain at [{p}, {n}] (bitwise, 4 outputs)")
-    out = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: score_fused.fused_score_min2(price, si, 0, 0,
-                                                        **kw)),
-        plain_ms=time_ms(lambda: score_fused.fused_score_min2_reference(
-            price, si, 0, 0, **kw), reps=2, warmup=1),
-        library_ms=None)
-    in_bytes = sum(x.numel() * x.element_size() for x in si) + n * 4
-    out.update(_bound(in_bytes + p * 16,
-                      p * n * fused_ops_per_cell(1, 1, 2, 1)))
+    return price, si, len(rules)
+
+
+def generic_fused_inputs(dev: torch.device, p: int, n: int):
+    """Widths no fixed instantiation covers (two rules, R = 2, T = 2,
+    A = 2), for the runtime-width one."""
+    rng = np.random.default_rng(12)
+    t = lambda x: torch.from_numpy(np.asarray(x)).to(dev)  # noqa: E731
+    rack = rng.integers(0, 7, n).astype(np.int32)
+    gids = t(np.stack([np.arange(n, dtype=np.int32), rack, rack // 3]))
+    taken = rng.integers(-1, n, (p, 2)).astype(np.int32)
+    si = score_fused.pack_score_inputs(
+        total_l=t(rng.integers(0, 60, n).astype(np.float32)), total_p=p,
+        w_div_l=t(rng.integers(1, 4, n).astype(np.float32)),
+        neg_boost_l=t(np.where(rng.random(n) < 0.3, 2.0, 0.0)
+                      .astype(np.float32)),
+        valid_l=t(rng.random(n) < 0.9),
+        stickiness_si=t(np.full(p, 1.5, np.float32)),
+        prev_slot=t(rng.integers(-1, n, p).astype(np.int32)),
+        prev_state=t(rng.integers(-1, n, (p, 2)).astype(np.int32)),
+        taken_ids=[t(taken[:, 0]), t(taken[:, 1])],
+        anchors=t(rng.integers(-1, n, (p, 2)).astype(np.int32)),
+        gids_l=gids, gid_valid=t(rng.random((3, n)) < 0.9), gids=gids,
+        rules=((2, 1), (1, 0)))
+    price = t((rng.random(n) + np.where(rng.random(n) < 0.2, 1e9, 0))
+              .astype(np.float32))
+    return price, si, 2
+
+
+def check_fused(dev: torch.device) -> dict:
+    """The in-kernel score against its plain version, all four outputs
+    bitwise, in the main path's two instantiations at [100000, 10000]
+    and the runtime-width one at a ragged [4099, 777]; timed in the
+    replica's instantiation, which carries most main-path launches."""
+    kw = dict(jitter_scale=T._JITTER)
+    out = {}
+    for what, (price, si, nrules) in (
+            ("replica", fused_inputs(dev)),
+            ("primary", fused_inputs(dev, state="primary")),
+            ("generic", generic_fused_inputs(dev, 4099, 777))):
+        p, n = si.stick.shape[0], price.shape[0]
+        widths = (nrules, si.prev_state.shape[1], si.taken.shape[1],
+                  si.present.shape[1])
+        variant = score_fused.fused_variant(*widths)
+        if (what == "generic") != (variant == "generic"):
+            raise AssertionError(f"fused {what} inputs pick {variant}")
+        got = score_fused.fused_score_min2(price, si, 0, 0, nrules=nrules,
+                                           **kw)
+        want = score_fused.fused_score_min2_reference(
+            price, si, 0, 0, nrules=nrules, **kw)
+        err = compare(got, want, f"fused_score_min2 {variant} [{p}, {n}]")
+        log(f"fused score kernel == plain at [{p}, {n}], {variant} "
+            f"(bitwise, 4 outputs)")
+        if what != "replica":
+            continue
+        ops_cell = fused_ops_per_cell(*widths[1:], nrules)
+        kernel = lambda: score_fused.fused_score_min2(  # noqa: E731
+            price, si, 0, 0, nrules=nrules, **kw)
+        out = dict(
+            timed_instantiation=variant, max_abs_err=err,
+            ms=graph_ms(kernel, calls=5), ms_events=time_ms(kernel),
+            plain_ms=time_ms(lambda: score_fused.fused_score_min2_reference(
+                price, si, 0, 0, nrules=nrules, **kw), reps=2, warmup=1),
+            library_ms=None,
+            issue_floor_ms=p * n * ops_cell / LANE_INSTR_PER_S * 1e3)
+        in_bytes = sum(x.numel() * x.element_size() for x in si) + n * 4
+        out.update(_bound(in_bytes + p * 16, p * n * ops_cell))
     return out
 
 
+def sparse_inputs(gen, dev, p: int, k: int):
+    """Quantized scores (many ties), +inf pad columns at the tail of
+    every eighth row and whole +inf rows, as the engine makes them."""
+    score = torch.randint(0, 40, (p, k), generator=gen, device=dev) \
+        .to(torch.float32) * 0.125
+    if k > 4:
+        score[::8, -3:] = float("inf")
+    score[3::97] = float("inf")
+    return score
+
+
 def check_sparse_min2(dev: torch.device) -> dict:
-    """The sparse min2 kernel against its plain version, all four
-    outputs bitwise, at the sparse main path's [1M, 16] and two ragged
-    shapes; timed at [1M, 16]."""
+    """The sparse min2 kernel against its plain versions at the sparse
+    main path's [1M, 16] and two ragged shapes, bitwise: the [P, K]-price
+    instantiation on all four outputs, the gathered one on all five
+    (candidate ids from N = 10 000 nodes with -1 pads, ids >= N and
+    repeated ids; an [N] price row with closed nodes at 1e9).  Timed at
+    [1M, 16]: the gathered kernel (what the engine launches), its plain
+    composition, topk over the gathered priced block, and, beside them,
+    the [P, K]-price kernel alone and with the two gathers the engine
+    ran around it before."""
     gen = torch.Generator(device=dev).manual_seed(9)
+    n = N_MAIN
     out = {}
     for p, k in ((P_SPARSE, 16), (4099, 37), (7, 1)):
-        # Quantized scores (many ties), +inf pad columns at the tail of
-        # every eighth row and whole +inf rows, as the engine makes them.
-        score = torch.randint(0, 40, (p, k), generator=gen, device=dev) \
-            .to(torch.float32) * 0.125
+        score = sparse_inputs(gen, dev, p, k)
         price = torch.randint(0, 6, (p, k), generator=gen, device=dev) \
             .to(torch.float32) * 0.25
-        if k > 4:
-            score[::8, -3:] = float("inf")
-        score[3::97] = float("inf")
         got = sparse2.sparse_priced_min2(score, price)
         want = sparse2.sparse_min2_reference(score, price)
-        err = compare(got, want, f"sparse_priced_min2 [{p}, {k}]")
+        compare(got, want, f"sparse_priced_min2 [{p}, {k}]")
         log(f"sparse min2 kernel == plain at [{p}, {k}] (bitwise, 4 outputs)")
+        cand = torch.randint(0, n, (p, k), generator=gen, device=dev) \
+            .to(torch.int32)
+        if k > 4:
+            cand[::8, -3:] = -1
+            cand[5::13, 2] = n + 7
+            cand[1::3, 1] = cand[1::3, 0]
+        price_n = torch.randint(0, 6, (n,), generator=gen, device=dev) \
+            .to(torch.float32) * 0.25
+        price_n[::10] = 1e9
+        got = sparse2.sparse_priced_min2_cand(score, cand, price_n)
+        want = sparse2.sparse_min2_cand_reference(score, cand, price_n)
+        err = compare(got, want, f"sparse_priced_min2_cand [{p}, {k}]")
+        log(f"gathered sparse min2 kernel == plain at [{p}, {k}] "
+            f"(bitwise, 5 outputs)")
         if p == P_SPARSE:
+            cand_c = cand.clamp(0, n - 1).long()
+
+            def unfused():
+                b, kidx, s2, raw = sparse2.sparse_priced_min2(
+                    score, price_n[cand_c])
+                return cand.gather(1, kidx.long()[:, None])
+
+            kernel = lambda: sparse2.sparse_priced_min2_cand(  # noqa: E731
+                score, cand, price_n)
             out = dict(
-                max_abs_err=err,
-                ms=time_ms(lambda: sparse2.sparse_priced_min2(score, price)),
-                plain_ms=time_ms(lambda: sparse2.sparse_min2_reference(
-                    score, price), reps=3),
+                timed_instantiation=sparse2.load_variant(k, score, cand),
+                max_abs_err=err, ms=graph_ms(kernel),
+                ms_events=time_ms(kernel),
+                plain_ms=time_ms(lambda: sparse2.sparse_min2_cand_reference(
+                    score, cand, price_n), reps=3),
                 library_ms=time_ms(lambda: torch.topk(
-                    score + price, 2, dim=1, largest=False), reps=3))
-            # score and price read once, four [P] outputs written; a price
-            # add and two compares per element.
-            out.update(_bound(p * k * 8 + p * 16, p * k * 3))
-        del score, price, got, want
+                    score + price_n[cand.clamp(0, n - 1).long()], 2, dim=1,
+                    largest=False), reps=3),
+                ungathered_ms=graph_ms(lambda: sparse2.sparse_priced_min2(
+                    score, price)),
+                ungathered_with_gathers_ms=graph_ms(unfused))
+            # score and cand read once, the [N] price row once, five [P]
+            # outputs written; a price add and two compares per element.
+            out.update(_bound(p * k * 8 + n * 4 + p * 20, p * k * 3))
+            del cand_c
+        del score, price, cand, price_n, got, want
     return out
 
 
@@ -254,6 +398,7 @@ def run_main_path(label, prev, nodes, removed, model, opts) -> dict:
                                  backend="cuda", timings=timings)
     wall = time.perf_counter() - t0
     counts = launch_counts()
+    variants = launch_variants()
     problem = bt.encode_problem(prev, prev, nodes, removed, model, opts)
     after = bt.encode_problem(out, out, nodes, removed, model, opts)
     audit = bt.check_assignment(problem, after.prev)
@@ -275,8 +420,8 @@ def run_main_path(label, prev, nodes, removed, model, opts) -> dict:
                 load[nd] += 1
     spread = max(load.values()) - min(load.values())
     moved = sum(out[k].nodes_by_state != prev[k].nodes_by_state for k in prev)
-    info = dict(timings, wall_s=wall, launches=counts, audit=audit,
-                load_spread=spread, partitions_moved=moved)
+    info = dict(timings, wall_s=wall, launches=counts, variants=variants,
+                audit=audit, load_spread=spread, partitions_moved=moved)
     log(f"{label}: {json.dumps(info)}")
     return info
 
@@ -435,9 +580,11 @@ def main() -> int:
     on = run_main_path("main path, fused engine", prev, nodes, removed,
                        model, opts)
     T.set_fused_score_default("auto")
-    if on["engine"] != "fused" or on["launches"]["fused_score_min2"] < 1:
+    if on["engine"] != "fused" or on["launches"]["fused_score_min2"] < 1 \
+            or fused["timed_instantiation"] not in \
+            on["variants"]["fused_score_min2"]:
         raise AssertionError(f"fused run: engine {on['engine']}, launches "
-                             f"{on['launches']}")
+                             f"{on['variants']}")
 
     t0 = time.perf_counter()
     sp_map = north_star_map(P_SPARSE)
@@ -445,26 +592,32 @@ def main() -> int:
     parity = sparse_engine_matches_cpu(*sp_map, dev)
     sp = run_main_path("main path, sparse engine (1M x 10k)", *sp_map)
     sp["card_vs_cpu"] = parity
-    if sp["engine"] != "sparse" or sp["launches"]["sparse_priced_min2"] < 1:
+    sp_variants = sp["variants"]["sparse_priced_min2_cand"]
+    if sp["engine"] != "sparse" or \
+            sp["launches"]["sparse_priced_min2_cand"] < 1 or \
+            set(sp_variants) != {sparse["timed_instantiation"]}:
         raise AssertionError(f"sparse run: engine {sp['engine']}, launches "
-                             f"{sp['launches']}")
+                             f"{sp['variants']}")
 
     kernels = [
         dict(name="priced_min2_argmin", route="cuda",
              source="blance_tpu_torch/ops/csrc/min2.cu",
              replaces="blance_tpu/ops/reduce2.py:115",
              launches=auto["launches"]["priced_min2_argmin"],
+             instantiations=auto["variants"]["priced_min2_argmin"],
              bitwise=True, **min2),
         dict(name="fused_score_min2", route="cuda",
              source="blance_tpu_torch/ops/csrc/score_fused.cu",
              replaces="blance_tpu/ops/score_fused.py:254",
              launches=on["launches"]["fused_score_min2"],
+             instantiations=on["variants"]["fused_score_min2"],
              bitwise=True, **fused),
         dict(name="sparse_priced_min2", route="cuda",
              source="blance_tpu_torch/ops/csrc/sparse_min2.cu",
              replaces="blance_tpu/ops/sparse2.py:130",
-             launches=sp["launches"]["sparse_priced_min2"],
-             bitwise=True, **sparse),
+             wrapper="sparse_priced_min2_cand",
+             launches=sp["launches"]["sparse_priced_min2_cand"],
+             instantiations=sp_variants, bitwise=True, **sparse),
     ]
     prof = [profile_main_path(m, prev, nodes, removed, model, opts)
             for m in ("off", "on")]

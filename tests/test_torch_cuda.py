@@ -33,6 +33,7 @@ def _same(got, want):
     for g, w in zip(got, want):
         assert g.dtype == w.dtype
         np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+    assert len(got) == len(want)
 
 
 @pytest.mark.parametrize("shape,quant", [((130, 300), False),
@@ -51,10 +52,8 @@ def test_min2_kernel_matches_plain(dev, shape, quant):
     _same(got, reduce2.min2_argmin_reference(x + price[None, :]))
 
 
-@pytest.mark.parametrize("nrules", [0, 1, 2])
-def test_fused_kernel_matches_plain(dev, nrules):
-    rng = np.random.default_rng(nrules)
-    P, N, R, T, A = 300, 257, 2, 3, 2
+def _fused_inputs(dev, seed, P, N, R, T, A, nrules):
+    rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(np.asarray(a)).to(dev)  # noqa: E731
     rack = rng.integers(0, 5, N).astype(np.int32)
     gids = t(np.stack([np.arange(N, dtype=np.int32), rack, rack // 3]))
@@ -74,27 +73,109 @@ def test_fused_kernel_matches_plain(dev, nrules):
         rules=((2, 1), (1, 0))[:nrules])
     price = t((rng.random(N) + np.where(rng.random(N) < 0.2, 1e9, 0))
               .astype(np.float32))
+    return price, si
+
+
+@pytest.mark.parametrize("nrules", [0, 1, 2])
+def test_fused_kernel_matches_plain(dev, nrules):
+    price, si = _fused_inputs(dev, nrules, 300, 257, 2, 3, 2, nrules)
     got = score_fused.fused_score_min2(price, si, 7, 0, nrules=nrules,
                                        jitter_scale=1e-5)
     _same(got, score_fused.fused_score_min2_reference(
         price, si, 7, 0, nrules=nrules, jitter_scale=1e-5))
 
 
-@pytest.mark.parametrize("shape", [(2048, 16), (4099, 37), (7, 1)])
-def test_sparse_min2_kernel_matches_plain(dev, shape):
-    """All four outputs, bitwise: quantized scores (many ties), +inf pad
-    columns and all-+inf rows."""
-    g = torch.Generator().manual_seed(2)
+@pytest.mark.parametrize("widths", list(score_fused.FUSED_VARIANTS)
+                         + [(2, 2, 2, 2)])
+@pytest.mark.parametrize("P", [300, 5])
+def test_fused_kernel_every_instantiation(dev, widths, P):
+    """Each fixed-width instantiation and the runtime-width one (nrules =
+    2, R = 2, T = 2), with a ragged last row tile (P % 16 != 0) and a
+    tile shorter than a tile's rows; a row base and a column offset as a
+    caller with a window of rows and columns passes them."""
+    nrules, R, T, A = widths
+    price, si = _fused_inputs(dev, P + nrules, P, 1003, R, T, max(A, 1),
+                              nrules)
+    name = score_fused.fused_variant(nrules, R, T, max(A, 1))
+    assert name == ("generic" if widths == (2, 2, 2, 2) else
+                    "n%dr%dt%da%d" % widths)
+    reset_launch_counts()
+    got = score_fused.fused_score_min2(price, si, 11, 40, nrules=nrules,
+                                       jitter_scale=1e-5)
+    assert score_fused.fused_score_min2.variants == {name: 1}
+    _same(got, score_fused.fused_score_min2_reference(
+        price, si, 11, 40, nrules=nrules, jitter_scale=1e-5))
+
+
+@pytest.mark.parametrize("variant", ["n1r1t2a2", "generic"])
+@pytest.mark.parametrize("where", ["all", "head"])
+def test_fused_kernel_inf_prices(dev, variant, where):
+    """+inf prices: every row all +inf (idx 0, raw NaN), and the first
+    columns +inf, so some threads see only +inf."""
+    widths = (1, 1, 2, 2) if variant != "generic" else (1, 2, 2, 2)
+    price, si = _fused_inputs(dev, 3, 37, 603, *widths[1:], widths[0])
+    if where == "all":
+        price[:] = float("inf")
+    else:
+        price[:300] = float("inf")
+    reset_launch_counts()
+    got = score_fused.fused_score_min2(price, si, 0, 0, nrules=1,
+                                       jitter_scale=1e-5)
+    assert score_fused.fused_score_min2.variants == {variant: 1}
+    _same(got, score_fused.fused_score_min2_reference(
+        price, si, 0, 0, nrules=1, jitter_scale=1e-5))
+
+
+def _sparse_inputs(shape, seed=2):
+    g = torch.Generator().manual_seed(seed)
     score = torch.randint(0, 6, shape, generator=g).to(torch.float32) * 0.125
     price = torch.randint(0, 3, shape, generator=g).to(torch.float32) * 0.25
     if shape[1] > 4:
         score[:, -3:] = float("inf")
     score[::5] = float("inf")
+    return score, price
+
+
+@pytest.mark.parametrize("shape", [(2048, 16), (4099, 37), (7, 1)])
+def test_sparse_min2_kernel_matches_plain(dev, shape):
+    """All four outputs, bitwise: quantized scores (many ties), +inf pad
+    columns and all-+inf rows."""
+    score, price = _sparse_inputs(shape)
     score, price = score.to(dev), price.to(dev)
     before = sparse2.sparse_priced_min2.launches
     got = sparse2.sparse_priced_min2(score, price)
     assert sparse2.sparse_priced_min2.launches == before + 1
     _same(got, sparse2.sparse_min2_reference(score, price))
+
+
+@pytest.mark.parametrize("shape,offset", [((2048, 16), 0), ((4099, 37), 0),
+                                          ((7, 1), 0), ((130, 32), 0),
+                                          ((130, 16), 1)])
+def test_sparse_min2_cand_kernel_matches_plain(dev, shape, offset):
+    """The gathered instantiation, all five outputs bitwise: -1 pad
+    columns, ids >= N, repeated ids, all-+inf rows; ragged K takes the
+    4-byte loads, and so does a [P, 16] view that starts 4 bytes past a
+    16-byte boundary."""
+    n = 50
+    score, _ = _sparse_inputs(shape, seed=3)
+    g = torch.Generator().manual_seed(4)
+    cand = torch.randint(0, n, shape, generator=g).to(torch.int32)
+    if shape[1] > 4:
+        cand[::3, -2:] = -1
+        cand[1::7, 0] = n + 3
+        cand[2::5, 1] = cand[2::5, 0]
+    price_n = torch.randint(0, 4, (n,), generator=g).to(torch.float32) * 0.5
+    price_n[::9] = 1e9
+    score, price_n = score.to(dev), price_n.to(dev)
+    buf = torch.empty(cand.numel() + offset, dtype=torch.int32, device=dev)
+    cand = buf[offset:].view(shape).copy_(cand.to(dev))
+    want_variant = "vec4" if shape[1] % 4 == 0 and not offset else "scalar"
+    assert sparse2.load_variant(shape[1], score, cand) == want_variant
+    reset_launch_counts()
+    got = sparse2.sparse_priced_min2_cand(score, cand, price_n)
+    assert sparse2.sparse_priced_min2_cand.launches == 1
+    assert sparse2.sparse_priced_min2_cand.variants == {want_variant: 1}
+    _same(got, sparse2.sparse_min2_cand_reference(score, cand, price_n))
 
 
 def _rack_rule_arrays():
@@ -140,6 +221,6 @@ def test_sparse_solve_on_card_matches_cpu(dev, k):
     reset_launch_counts()
     gpu = solve_sparse(*problem_to_torch(*arrays, device=dev), *statics,
                        k=k, stats=gpu_stats)
-    assert launch_counts()["sparse_priced_min2"] > 0
+    assert launch_counts()["sparse_priced_min2_cand"] > 0
     np.testing.assert_array_equal(gpu, cpu)
     assert gpu_stats["exhausted_rows"] == cpu_stats["exhausted_rows"]
