@@ -1,13 +1,23 @@
-"""blance_tpu_torch — the PyTorch/CUDA port of blance_tpu's planner.
+"""blance_tpu_torch — the PyTorch/CUDA port of blance_tpu.
 
-The cold-solve paths of blance_tpu (``plan_next_map(...,
-backend="tpu")``) on PyTorch: the dense engines and the sparse shortlist
-engine, with the three TPU kernels on those paths rewritten as CUDA C++
-kernels for Hopper (``ops/csrc``).  The package
-imports ``torch`` and never ``jax`` or ``blance_tpu``: the jax-free data
-model, encode/decode and audit are its own copies.  Entry points run on
-``device="cuda"`` unless the caller asks for the CPU, where every kernel
-runs its plain PyTorch version.
+Plan, diff and orchestrate on PyTorch:
+
+- the planner's cold-solve paths (``plan_next_map(..., backend="cuda")``):
+  the dense engines and the sparse shortlist engine, with the three TPU
+  kernels on those paths rewritten as CUDA C++ kernels for Hopper
+  (``ops/csrc``);
+- the move diff: ``calc_all_moves`` diffs whole maps on the device
+  (``moves/batch.py``), ``calc_partition_moves`` is its host oracle;
+- the orchestrator (``orchestrate_moves``) that executes a transition
+  against the app's data-plane callback, and the rebalance facade
+  (``rebalance``, ``rebalance_async``, ``RebalanceController``) that runs
+  plan -> diff -> orchestrate.
+
+The package imports ``torch`` and never ``jax`` or ``blance_tpu``: the
+jax-free data model, encode/decode, audit, orchestrator and host side of
+obs are its own copies.  Entry points run on ``device="cuda"`` unless the
+caller asks for the CPU, where every kernel runs its plain PyTorch
+version.
 """
 
 from .core.types import (
@@ -27,6 +37,15 @@ from .core.encode import DenseProblem, decode_assignment, encode_problem
 from .convert import assign_to_numpy, problem_to_torch, score_inputs_to_torch
 from .plan.api import cbgt_node_score_booster, plan_next_map
 from .plan.audit import check_assignment, maybe_validate
+from .moves.batch import calc_all_moves
+from .moves.calc import NodeStateOp, calc_partition_moves
+from .orchestrate import OrchestratorOptions, orchestrate_moves
+from .rebalance import (
+    ClusterDelta,
+    RebalanceController,
+    rebalance,
+    rebalance_async,
+)
 from .plan.tensor import (
     plan_next_map_cuda,
     resolve_fused_score,
@@ -39,13 +58,16 @@ from .plan.tensor import (
 )
 
 __all__ = [
-    "DenseProblem", "HierarchyRule", "HierarchyRules", "Partition",
-    "PartitionMap", "PartitionModel", "PartitionModelState", "PlanOptions",
-    "assign_to_numpy", "cbgt_node_score_booster", "check_assignment",
+    "ClusterDelta", "DenseProblem", "HierarchyRule", "HierarchyRules",
+    "NodeStateOp", "OrchestratorOptions", "Partition", "PartitionMap",
+    "PartitionModel", "PartitionModelState", "PlanOptions",
+    "RebalanceController", "assign_to_numpy", "calc_all_moves",
+    "calc_partition_moves", "cbgt_node_score_booster", "check_assignment",
     "copy_partition_map", "decode_assignment", "encode_problem",
-    "maybe_validate", "model", "partition_map_from_json",
-    "partition_map_to_json", "plan_next_map", "plan_next_map_cuda",
-    "problem_to_torch", "resolve_fused_score", "score_inputs_to_torch",
+    "maybe_validate", "model", "orchestrate_moves",
+    "partition_map_from_json", "partition_map_to_json", "plan_next_map",
+    "plan_next_map_cuda", "problem_to_torch", "rebalance",
+    "rebalance_async", "resolve_fused_score", "score_inputs_to_torch",
     "set_dense_score_budget", "set_fused_score_default",
     "solve_converged_resilient", "solve_dense", "solve_dense_converged",
     "solve_sparse",

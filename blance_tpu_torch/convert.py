@@ -13,11 +13,24 @@ import torch
 
 from .ops.score_fused import ScoreInputs
 
-__all__ = ["problem_to_torch", "assign_to_numpy", "score_inputs_to_torch"]
+__all__ = ["problem_to_torch", "assign_to_numpy", "resolve_device",
+           "score_inputs_to_torch"]
 
 _DTYPES = {np.dtype(np.int32): torch.int32,
            np.dtype(np.float32): torch.float32,
            np.dtype(bool): torch.bool}
+
+
+def resolve_device(device: Any, who: str) -> torch.device:
+    """``device`` as a torch.device; an entry point asked for the card
+    on a machine without one raises instead of running on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who}: device {str(device)!r} requested but "
+            "torch.cuda.is_available() is False (pass device='cpu' to run "
+            "the plain PyTorch path on the CPU)")
+    return dev
 
 
 def _to_torch(a: Any, want: torch.dtype, device) -> torch.Tensor:

@@ -1,6 +1,9 @@
 # Copied from blance_tpu/core/encode.py (DenseProblem, encode_problem,
-# decode_assignment) on the pure-Python path only: the native marshal
-# extension's branches and the shape-bucketing helpers are left out.
+# decode_assignment, pack_slot_rows) on the pure-Python path only: the
+# native marshal extension's branches and the shape-bucketing helpers are
+# left out.  The integer cores (pack_assignment_core,
+# prev_from_entries_core) and their entry points are torch ports of the
+# reference's jnp functions.
 """Dense encoding: PartitionMap <-> int32/float32 arrays.
 
 The reference's data model is maps of strings (reference api.go:24-36); the
@@ -26,6 +29,7 @@ from dataclasses import dataclass
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 from .hierarchy import find_ancestor, level_group_ids
 from .order import sort_state_names, sorted_by_partition_name
@@ -37,9 +41,87 @@ from .types import (
     PlanOptions,
 )
 
-__all__ = ["DenseProblem", "NPArray", "encode_problem", "decode_assignment"]
+__all__ = ["DenseProblem", "NPArray", "encode_problem", "decode_assignment",
+           "pack_assignment_core", "pack_assignment",
+           "prev_from_entries_core", "prev_from_entries", "pack_slot_rows"]
 
 NPArray = np.ndarray[Any, np.dtype[Any]]
+
+# --- device integer cores ---------------------------------------------------
+#
+# The string<->id interning at the map edges is host work, but the INTEGER
+# cores of encode (filling prev[P, S, R] from interned entries) and decode
+# (packing each state row's non-empty slots left and counting them) are
+# array programs, run on the device of their tensors.
+
+
+def pack_assignment_core(assign: torch.Tensor) \
+        -> tuple[torch.Tensor, torch.Tensor]:
+    """Decode's integer core: pack every (partition, state) row's
+    non-empty slots left (stable, preserving slot order) and count them.
+    [P, S, R] int32 -> (packed [P, S, R] int32, counts [P, S] int32).
+    Bit-equivalent to the numpy pack in decode_assignment and to
+    :func:`pack_slot_rows`.  The sort key is the 0/1 empty flag as an
+    integer, sorted stably."""
+    mask = assign >= 0
+    order = torch.sort((~mask).to(torch.int32), dim=2, stable=True).indices
+    packed = torch.gather(assign, 2, order)
+    counts = mask.sum(dim=2, dtype=torch.int32)
+    return packed, counts
+
+
+def pack_assignment(assign: Any, device: Any = "cuda") \
+        -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`pack_assignment_core` on ``device`` for an int32 [P, S, R]
+    array or tensor (the host-facing entry point)."""
+    from ..convert import resolve_device
+
+    dev = resolve_device(device, "pack_assignment")
+    return pack_assignment_core(torch.as_tensor(assign).to(dev))
+
+
+def prev_from_entries_core(pi: torch.Tensor, si: torch.Tensor,
+                           ri: torch.Tensor, node: torch.Tensor,
+                           p: int, s: int, r: int) -> torch.Tensor:
+    """Encode's integer core: scatter interned (partition, state, slot,
+    node) entry columns into a dense prev[P, S, R] (-1 empties).  Entries
+    with a negative coordinate, or whose flat index passes P*S*R, drop,
+    so callers can pad entry lists with -1 rows.  The reference's
+    ``mode="drop"`` scatter is a scatter into one extra bucket that is
+    sliced off.  Equivalent to encode_problem's host fill loop for
+    already-interned entries."""
+    size = p * s * r
+    flat = pi.long() * (s * r) + si.long() * r + ri.long()
+    keep = (pi >= 0) & (si >= 0) & (ri >= 0) & (flat < size)
+    flat = torch.where(keep, flat, torch.full_like(flat, size))
+    out = torch.full((size + 1,), -1, dtype=torch.int32, device=node.device)
+    out.scatter_(0, flat, node.to(torch.int32))
+    return out[:size].reshape(p, s, r)
+
+
+def prev_from_entries(pi: Any, si: Any, ri: Any, node: Any, p: int, s: int,
+                      r: int, device: Any = "cuda") -> torch.Tensor:
+    """:func:`prev_from_entries_core` on ``device`` for entry columns
+    given as arrays or tensors."""
+    from ..convert import resolve_device
+
+    dev = resolve_device(device, "prev_from_entries")
+    cols = [torch.as_tensor(c).to(dev) for c in (pi, si, ri, node)]
+    return prev_from_entries_core(*cols, p, s, r)
+
+
+def pack_slot_rows(rows: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Host pack of ``[..., S, R]`` assignment rows: non-empty slots
+    left (stable, preserving slot order) + per-(row, state) counts.
+
+    THE numpy spelling of decode_assignment's per-state pack (argsort
+    on the empty mask, ``kind="stable"``) lifted to whole rows, and the
+    host twin of :func:`pack_assignment_core`."""
+    mask = rows >= 0
+    order = np.argsort(~mask, axis=-1, kind="stable")
+    packed = np.take_along_axis(rows, order, axis=-1)
+    counts = mask.sum(axis=-1).astype(np.int64)
+    return packed, counts
 
 
 @dataclass

@@ -1,7 +1,8 @@
 # Copied from blance_tpu/plan/greedy.py (sort_state_names,
-# _partition_name_key, sorted_by_partition_name): encode_problem needs the
-# planner's deterministic state and partition order; the greedy planner
-# itself is not part of the port yet.
+# _partition_name_key, sorted_by_partition_name, flatten_nodes_by_state):
+# encode_problem, the move calculus and the orchestrator need the planner's
+# deterministic state and partition order; the greedy planner itself is not
+# part of the port yet.
 """State and partition ordering shared by encode and the planners."""
 
 from __future__ import annotations
@@ -12,7 +13,8 @@ import numpy as np
 
 from .types import PartitionModel
 
-__all__ = ["sort_state_names", "sorted_by_partition_name"]
+__all__ = ["flatten_nodes_by_state", "sort_state_names",
+           "sorted_by_partition_name"]
 
 
 def sort_state_names(model: PartitionModel) -> list[str]:
@@ -69,3 +71,11 @@ def sorted_by_partition_name(names: "Iterable[str]") -> list[str]:
         keys[i] = _partition_name_key(names[i]).encode()
     order = np.lexsort((arr, keys))
     return [names[i] for i in order]
+
+
+def flatten_nodes_by_state(nodes_by_state: dict[str, list[str]]) -> list[str]:
+    """All nodes across states, concatenated (plan.go:425-431)."""
+    rv: list[str] = []
+    for nodes in nodes_by_state.values():
+        rv.extend(nodes)
+    return rv

@@ -61,7 +61,7 @@ from ..core.types import PartitionMap, PartitionModel, PlanOptions
 from ..ops import launch_counts
 from ..ops.reduce2 import priced_min2_argmin
 from ..ops.sparse2 import sparse_priced_min2_cand
-from ..convert import problem_to_torch
+from ..convert import problem_to_torch, resolve_device
 from ..ops.score_fused import (
     _ROW_CELLS,
     fill_scale,
@@ -1432,12 +1432,7 @@ def plan_next_map_cuda(
     launches of the solve; on the sparse engine also k, shortlist_s,
     exhausted_rows and fallback_rows (see solve_sparse)."""
     opts = opts or PlanOptions()
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "plan_next_map_cuda: device 'cuda' requested but "
-            "torch.cuda.is_available() is False (pass device='cpu' to run "
-            "the plain PyTorch path on the CPU)")
+    device = resolve_device(device, "plan_next_map_cuda")
     del nodes_to_add
     stamps = {"t0": time.perf_counter()}
     problem = encode_problem(prev_map, partitions_to_assign, nodes_all,

@@ -33,7 +33,16 @@ nothing of jax or of the JAX package.  In order:
    with every count 0, place nothing on a removed node, fill every slot,
    and launch its engine's kernel in the instantiation that step 2
    timed;
-6. prints one JSON line of kernel measurements, the card's name and
+6. diffs the north-star plan into moves on the card (``calc_all_moves``,
+   both emission orders): the device diff equals the CPU's array for
+   array and the host ``calc_partition_moves`` on every partition;
+7. drives the one-shot ``rebalance()`` (plan -> diff -> orchestrate) at
+   the north star against an in-memory data plane that replays each op:
+   it must finish without errors, execute exactly the diff's ops, reach
+   the plain plan's map with a clean audit and nothing on a removed node,
+   and its plan must launch the min2 kernel; a small rebalance on the
+   card must equal the CPU's, map and op log (the ``rebalance`` line);
+8. prints one JSON line of kernel measurements, the card's name and
    power limit, the script's wall time, and last
    ``{"ok": true, "device": {...}}``.  A kernel's ``ms`` is its device
    time per call, from back-to-back calls in a CUDA graph
@@ -51,6 +60,7 @@ before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -63,7 +73,10 @@ import torch
 import blance_tpu_torch as bt
 from blance_tpu_torch.ops import (_build, launch_counts, launch_variants,
                                   reset_launch_counts)
+from blance_tpu_torch.core.order import sort_state_names
 from blance_tpu_torch.core.shortlist import build_shortlist_core
+from blance_tpu_torch.moves import batch as moves_batch
+from blance_tpu_torch.obs import Recorder, use_recorder
 from blance_tpu_torch.ops import reduce2, score_fused, sparse2
 from blance_tpu_torch.plan import tensor as T
 
@@ -423,7 +436,193 @@ def run_main_path(label, prev, nodes, removed, model, opts) -> dict:
     info = dict(timings, wall_s=wall, launches=counts, variants=variants,
                 audit=audit, load_spread=spread, partitions_moved=moved)
     log(f"{label}: {json.dumps(info)}")
+    return info, out
+
+
+def _placed(pmap_nbs) -> dict:
+    """Placements by partition and state, empty states dropped."""
+    return {k: {st: list(ns) for st, ns in nbs.items() if ns}
+            for k, nbs in pmap_nbs.items()}
+
+
+def diff_matches_host(prev, out, model, dev) -> dict:
+    """The north-star plan diffed into moves on the card, in both emission
+    orders: the device diff of the encoded maps equals the CPU's bitwise
+    ([P, L] nodes, states and ops), and calc_all_moves on the card equals
+    the host calc_partition_moves on every partition.  Times the device
+    diff (a CUDA graph of back-to-back calls, and one call between events)
+    and the whole calc_all_moves (host encode, device diff, materialize)
+    on the host clock, with its spans, and profiles one diff call (its
+    device kernels by name)."""
+    states = sort_state_names(model)
+    names, _nodes, beg, end, irregular = moves_batch.encode_maps(prev, out,
+                                                                 states)
+    beg_c, end_c = torch.from_numpy(beg), torch.from_numpy(end)
+    beg_d, end_d = beg_c.to(dev), end_c.to(dev)
+    res = {"P": len(names), "L": 2 * beg.shape[1] * beg.shape[2],
+           "irregular": len(irregular)}
+    for favor in (False, True):
+        got = moves_batch.diff_assignments(beg_d, end_d,
+                                           favor_min_nodes=favor)
+        want = moves_batch.diff_assignments(beg_c, end_c,
+                                            favor_min_nodes=favor)
+        compare([g.cpu() for g in got], want,
+                f"diff_assignments favor_min_nodes={favor}")
+        diff = lambda: moves_batch.diff_assignments(  # noqa: E731
+            beg_d, end_d, favor_min_nodes=favor)
+        rec = Recorder()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with use_recorder(rec):
+            moves = bt.calc_all_moves(prev, out, model, favor, device="cuda")
+        calc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bad = [name for name in names if moves[name] != bt.calc_partition_moves(
+            states, prev[name].nodes_by_state, out[name].nodes_by_state,
+            favor)]
+        host_s = time.perf_counter() - t0
+        if bad or list(moves) != names:
+            raise AssertionError(f"calc_all_moves favor_min_nodes={favor} "
+                                 f"differs from calc_partition_moves on "
+                                 f"{len(bad)} partitions, first {bad[:3]}")
+        spans = rec.summary()["spans"]
+        ops = sum(len(m) for m in moves.values())
+        rows = device_kernels(diff)
+        res["favor_min_nodes" if favor else "availability"] = dict(
+            diff_device_ms=graph_ms(diff), diff_events_ms=time_ms(diff),
+            profile={"kernels": sum(r[2] for r in rows),
+                     "device_ms": sum(r[1] for r in rows),
+                     "top": [{"kernel": k[:80], "ms": ms, "calls": c}
+                             for k, ms, c in rows[:4]]},
+            calc_all_moves_s=calc_s,
+            spans_s={k.split(".")[-1]: v["total_s"] for k, v in spans.items()},
+            host_calc_partition_moves_s=host_s, ops=ops,
+            partitions_moved=sum(1 for m in moves.values() if m))
+        log(f"device diff [{len(names)}, {res['L']}] favor_min_nodes={favor}"
+            f" == CPU (bitwise) == calc_partition_moves on every partition:"
+            f" {json.dumps(res['favor_min_nodes' if favor else 'availability'])}")
+    return res
+
+
+def _replay_plane(current):
+    """An in-memory data plane: replays each op onto a dict (no device
+    work on the loop) and counts the ops; returns (cluster, counts,
+    assign)."""
+    cluster = {k: {st: list(ns) for st, ns in p.nodes_by_state.items()}
+               for k, p in current.items()}
+    done = {"ops": 0, "batches": 0}
+
+    def assign(stop_ch, node, partitions, states, ops):
+        for p, st, _op in zip(partitions, states, ops):
+            for ns in cluster[p].values():
+                if node in ns:
+                    ns.remove(node)
+            if st:
+                cluster[p].setdefault(st, []).append(node)
+        done["ops"] += len(ops)
+        done["batches"] += 1
+
+    return cluster, done, assign
+
+
+REBALANCE_OPTIONS = dict(device_diff=True, interrupt_on_first_feed=False,
+                         max_concurrent_partition_moves_per_node=4)
+
+
+def rebalance_main_path(prev, nodes, removed, model, opts, plain_map,
+                        diff) -> dict:
+    """The port's one-shot rebalance() at the north star: plan on the card
+    (matrix engine, min2 kernel), diff on the card, orchestrate against
+    the replaying data plane with bench.py bench_pipeline's options."""
+    cluster, done, assign = _replay_plane(prev)
+    rec = Recorder()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with use_recorder(rec):
+        res = bt.rebalance(model, prev, nodes, removed, [], assign,
+                           plan_options=opts, backend="cuda", device="cuda",
+                           orchestrator_options=bt.OrchestratorOptions(
+                               **REBALANCE_OPTIONS))
+    total_s = time.perf_counter() - t0
+    counts = launch_counts()
+    spans = rec.summary()["spans"]
+    next_map = res.next_map
+    problem = bt.encode_problem(prev, prev, nodes, removed, model, opts)
+    after = bt.encode_problem(next_map, next_map, nodes, removed, model, opts)
+    audit = bt.check_assignment(problem, after.prev)
+    gone = set(removed)
+    on_removed = sum(nd in gone for nbs in cluster.values()
+                     for ns in nbs.values() for nd in ns)
+    want_ops = diff["availability"]["ops"]
+    checks = dict(
+        min2_launched=counts["priced_min2_argmin"] >= 1,
+        no_errors=not res.progress.errors and res.converged,
+        ops_equal_diff=done["ops"] == want_ops,
+        replay_equals_next_map=_placed(cluster) == _placed(
+            {k: p.nodes_by_state for k, p in next_map.items()}),
+        next_map_equals_plain_plan=bt.partition_map_to_json(next_map)
+        == bt.partition_map_to_json(plain_map),
+        audit_clean=not any(audit.values()),
+        nothing_on_removed=on_removed == 0)
+    timer = res.timer.totals
+    info = dict(
+        plan_s=timer["plan"], diff_device_ms=diff["availability"][
+            "diff_device_ms"],
+        device_diff_span_s=spans["moves.device_diff"]["total_s"],
+        calc_all_moves_s=spans["moves.calc_all_moves"]["total_s"],
+        orchestrate_s=timer["orchestrate"], total_s=total_s,
+        ops=done["ops"], ops_from_diff=want_ops,
+        partitions_moved=diff["availability"]["partitions_moved"],
+        progress_events=res.progress_events,
+        batches_ok=res.progress.tot_mover_assign_partition_ok,
+        batches_fed=done["batches"], errors=len(res.progress.errors),
+        launches=counts, audit=audit, options=REBALANCE_OPTIONS,
+        checks=checks)
+    log(f"rebalance (north star): {json.dumps(info)}")
+    if not all(checks.values()):
+        raise AssertionError(f"rebalance at the north star: {checks}")
     return info
+
+
+def small_rebalance_matches_cpu(dev) -> dict:
+    """rebalance() at P = 2048, N = 64 on the card and on the CPU: the
+    same final map and the same op log."""
+    rng = np.random.default_rng(5)
+    n = 64
+    nodes = [f"s{i:02d}" for i in range(n)]
+    hier = {nd: f"r{i // 8}" for i, nd in enumerate(nodes)}
+    hier.update({f"r{i}": "z0" for i in range(n // 8)})
+    prim = rng.integers(0, n, 2048)
+    repl = (prim + 1 + rng.integers(0, n - 1, 2048)) % n
+    prev = {str(i): bt.Partition(str(i), {"primary": [nodes[a]],
+                                          "replica": [nodes[b]]})
+            for i, (a, b) in enumerate(zip(prim.tolist(), repl.tolist()))}
+    removed = [nodes[i] for i in rng.choice(n, 3, replace=False)]
+    model = bt.model(primary=(0, 1), replica=(1, 1))
+    opts = bt.PlanOptions(node_hierarchy=hier, hierarchy_rules={
+        "replica": [bt.HierarchyRule(include_level=2, exclude_level=1)]})
+    out = []
+    for device in (dev, "cpu"):
+        oplog = []
+
+        def assign(stop_ch, node, partitions, states, ops):
+            oplog.extend(zip(partitions, [node] * len(ops), states, ops))
+
+        res = bt.rebalance(model, prev, nodes, removed, [], assign,
+                           plan_options=opts, backend="cuda", device=device,
+                           orchestrator_options=bt.OrchestratorOptions(
+                               **REBALANCE_OPTIONS))
+        if res.progress.errors:
+            raise AssertionError(f"small rebalance on {device}: "
+                                 f"{res.progress.errors[:3]}")
+        out.append((bt.partition_map_to_json(res.next_map), oplog))
+    if out[0][0] != out[1][0] or out[0][1] != out[1][1] or not out[0][1]:
+        raise AssertionError("small rebalance: the card's map or op log "
+                             "differs from the CPU's")
+    log(f"small rebalance [2048 x 64] on the card == CPU (map and "
+        f"{len(out[0][1])} ops)")
+    return {"P": 2048, "N": n, "ops": len(out[0][1]), "equal": True}
 
 
 def small_map_matches_cpu(dev) -> None:
@@ -510,29 +709,38 @@ def sparse_engine_matches_cpu(prev, nodes, removed, model, opts,
     return secs
 
 
-def profile_main_path(mode, prev, nodes, removed, model, opts) -> dict:
-    """One more main-path run on engine ``mode`` (the dense engine mode;
-    the sparse deployment routes itself) under torch.profiler:
-    the device's kernel time against the solve's wall time (busy share)
-    and the kernels that took it, by name."""
+def device_kernels(fn) -> list:
+    """Run ``fn`` under torch.profiler; the device kernels it ran as
+    (name, device ms, calls), longest first."""
     from torch.profiler import ProfilerActivity, profile
 
-    T.set_fused_score_default(mode)
-    timings: dict = {}
     with warnings.catch_warnings():
         # The profiler's own notices are not engine fallbacks.
         warnings.filterwarnings("ignore", module=r"torch\.")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            bt.plan_next_map(prev, prev, nodes, removed, [], model, opts,
-                             backend="cuda", timings=timings)
-    T.set_fused_score_default("auto")
+            fn()
+            torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA  # kernels, not the host ops
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if getattr(e, "device_type", None) == cuda
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
+    return rows
+
+
+def profile_main_path(mode, prev, nodes, removed, model, opts) -> dict:
+    """One more main-path run on engine ``mode`` (the dense engine mode;
+    the sparse deployment routes itself) under torch.profiler:
+    the device's kernel time against the solve's wall time (busy share)
+    and the kernels that took it, by name."""
+    T.set_fused_score_default(mode)
+    timings: dict = {}
+    rows = device_kernels(lambda: bt.plan_next_map(
+        prev, prev, nodes, removed, [], model, opts, backend="cuda",
+        timings=timings))
+    T.set_fused_score_default("auto")
     device_ms = sum(r[1] for r in rows)
     wall_ms = timings["solve_s"] * 1e3
     return {"engine": timings["engine"], "solve_wall_ms": wall_ms,
@@ -570,15 +778,16 @@ def main() -> int:
     small_map_matches_cpu(dev)
     prev, nodes, removed, model, opts = north_star_map()
     T.set_fused_score_default("auto")
-    auto = run_main_path("main path, auto engine", prev, nodes, removed,
-                         model, opts)
+    auto, plain_map = run_main_path("main path, auto engine", prev, nodes,
+                                    removed, model, opts)
     if auto["engine"] != "matrix" or auto["launches"]["priced_min2_argmin"] < 1:
         raise AssertionError(f"auto run: engine {auto['engine']}, launches "
                              f"{auto['launches']}")
+    ns_opts = dataclasses.replace(opts)  # the auto run's options
     T.set_fused_score_default("on")
     opts.sparse = False
-    on = run_main_path("main path, fused engine", prev, nodes, removed,
-                       model, opts)
+    on, _ = run_main_path("main path, fused engine", prev, nodes, removed,
+                          model, opts)
     T.set_fused_score_default("auto")
     if on["engine"] != "fused" or on["launches"]["fused_score_min2"] < 1 \
             or fused["timed_instantiation"] not in \
@@ -586,11 +795,18 @@ def main() -> int:
         raise AssertionError(f"fused run: engine {on['engine']}, launches "
                              f"{on['variants']}")
 
+    diff = diff_matches_host(prev, plain_map, model, dev)
+    rebalance = rebalance_main_path(prev, nodes, removed, model, ns_opts,
+                                    plain_map, diff)
+    rebalance["small_card_equals_cpu"] = small_rebalance_matches_cpu(dev)
+    rebalance["diff"] = diff
+    del plain_map
+
     t0 = time.perf_counter()
     sp_map = north_star_map(P_SPARSE)
     log(f"sparse deployment map built in {time.perf_counter() - t0:.1f} s")
     parity = sparse_engine_matches_cpu(*sp_map, dev)
-    sp = run_main_path("main path, sparse engine (1M x 10k)", *sp_map)
+    sp, _ = run_main_path("main path, sparse engine (1M x 10k)", *sp_map)
     sp["card_vs_cpu"] = parity
     sp_variants = sp["variants"]["sparse_priced_min2_cand"]
     if sp["engine"] != "sparse" or \
@@ -626,6 +842,7 @@ def main() -> int:
     print(json.dumps({"build_s": build_s, "main_path": {
         "matrix": auto, "fused": on, "sparse": sp}}))
     print(json.dumps({"wall_s": time.perf_counter() - t_start}))
+    print(json.dumps({"rebalance": rebalance}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -224,3 +224,63 @@ def test_sparse_solve_on_card_matches_cpu(dev, k):
     assert launch_counts()["sparse_priced_min2_cand"] > 0
     np.testing.assert_array_equal(gpu, cpu)
     assert gpu_stats["exhausted_rows"] == cpu_stats["exhausted_rows"]
+
+
+# --- move diff, rank sweep and the one-shot rebalance on the card -----------------
+
+
+@pytest.mark.parametrize("favor_min_nodes", [False, True])
+@pytest.mark.parametrize("s,r", [(2, 1), (3, 2)])
+def test_diff_assignments_on_card_matches_cpu(dev, s, r, favor_min_nodes):
+    from blance_tpu_torch.moves.batch import diff_assignments
+
+    rng = np.random.default_rng(10 * s + r)
+    beg = torch.from_numpy(rng.integers(-1, 9, (5000, s, r)).astype(np.int32))
+    end = torch.from_numpy(rng.integers(-1, 9, (5000, s, r)).astype(np.int32))
+    cpu = diff_assignments(beg, end, favor_min_nodes=favor_min_nodes)
+    gpu = diff_assignments(beg.to(dev), end.to(dev),
+                           favor_min_nodes=favor_min_nodes)
+    _same(gpu, cpu)
+
+
+def test_rank_levels_on_card_matches_cpu(dev):
+    from blance_tpu_torch.orchestrate.sched.ranks import rank_levels
+
+    rng = np.random.default_rng(4)
+    costs = torch.from_numpy(
+        (rng.random((3000, 8)) * 10.0 ** rng.integers(-4, 4, (3000, 8)))
+        .astype(np.float32))
+    got = rank_levels(costs.to(dev)).cpu()
+    assert got.numpy().tobytes() == rank_levels(costs).numpy().tobytes()
+
+
+def test_small_rebalance_on_card_matches_cpu(dev):
+    """A small rebalance(device="cuda") gives the CPU's map and op log,
+    and its plan went through the min2 kernel."""
+    import blance_tpu_torch as bt
+
+    rng = np.random.default_rng(6)
+    nodes = [f"n{i:02d}" for i in range(40)]
+    prev = {str(i): bt.Partition(str(i), {
+        "primary": [nodes[a]], "replica": [nodes[(a + 1 + b) % 40]]})
+        for i, (a, b) in enumerate(zip(rng.integers(0, 40, 800).tolist(),
+                                       rng.integers(0, 39, 800).tolist()))}
+    out = {}
+    for device in ("cpu", dev):
+        log = []
+
+        def assign(stop_ch, node, partitions, states, ops):
+            log.extend(zip(partitions, [node] * len(ops), states, ops))
+
+        reset_launch_counts()
+        res = bt.rebalance(
+            bt.model(primary=(0, 1), replica=(1, 1)), prev, nodes,
+            nodes[:3], [], assign, backend="cuda", device=device,
+            orchestrator_options=bt.OrchestratorOptions(
+                device_diff=True, interrupt_on_first_feed=False))
+        assert not res.progress.errors
+        out[str(device)] = (bt.partition_map_to_json(res.next_map), log,
+                            launch_counts()["priced_min2_argmin"])
+    (cpu_map, cpu_log, _), (gpu_map, gpu_log, launches) = out.values()
+    assert gpu_map == cpu_map and gpu_log == cpu_log and cpu_log
+    assert launches > 0
