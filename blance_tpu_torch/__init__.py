@@ -6,6 +6,11 @@ Plan, diff and orchestrate on PyTorch:
   the dense engines and the sparse shortlist engine, with the three TPU
   kernels on those paths rewritten as CUDA C++ kernels for Hopper
   (``ops/csrc``);
+- warm delta replans: ``PlannerSession`` keeps the solver's auction state
+  (``SolveCarry``, held in a ``CarryCache``) between replans, so a delta
+  replan runs one carry-seeded repair sweep (``solve_dense_warm``,
+  ``solve_sparse_warm``) and falls back to the cold solve when the repair
+  leaks outside the delta;
 - the move diff: ``calc_all_moves`` diffs whole maps on the device
   (``moves/batch.py``), ``calc_partition_moves`` is its host oracle;
 - the orchestrator (``orchestrate_moves``) that executes a transition
@@ -34,7 +39,13 @@ from .core.types import (
     partition_map_to_json,
 )
 from .core.encode import DenseProblem, decode_assignment, encode_problem
-from .convert import assign_to_numpy, problem_to_torch, score_inputs_to_torch
+from .convert import (
+    assign_to_numpy,
+    carry_to_numpy,
+    carry_to_torch,
+    problem_to_torch,
+    score_inputs_to_torch,
+)
 from .plan.api import cbgt_node_score_booster, plan_next_map
 from .plan.audit import check_assignment, maybe_validate
 from .moves.batch import calc_all_moves
@@ -46,7 +57,11 @@ from .rebalance import (
     rebalance,
     rebalance_async,
 )
+from .plan.carry import CarryCache
+from .plan.session import PlannerSession
 from .plan.tensor import (
+    SolveCarry,
+    carry_from_assignment,
     plan_next_map_cuda,
     resolve_fused_score,
     set_dense_score_budget,
@@ -54,21 +69,24 @@ from .plan.tensor import (
     solve_converged_resilient,
     solve_dense,
     solve_dense_converged,
+    solve_dense_warm,
     solve_sparse,
+    solve_sparse_warm,
 )
 
 __all__ = [
-    "ClusterDelta", "DenseProblem", "HierarchyRule", "HierarchyRules",
-    "NodeStateOp", "OrchestratorOptions", "Partition", "PartitionMap",
-    "PartitionModel", "PartitionModelState", "PlanOptions",
-    "RebalanceController", "assign_to_numpy", "calc_all_moves",
-    "calc_partition_moves", "cbgt_node_score_booster", "check_assignment",
-    "copy_partition_map", "decode_assignment", "encode_problem",
+    "CarryCache", "ClusterDelta", "DenseProblem", "HierarchyRule",
+    "HierarchyRules", "NodeStateOp", "OrchestratorOptions", "Partition",
+    "PartitionMap", "PartitionModel", "PartitionModelState", "PlanOptions",
+    "PlannerSession", "RebalanceController", "SolveCarry", "assign_to_numpy",
+    "calc_all_moves", "calc_partition_moves", "carry_from_assignment",
+    "carry_to_numpy", "carry_to_torch", "cbgt_node_score_booster",
+    "check_assignment", "copy_partition_map", "decode_assignment", "encode_problem",
     "maybe_validate", "model", "orchestrate_moves",
     "partition_map_from_json", "partition_map_to_json", "plan_next_map",
     "plan_next_map_cuda", "problem_to_torch", "rebalance",
     "rebalance_async", "resolve_fused_score", "score_inputs_to_torch",
     "set_dense_score_budget", "set_fused_score_default",
     "solve_converged_resilient", "solve_dense", "solve_dense_converged",
-    "solve_sparse",
+    "solve_dense_warm", "solve_sparse", "solve_sparse_warm",
 ]

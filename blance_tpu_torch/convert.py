@@ -14,7 +14,7 @@ import torch
 from .ops.score_fused import ScoreInputs
 
 __all__ = ["problem_to_torch", "assign_to_numpy", "resolve_device",
-           "score_inputs_to_torch"]
+           "score_inputs_to_torch", "carry_to_torch", "carry_to_numpy"]
 
 _DTYPES = {np.dtype(np.int32): torch.int32,
            np.dtype(np.float32): torch.float32,
@@ -65,3 +65,32 @@ def score_inputs_to_torch(si: Any, *, device) -> ScoreInputs:
         arr = np.asarray(getattr(si, name))
         out[name] = _to_torch(arr, _DTYPES[arr.dtype], device)
     return ScoreInputs(**out)
+
+
+def _carry_field(x: Any) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def carry_to_numpy(carry: Any):
+    """A solve carry (either package's: anything with ``prices``,
+    ``assign`` and ``used``) as the port's SolveCarry of numpy arrays,
+    dtypes kept (float32 prices and used, int32 assign)."""
+    from .plan.tensor import SolveCarry
+
+    return SolveCarry(prices=_carry_field(carry.prices),
+                      assign=_carry_field(carry.assign),
+                      used=_carry_field(carry.used))
+
+
+def carry_to_torch(carry: Any, device) -> Any:
+    """A solve carry (either package's) as the port's SolveCarry of
+    tensors on ``device``, ready to seed solve_dense_warm or
+    solve_sparse_warm."""
+    from .plan.tensor import SolveCarry
+
+    c = carry_to_numpy(carry)
+    return SolveCarry(prices=_to_torch(c.prices, torch.float32, device),
+                      assign=_to_torch(c.assign, torch.int32, device),
+                      used=_to_torch(c.used, torch.float32, device))

@@ -37,16 +37,23 @@ throughout: integer weights (float32 sums of whole numbers below 2**24
 are exact in any order, so atomic ``index_add_`` order on CUDA cannot
 change them); stable argsorts where JAX's are stable (all of them); and
 the fill/jitter rounding of ops/score_fused.py (``fill_scale``,
-``jitter_add``).  Not ported here: node-axis and partition-axis
-sharding, warm carries (dense and sparse), shape bucketing and the
-fused pipelines.
+``jitter_add``).
+
+Warm replans (``SolveCarry``, ``solve_dense_warm``, ``solve_sparse_warm``)
+seed one repair sweep from the previous converged solve's per-state fill
+and accept it only when it stayed inside the delta's dirty rows; the
+acceptance flag is computed on the device and read once.  Sweeps, engine
+choice and warm outcomes are counted on the port's recorder
+(``blance_tpu_torch.obs``) under the reference's ``plan.solve.*`` names.
+Not ported here: node-axis and partition-axis sharding, shape bucketing
+and the fused pipelines.
 """
 
 from __future__ import annotations
 
 import time
 import warnings as _warnings
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -70,14 +77,18 @@ from ..ops.score_fused import (
     pack_score_inputs,
     score_at_columns,
 )
+from ..obs import get_recorder
 from .audit import maybe_validate
 
 __all__ = ["plan_next_map_cuda", "solve_dense", "solve_dense_converged",
            "solve_converged_resilient", "resolve_fused_score",
+           "resolve_default_fused_score",
            "set_fused_score_default", "check_dense_memory",
            "DenseScoreMemoryError", "projected_score_bytes",
            "set_dense_score_budget", "dense_score_budget_bytes",
-           "solve_sparse", "sparse_rules_supported"]
+           "solve_sparse", "sparse_rules_supported", "SolveCarry",
+           "carry_from_assignment", "solve_dense_warm",
+           "solve_sparse_warm"]
 
 Constraints = tuple[int, ...]
 StateRules = tuple[tuple[int, int], ...]
@@ -132,6 +143,14 @@ def resolve_fused_score(mode: str, p: int, n: int,
             _HBM_BUDGET_FRACTION * _device_hbm_bytes(device):
         return "on"
     return "off"
+
+
+def resolve_default_fused_score(p: int, n: int,
+                                 device: torch.device) -> str:
+    """The module default (``set_fused_score_default``) resolved for a
+    [P, N] problem on ``device``: the one spelling plan_next_map_cuda
+    and PlannerSession.replan share."""
+    return resolve_fused_score(_FUSED_SCORE_DEFAULT, p, n, device)
 
 
 # --- dense-memory guard ------------------------------------------------------
@@ -191,6 +210,44 @@ def check_dense_memory(p: int, s: int, n: int, engine: str,
     budget = dense_score_budget_bytes(device)
     if projected > budget:
         raise DenseScoreMemoryError(projected, budget, (p, s, n))
+
+
+class SolveCarry(NamedTuple):
+    """Auction state carried across delta replans (the warm start), as
+    tensors on the solve's device.
+
+    ``used`` is the ground truth: [S, N] per-state per-node accepted
+    weight, built with the same per-state scatter the solver's seed pass
+    runs, so seeding a sweep from it is bitwise a recompute from
+    ``assign``.  ``prices`` [N] is its per-node sum (the fill vector the
+    balance term divides), kept for O(N) host prechecks.  ``assign``
+    [P, S, R] is the converged assignment the carry matches; a carry is
+    valid only against a ``prev`` equal to it (sessions check identity
+    of the host array, plan/carry.py)."""
+
+    prices: torch.Tensor
+    assign: torch.Tensor
+    used: torch.Tensor
+
+
+def _used_by_state(assign: torch.Tensor, pweights: torch.Tensor, n: int,
+                   s: int) -> torch.Tensor:
+    """[S, N] per-state weighted fill: one ``_scatter_counts`` per state,
+    in state order, as the seed pass of ``_solve_assign`` runs them."""
+    return torch.stack([_scatter_counts(assign[:, si, :], pweights, n)
+                        for si in range(s)])
+
+
+def carry_from_assignment(assign, pweights: torch.Tensor,
+                          nweights: torch.Tensor) -> SolveCarry:
+    """Package a converged assignment (tensor or numpy) as a SolveCarry
+    on ``pweights``' device."""
+    if not isinstance(assign, torch.Tensor):
+        assign = torch.from_numpy(np.array(assign, dtype=np.int32))
+    assign = assign.to(pweights.device, torch.int32)
+    used = _used_by_state(assign, pweights, nweights.shape[0],
+                          assign.shape[1])
+    return SolveCarry(prices=used.sum(0), assign=assign, used=used)
 
 
 # --- helpers -----------------------------------------------------------------
@@ -716,13 +773,17 @@ def _solve_assign(
     fused_score: str = "off",
     shortlist: Optional[torch.Tensor] = None,  # [P, K] GLOBAL candidate
     # node ids (-1 pads), ascending per row: the sparse engine
+    carry_used: Optional[torch.Tensor] = None,  # [S, N] warm seed
+    # (SolveCarry.used matching prev): replaces the seed scatters
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One assignment sweep on one device; returns (assign[P, S, R],
     exhausted[P]).  ``exhausted`` is all-False on the dense engines; on
     the sparse engine it flags rows whose shortlist could not reach the
     globally attainable rule tier (or had no feasible candidate) for
-    some slot, for the per-row dense fallback.  The single-device
-    branches of the reference's _solve_assign."""
+    some slot, for the per-row dense fallback.  ``carry_used`` must equal
+    the per-state scatter of ``prev``; the seed then reads it instead of
+    re-scattering, bitwise the same.  The single-device branches of the
+    reference's _solve_assign."""
     p, s, r_max = prev.shape
     n = nweights.shape[0]
     dev = prev.device
@@ -743,9 +804,11 @@ def _solve_assign(
     cap_w = torch.where(valid & (nweights >= 0), nweights.clamp(min=1.0), 0.0)
     cap_share = cap_w / cap_w.sum().clamp(min=1.0)
 
-    # Seed the total-fill factor from prev (plan.go:94).
-    total = torch.stack([_scatter_counts(prev[:, si, :], pweights, n)
-                         for si in range(s)]).sum(dim=0)
+    # Seed the total-fill factor from prev (plan.go:94), or off the carry.
+    if carry_used is not None:
+        total = carry_used.sum(dim=0)
+    else:
+        total = _used_by_state(prev, pweights, n, s).sum(dim=0)
 
     assign = torch.full((p, s, r_max), -1, dtype=torch.int32, device=dev)
     exhausted = torch.zeros(p, dtype=torch.bool, device=dev)
@@ -757,7 +820,8 @@ def _solve_assign(
         k = constraints[si]
         if k <= 0:
             continue
-        total = total - _scatter_counts(prev[:, si, :], pweights, n)
+        total = total - (carry_used[si] if carry_used is not None else
+                         _scatter_counts(prev[:, si, :], pweights, n))
         prev_state_ids = prev[:, si, :]
         anchor = torch.where(assign[:, 0, 0] >= 0, assign[:, 0, 0],
                              top_anchor) if si > 0 else top_anchor
@@ -970,26 +1034,42 @@ def _run_auction(fused_score, p, n, total, w_div, neg_boost, valid,
 
 def solve_dense(prev, pweights, nweights, valid, stickiness, gids,
                 gid_valid, constraints: Constraints, rules: Rules,
-                fused_score: str = "off") -> torch.Tensor:
-    """Solve the whole placement problem once; returns assign[P, S, R]."""
+                fused_score: str = "off",
+                carry_used: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Solve the whole placement problem once; returns assign[P, S, R].
+    ``carry_used`` seeds the sweep's fill totals (see _solve_assign)."""
     return _solve_assign(prev, pweights, nweights, valid, stickiness, gids,
-                         gid_valid, constraints, rules, fused_score)[0]
+                         gid_valid, constraints, rules, fused_score,
+                         carry_used=carry_used)[0]
 
 
 def _solve_dense_converged_impl(prev, pweights, nweights, valid, stickiness,
                                 gids, gid_valid, constraints, rules,
                                 max_iterations: int = 10,
-                                fused_score: str = "off"):
+                                fused_score: str = "off",
+                                carry_used: Optional[torch.Tensor] = None):
     """The fixpoint loop; returns (assign, sweeps executed).  One host
-    read of the changed flag per sweep."""
-    def solve(x):
+    read of the changed flag per sweep.  ``carry_used`` seeds the FIRST
+    sweep only: later sweeps re-derive their seed from their own input."""
+    def solve(x, cu=None):
         return solve_dense(x, pweights, nweights, valid, stickiness, gids,
-                           gid_valid, constraints, rules, fused_score)
+                           gid_valid, constraints, rules, fused_score,
+                           carry_used=cu)
 
-    out, prev_i, it = solve(prev), prev, 1
+    out, prev_i, it = solve(prev, carry_used), prev, 1
     while it < max_iterations and bool((out != prev_i).any()):
         out, prev_i, it = solve(out), out, it + 1
     return out, it
+
+
+def _record_sweeps(sweeps: int) -> None:
+    """Publish a converged solve's pass count to the port's recorder."""
+    n = int(sweeps)
+    rec = get_recorder()
+    rec.count("plan.solve.calls")
+    rec.count("plan.solve.sweeps", n)
+    rec.observe("plan.solve.sweeps", n)
+    rec.set_attr("sweeps", n)
 
 
 def _check_tier_band_scale(prev, pweights, nweights, valid, stickiness,
@@ -1046,42 +1126,61 @@ def _check_tier_band_scale(prev, pweights, nweights, valid, stickiness,
 def solve_dense_converged(prev, pweights, nweights, valid, stickiness,
                           gids, gid_valid, constraints: Constraints,
                           rules: Rules, max_iterations: int = 10,
-                          fused_score: str = "off",
-                          stats: Optional[dict] = None) -> torch.Tensor:
+                          fused_score: str = "off", record: bool = True,
+                          carry_used: Optional[torch.Tensor] = None,
+                          return_carry: bool = False,
+                          stats: Optional[dict] = None):
     """solve_dense iterated to a fixpoint (reference plan.go:23-58); the
-    first pass does the work, later passes confirm.  ``stats``, when
-    given, receives the executed sweep count under "sweeps"."""
+    first pass does the work, later passes confirm.  The executed pass
+    count goes to the recorder's ``plan.solve.sweeps`` (``record=False``
+    skips it) and, when ``stats`` is given, under its "sweeps".
+    ``carry_used`` (SolveCarry.used matching ``prev``) seeds the first
+    sweep; ``return_carry`` returns (assign, SolveCarry) instead of
+    assign."""
     _check_tier_band_scale(prev, pweights, nweights, valid, stickiness,
                            constraints, rules)
     out, sweeps = _solve_dense_converged_impl(
         prev, pweights, nweights, valid, stickiness, gids, gid_valid,
-        constraints, rules, max_iterations, fused_score)
+        constraints, rules, max_iterations, fused_score, carry_used)
+    if record:
+        _record_sweeps(sweeps)
     if stats is not None:
         stats["sweeps"] = sweeps
+    if return_carry:
+        return out, carry_from_assignment(out, pweights, nweights)
     return out
+
+
+_ENGINE_NAMES = {"off": "matrix", "on": "fused"}
 
 
 def solve_converged_resilient(
     prev, pweights, nweights, valid, stickiness, gids, gid_valid,
     constraints, rules, *, max_iterations: int, mode: str,
-    allow_fallback: bool, context: str, stats: Optional[dict] = None,
+    allow_fallback: bool, context: str, carry_used=None,
+    return_carry: bool = False, stats: Optional[dict] = None,
 ):
     """solve_dense_converged with engine-failure degradation: with
     ``allow_fallback`` (the mode came from "auto") a failed engine
-    retries once on the other kernel, with a UserWarning.  Returns
-    (assignment as numpy, engine mode that ran)."""
+    retries once on the other kernel, with a UserWarning and a
+    ``plan.engine_fallback`` count.  Returns (assignment as numpy,
+    engine mode that ran), plus the converged SolveCarry with
+    ``return_carry``; ``carry_used`` seeds the first sweep."""
     device = prev.device
+    rec = get_recorder()
 
-    def run(m: str) -> NPArray:
+    def run(m: str):
         check_dense_memory(prev.shape[0], prev.shape[1], nweights.shape[-1],
                            m, device)
-        return solve_dense_converged(
-            prev, pweights, nweights, valid, stickiness, gids, gid_valid,
-            constraints, rules, max_iterations=max_iterations,
-            fused_score=m, stats=stats).cpu().numpy()
+        with rec.span("plan.solve.attempt", engine=m):
+            out = solve_dense_converged(
+                prev, pweights, nweights, valid, stickiness, gids,
+                gid_valid, constraints, rules, max_iterations=max_iterations,
+                fused_score=m, carry_used=carry_used, stats=stats)
+            return out, out.cpu().numpy()
 
     try:
-        out = run(mode)
+        out, out_np = run(mode)
     except (ValueError, TypeError):
         raise
     except Exception as e:
@@ -1093,9 +1192,132 @@ def solve_converged_resilient(
             f"blance_tpu_torch {context}: score engine {mode!r} failed "
             f"({type(e).__name__}: {first}); retrying with {alt!r}",
             UserWarning, stacklevel=3)
-        out = run(alt)
+        rec.count("plan.engine_fallback")
+        out, out_np = run(alt)
         mode = alt
-    return out, mode
+        rec.set_attr("engine_fallback", f"-> {alt}")
+    rec.set_attr("engine", _ENGINE_NAMES[mode])
+    if return_carry:
+        return out_np, mode, carry_from_assignment(out, pweights, nweights)
+    return out_np, mode
+
+
+# --- warm repair -------------------------------------------------------------
+
+
+def _warm_repair(prev, pweights, nweights, valid, stickiness, gids,
+                 gid_valid, dirty, carry_used, constraints: Constraints,
+                 rules: Rules, fused_score: str = "off"):
+    """ONE carry-seeded repair sweep and its acceptance flag; returns
+    (assign, new_used[S, N], ok) with ``ok`` a 0-d bool tensor on the
+    device.
+
+    The sweep is ``solve_dense`` itself with the totals seeded from the
+    carry, so it equals a cold solve's first sweep exactly; what a warm
+    replan skips is the fixpoint's confirming sweep, which is sound only
+    when the repair stayed inside the delta (``_repair_ok``)."""
+    out = solve_dense(prev, pweights, nweights, valid, stickiness, gids,
+                      gid_valid, constraints, rules, fused_score,
+                      carry_used=carry_used)
+    new_used = _used_by_state(out, pweights, nweights.shape[0],
+                              prev.shape[1])
+    ok = _repair_ok(prev, out, new_used, carry_used, dirty, pweights,
+                    nweights, valid, constraints)
+    return out, new_used, ok
+
+
+def _repair_ok(prev, out, new_used, carry_used, dirty, pweights, nweights,
+               valid, constraints) -> torch.Tensor:
+    """The warm repair's acceptance gates, on the device:
+
+    - ripple: a row outside the dirty mask changed (the delta leaked; a
+      second sweep could move more);
+    - fresh over-capacity: a node's new fill exceeds its state rail by
+      more than one max-weight partition (the auction's first-bidder
+      overshoot, which replans unchanged) AND exceeds its previous fill.
+    """
+    p = prev.shape[0]
+    dev = prev.device
+    rippled = ((out != prev) & ~dirty[:, None, None]).any()
+    total_w = pweights.sum()
+    cap_w = torch.where(valid & (nweights >= 0), nweights.clamp(min=1.0),
+                        0.0)
+    cap_share = cap_w / cap_w.sum().clamp(min=1.0)
+    allowance = pweights.max() if p else torch.zeros((), device=dev)
+    overcap = torch.zeros((), dtype=torch.bool, device=dev)
+    for si, k in enumerate(constraints):
+        if k <= 0:
+            continue
+        rail = torch.ceil(k * total_w * cap_share)
+        overcap = overcap | ((new_used[si] > rail + allowance)
+                             & (new_used[si] > carry_used[si])).any()
+    return ~rippled & ~overcap
+
+
+def _dirty_mask(dirty, device: torch.device):
+    """The host dirty mask [P] as numpy (for the recorded fraction) and
+    as a bool tensor on ``device``."""
+    dirty_np = np.array(dirty, bool)
+    return dirty_np, torch.from_numpy(dirty_np).to(device)
+
+
+def _warm_declined(record: bool) -> tuple[None, None]:
+    if record:
+        rec = get_recorder()
+        rec.count("plan.solve.warm_fallback")
+        rec.count("plan.solve.sweeps", 1)  # the executed repair pass
+    return None, None
+
+
+def solve_dense_warm(
+    prev, pweights, nweights, valid, stickiness, gids, gid_valid,
+    constraints, rules, *, dirty, carry: SolveCarry,
+    fused_score: str = "off", record: bool = True,
+    donate: Optional[bool] = None, p_real=None,
+) -> tuple[Optional[NPArray], Optional[SolveCarry]]:
+    """Warm delta replan: one repair sweep from the carry, or decline.
+
+    The arrays are tensors on one device, ``dirty`` is a host bool mask
+    [P] and the carry's tensors move to that device.  Returns (assign
+    as numpy, next SolveCarry) when the repair is accepted as converged,
+    or (None, None) when it leaked outside ``dirty`` and the caller must
+    run the cold path (``solve_converged_resilient``).  The carry is
+    single-use by contract; ``donate`` is accepted for the reference's
+    signature and changes nothing (no buffer is reused in place).
+
+    Records ``plan.solve.dirty_fraction``, ``plan.solve.warm_fallback``
+    on a decline, the executed sweep in ``plan.solve.sweeps`` and a
+    ``warm`` attribute on acceptance; ``plan.solve.carry_hit`` is the
+    caller's to count once its own gates pass."""
+    del donate
+    if p_real is not None:
+        raise NotImplementedError(
+            "p_real (shape bucketing) is not ported (ROADMAP A.13)")
+    if fused_score not in ("off", "on"):
+        raise ValueError(f"unresolved fused-score mode: {fused_score!r}")
+    rec = get_recorder()
+    _check_tier_band_scale(prev, pweights, nweights, valid, stickiness,
+                           constraints, rules)
+    check_dense_memory(prev.shape[0], prev.shape[1], nweights.shape[-1],
+                       fused_score, prev.device)
+    dirty_np, dirty_t = _dirty_mask(dirty, prev.device)
+    if record:
+        rec.observe("plan.solve.dirty_fraction",
+                    float(dirty_np.mean()) if dirty_np.size else 0.0)
+    with rec.span("plan.solve.attempt", warm=True,
+                  engine=_ENGINE_NAMES[fused_score]):
+        out, new_used, ok = _warm_repair(
+            prev, pweights, nweights, valid, stickiness, gids, gid_valid,
+            dirty_t, carry.used.to(prev.device), constraints, rules,
+            fused_score)
+        accepted = bool(ok)
+    if not accepted:
+        return _warm_declined(record)
+    if record:
+        _record_sweeps(1)
+        rec.set_attr("warm", True)
+    return out.cpu().numpy(), SolveCarry(prices=new_used.sum(0), assign=out,
+                                         used=new_used)
 
 
 # --- sparse shortlist solve --------------------------------------------------
@@ -1118,20 +1340,40 @@ def sparse_rules_supported(rules: Rules) -> bool:
 def _solve_sparse_converged_impl(prev, pweights, nweights, valid,
                                  stickiness, gids, gid_valid, shortlist,
                                  constraints, rules,
-                                 max_iterations: int = 10):
+                                 max_iterations: int = 10,
+                                 carry_used: Optional[torch.Tensor] = None):
     """The sparse fixpoint; returns (assign, sweeps, exhausted[P]).  The
     exhaustion flags are the LAST executed sweep's: rows still unservable
-    at the fixpoint, which the host fallback re-places."""
-    def solve(x):
+    at the fixpoint, which the host fallback re-places.  ``carry_used``
+    seeds the first sweep only, as on the dense loop."""
+    def solve(x, cu=None):
         return _solve_assign(x, pweights, nweights, valid, stickiness, gids,
                              gid_valid, constraints, rules, "off",
-                             shortlist=shortlist)
+                             shortlist=shortlist, carry_used=cu)
 
-    (out, exh), prev_i, it = solve(prev), prev, 1
+    (out, exh), prev_i, it = solve(prev, carry_used), prev, 1
     while it < max_iterations and bool((out != prev_i).any()):
         (new, exh), prev_i, it = solve(out), out, it + 1
         out = new
     return out, it, exh
+
+
+def _warm_repair_sparse(prev, pweights, nweights, valid, stickiness, gids,
+                        gid_valid, shortlist, dirty, carry_used,
+                        constraints: Constraints, rules: Rules):
+    """ONE carry-seeded sparse repair sweep; returns (assign,
+    new_used[S, N], ok, exhausted[P]) with ``_warm_repair``'s acceptance
+    gates.  Exhausted rows come back -1 and, being changed rows, are
+    acceptable only where ``dirty`` covers them; the caller routes them
+    through the per-row dense fallback."""
+    out, exh = _solve_assign(prev, pweights, nweights, valid, stickiness,
+                             gids, gid_valid, constraints, rules, "off",
+                             shortlist=shortlist, carry_used=carry_used)
+    new_used = _used_by_state(out, pweights, nweights.shape[0],
+                              prev.shape[1])
+    ok = _repair_ok(prev, out, new_used, carry_used, dirty, pweights,
+                    nweights, valid, constraints)
+    return out, new_used, ok, exh
 
 
 # Cells of one [B, N] score block in the host fallback; a slot's rows are
@@ -1287,45 +1529,85 @@ def _np(x) -> NPArray:
 
 def _apply_sparse_fallback(assign: NPArray, exhausted: NPArray, prev,
                            pweights, nweights, valid, stickiness, gids,
-                           gid_valid, constraints, rules
-                           ) -> tuple[NPArray, int]:
+                           gid_valid, constraints, rules,
+                           record: bool = True) -> tuple[NPArray, int]:
     """Route flagged rows through the dense fallback; returns (patched
-    assign, rows whose placement the fallback changed)."""
+    assign, rows whose placement the fallback changed), counted as
+    ``plan.sparse.shortlist_exhausted`` / ``dense_fallback_rows``."""
     rows = np.nonzero(np.asarray(exhausted))[0]
     if rows.size == 0:
         return np.asarray(assign), 0
+    rec = get_recorder()
+    if record:
+        rec.count("plan.sparse.shortlist_exhausted", int(rows.size))
     patched = _sparse_fallback_rows(
         assign, rows, _np(prev), _np(pweights), _np(nweights), _np(valid),
         _np(stickiness), _np(gids), _np(gid_valid), constraints, rules)
     replaced = int(np.any(
         patched[rows] != np.asarray(assign)[rows], axis=(1, 2)).sum())
+    if record and replaced:
+        rec.count("plan.sparse.dense_fallback_rows", replaced)
     return patched, replaced
 
 
 def _build_or_adopt_shortlist(prev, pweights, nweights, valid, gids,
                               gid_valid, constraints, rules, shortlist,
-                              k) -> torch.Tensor:
+                              k, record: bool = True
+                              ) -> tuple[torch.Tensor, float]:
     """Adopt a caller-built [P, K] table (moved to prev's device) or
-    derive one with ``k`` columns (auto-sized when None)."""
+    derive one with ``k`` columns (auto-sized when None); returns it
+    with the build's wall time (device synchronised; 0 when adopted),
+    observed as ``plan.sparse.shortlist_build_s``, and publishes the
+    ``plan.sparse.k_effective`` gauge."""
+    rec = get_recorder()
+    t0 = time.perf_counter()
     if shortlist is None:
         n = nweights.shape[-1]
         kk = int(k) if k is not None \
             else auto_shortlist_k(n, constraints, rules)
-        return build_shortlist_core(prev, pweights, nweights, valid, gids,
-                                    gid_valid, constraints, rules, kk)
-    return torch.as_tensor(shortlist, dtype=torch.int32, device=prev.device)
+        shortlist = build_shortlist_core(prev, pweights, nweights, valid,
+                                         gids, gid_valid, constraints,
+                                         rules, kk)
+        _sync(prev.device)
+        built_s = time.perf_counter() - t0
+        if record:
+            rec.observe("plan.sparse.shortlist_build_s", built_s)
+    else:
+        shortlist = torch.as_tensor(shortlist, dtype=torch.int32,
+                                    device=prev.device)
+        built_s = 0.0
+    if record:
+        rec.set_gauge("plan.sparse.k_effective", float(shortlist.shape[1]))
+    return shortlist, built_s
+
+
+def _sparse_statics(prev, pweights, nweights, valid, stickiness,
+                    constraints, rules):
+    """The sparse entries' shared checks; returns (constraints, rules)
+    as tuples."""
+    constraints = tuple(int(c) for c in constraints)
+    rules = tuple(tuple(r) for r in rules)
+    if not sparse_rules_supported(rules):
+        raise ValueError(
+            "sparse solve requires nesting hierarchy rules "
+            "(exclude_level < include_level); use the dense engines")
+    _check_tier_band_scale(prev, pweights, nweights, valid, stickiness,
+                           constraints, rules)
+    return constraints, rules
 
 
 def solve_sparse(
     prev, pweights, nweights, valid, stickiness, gids, gid_valid,
     constraints, rules, *, shortlist=None, k: Optional[int] = None,
-    max_iterations: int = 10, carry_used=None, return_carry: bool = False,
-    p_real=None, stats: Optional[dict] = None,
-) -> NPArray:
-    """Sparse converged solve, cold: shortlist -> [P, S, K] auction ->
-    per-row dense fallback for exhausted rows.  Same positional
-    contract as solve_dense_converged (tensors on one device); returns
-    the assignment as numpy.
+    max_iterations: int = 10, record: bool = True, carry_used=None,
+    return_carry: bool = False, p_real=None, stats: Optional[dict] = None,
+):
+    """Sparse converged solve: shortlist -> [P, S, K] auction -> per-row
+    dense fallback for exhausted rows.  Same positional contract as
+    solve_dense_converged (tensors on one device); returns the
+    assignment as numpy, and with ``return_carry`` also the SolveCarry
+    built from it after the fallback patched it.  ``carry_used`` seeds
+    the first sweep, as on the dense loop.
 
     ``shortlist`` adopts a caller-built [P, K] table; otherwise one is
     derived with ``k`` columns (auto-sized when None).  A saturating
@@ -1335,41 +1617,89 @@ def solve_sparse(
     ``stats``, when given, receives sweeps, k, shortlist_s (build wall
     time, device synchronised), exhausted_rows (the last sweep's flags)
     and fallback_rows (rows the fallback changed)."""
-    if carry_used is not None or return_carry:
-        raise NotImplementedError(
-            "warm sparse solves (carry_used / return_carry) are not "
-            "ported (ROADMAP A.4)")
     if p_real is not None:
         raise NotImplementedError(
             "p_real (shape bucketing) is not ported (ROADMAP A.13)")
-    constraints = tuple(int(c) for c in constraints)
-    rules = tuple(tuple(r) for r in rules)
-    if not sparse_rules_supported(rules):
-        raise ValueError(
-            "sparse solve requires nesting hierarchy rules "
-            "(exclude_level < include_level); use the dense engines")
-    _check_tier_band_scale(prev, pweights, nweights, valid, stickiness,
-                           constraints, rules)
-    t0 = time.perf_counter()
-    shortlist = _build_or_adopt_shortlist(
+    constraints, rules = _sparse_statics(prev, pweights, nweights, valid,
+                                         stickiness, constraints, rules)
+    shortlist, shortlist_s = _build_or_adopt_shortlist(
         prev, pweights, nweights, valid, gids, gid_valid, constraints,
-        rules, shortlist, k)
-    _sync(prev.device)
-    shortlist_s = time.perf_counter() - t0
-    out, sweeps, exh = _solve_sparse_converged_impl(
-        prev, pweights, nweights, valid, stickiness, gids, gid_valid,
-        shortlist, constraints, rules, max(int(max_iterations), 1))
-    out_np = out.cpu().numpy()
-    exh_np = exh.cpu().numpy()
+        rules, shortlist, k, record)
+    with get_recorder().span("plan.solve.attempt", engine="sparse"):
+        out, sweeps, exh = _solve_sparse_converged_impl(
+            prev, pweights, nweights, valid, stickiness, gids, gid_valid,
+            shortlist, constraints, rules, max(int(max_iterations), 1),
+            carry_used)
+        out_np = out.cpu().numpy()
+        exh_np = exh.cpu().numpy()
+    if record:
+        _record_sweeps(sweeps)
     out_np, replaced = _apply_sparse_fallback(
         out_np, exh_np, prev, pweights, nweights, valid, stickiness, gids,
-        gid_valid, constraints, rules)
+        gid_valid, constraints, rules, record)
     if stats is not None:
         stats.update(sweeps=sweeps, k=int(shortlist.shape[1]),
                      shortlist_s=shortlist_s,
                      exhausted_rows=int(exh_np.sum()),
                      fallback_rows=replaced)
+    if return_carry:
+        return out_np, carry_from_assignment(out_np, pweights, nweights)
     return out_np
+
+
+def solve_sparse_warm(
+    prev, pweights, nweights, valid, stickiness, gids, gid_valid,
+    constraints, rules, *, dirty, carry: SolveCarry, shortlist=None,
+    k: Optional[int] = None, record: bool = True,
+    donate: Optional[bool] = None, p_real=None,
+    stats: Optional[dict] = None,
+) -> tuple[Optional[NPArray], Optional[SolveCarry]]:
+    """Warm delta replan on the sparse engine: one carry-seeded repair
+    sweep over the shortlist, or decline, with ``solve_dense_warm``'s
+    contract ((None, None) on decline, the carry single-use, the same
+    counters).  Exhausted rows of an ACCEPTED repair go through the
+    per-row dense fallback, against the pre-repair ``prev``, and the
+    returned carry is rebuilt from the patched assignment when the
+    fallback replaced rows.  ``stats``, when given, receives k,
+    shortlist_s, accepted, exhausted_rows and fallback_rows."""
+    del donate
+    if p_real is not None:
+        raise NotImplementedError(
+            "p_real (shape bucketing) is not ported (ROADMAP A.13)")
+    constraints, rules = _sparse_statics(prev, pweights, nweights, valid,
+                                         stickiness, constraints, rules)
+    rec = get_recorder()
+    dirty_np, dirty_t = _dirty_mask(dirty, prev.device)
+    if record:
+        rec.observe("plan.solve.dirty_fraction",
+                    float(dirty_np.mean()) if dirty_np.size else 0.0)
+    shortlist, shortlist_s = _build_or_adopt_shortlist(
+        prev, pweights, nweights, valid, gids, gid_valid, constraints,
+        rules, shortlist, k, record)
+    with rec.span("plan.solve.attempt", warm=True, engine="sparse"):
+        out, new_used, ok, exh = _warm_repair_sparse(
+            prev, pweights, nweights, valid, stickiness, gids, gid_valid,
+            shortlist, dirty_t, carry.used.to(prev.device), constraints,
+            rules)
+        accepted = bool(ok)
+    if stats is not None:
+        stats.update(k=int(shortlist.shape[1]), shortlist_s=shortlist_s,
+                     accepted=accepted, exhausted_rows=int(exh.sum()),
+                     fallback_rows=0)
+    if not accepted:
+        return _warm_declined(record)
+    if record:
+        _record_sweeps(1)
+        rec.set_attr("warm", True)
+    patched, replaced = _apply_sparse_fallback(
+        out.cpu().numpy(), exh.cpu().numpy(), prev, pweights, nweights,
+        valid, stickiness, gids, gid_valid, constraints, rules, record)
+    if stats is not None:
+        stats["fallback_rows"] = replaced
+    if replaced:
+        return patched, carry_from_assignment(patched, pweights, nweights)
+    return patched, SolveCarry(prices=new_used.sum(0), assign=out,
+                               used=new_used)
 
 
 def _sparse_selected(opts: PlanOptions, p: int, n: int, rules: Rules,
@@ -1462,11 +1792,10 @@ def plan_next_map_cuda(
     else:
         assign, mode = solve_converged_resilient(
             *args, constraints, rules, max_iterations=max_iterations,
-            mode=resolve_fused_score(_FUSED_SCORE_DEFAULT, problem.P,
-                                     problem.N, device),
+            mode=resolve_default_fused_score(problem.P, problem.N, device),
             allow_fallback=_FUSED_SCORE_DEFAULT == "auto",
             context="plan_next_map_cuda", stats=stats)
-        engine = {"off": "matrix", "on": "fused"}[mode]
+        engine = _ENGINE_NAMES[mode]
     _sync(device)
     stamps["t2"] = time.perf_counter()
     maybe_validate(problem, assign, opts.validate_assignment,

@@ -1,9 +1,9 @@
 # Copied from blance_tpu/rebalance.py.  Planning goes through the port's
-# plan_next_map (backend "auto" by default, which is "cuda" in the port);
-# rebalance_async and RebalanceController take ``device`` ("cuda" by
-# default) for the planner and the orchestrator's batched diff; session=
-# raises NotImplementedError (PlannerSession is ROADMAP A.4), so the
-# reference's session branches are left out.  The controller's backend
+# plan_next_map (backend "auto" by default, which is "cuda" in the port)
+# or, with session=, the port's PlannerSession (which solves on its own
+# device); rebalance_async and RebalanceController take ``device`` ("cuda"
+# by default) for the planner and the orchestrator's batched diff.  The
+# controller's backend
 # defaults to "auto" (the reference's "greedy" is not ported, ROADMAP
 # A.11); its journal= stays the reference's duck-typed feed (the journal
 # itself is ROADMAP A.7).
@@ -25,7 +25,10 @@ quarantined nodes become ``nodes_to_remove``, the reconstructed achieved
 map (with dead-node placements presumed lost) becomes the current map —
 and runs another bounded pass.  Each round's outcome lands in
 ``RebalanceResult.rounds``; the node health tracker carries across
-rounds so a dead node stays dead.
+rounds so a dead node stays dead.  With a ``PlannerSession`` supplied,
+recovery replans warm-start off the session's solver carry whenever the
+failures were confined to the dead nodes (the only rows that differ from
+the adopted proposal are exactly the rows the removal marks dirty).
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ import asyncio
 import dataclasses
 import json
 from dataclasses import dataclass, field
-from typing import Any, Callable, Iterable, Mapping, Optional
+from typing import TYPE_CHECKING, Any, Callable, Iterable, Mapping, \
+    Optional
 
 from .control import CycleEngine, CyclePlanner
 from .core.types import (
@@ -63,6 +67,9 @@ from .plan.api import plan_next_map
 from .core.order import sort_state_names
 from .utils.atomicio import atomic_write_json
 from .utils.trace import PhaseTimer
+
+if TYPE_CHECKING:  # annotation-only
+    from .plan.session import PlannerSession
 
 __all__ = [
     "ClusterDelta",
@@ -201,8 +208,18 @@ def load_partition_map(path: str) -> PartitionMap:
         return partition_map_from_json(json.load(f))
 
 
-_SESSION_NOT_PORTED = (
-    "session= (a PlannerSession) is not ported yet (ROADMAP A.4)")
+def _session_matches(session: "PlannerSession", cur: PartitionMap) -> bool:
+    """True when the session's adopted current state already IS ``cur``
+    — then load_map (which invalidates the warm carry) can be skipped
+    and a repeat rebalance through the same session warm-starts its
+    primary plan off the carry the previous call promoted."""
+    try:
+        current, _warns = session.to_map("current")
+    except ValueError:
+        # to_map's documented failure (nothing adopted yet / unknown
+        # which): no adopted state means no match.
+        return False
+    return current == cur
 
 
 def _strip_nodes(pmap: PartitionMap, nodes: set[str]) -> PartitionMap:
@@ -234,7 +251,7 @@ async def rebalance_async(
     on_progress: Optional[Callable[[OrchestratorProgress], None]] = None,
     checkpoint_path: Optional[str] = None,
     max_recovery_rounds: int = 0,
-    session: Any = None,
+    session: "Optional[PlannerSession]" = None,
     slo: Optional[SloTracker] = None,
 ) -> RebalanceResult:
     """Plan the next map and execute the transition against the callback.
@@ -254,8 +271,10 @@ async def rebalance_async(
 
     device: where the planner solves and, with ``device_diff``, where the
     orchestrator diffs the maps (it overrides the orchestrator options'
-    own ``device``).  session (a PlannerSession) is not ported: passing
-    one raises NotImplementedError (ROADMAP A.4).
+    own ``device``).  session, a plan.session.PlannerSession covering the
+    same partitions/nodes, makes the planning incremental (it solves on
+    its own device): recovery replans warm-start off the solver carry
+    when the failures were confined to the dead nodes.
 
     slo: an ``obs.slo.SloTracker`` to account availability/churn/lag
     against (pass your own when you also feed it to a ``MetricsServer``
@@ -264,8 +283,6 @@ async def rebalance_async(
     publishes ``slo.*`` gauges to the process recorder as the run
     progresses, and its final reading lands in ``RebalanceResult.slo``.
     """
-    if session is not None:
-        raise NotImplementedError(_SESSION_NOT_PORTED)
     timer = PhaseTimer()
     rec = get_recorder()
     if slo is None:
@@ -295,12 +312,29 @@ async def rebalance_async(
 
         all_warnings: dict[str, list[str]] = {}
 
-        def plan(cur: PartitionMap, removes: list[str],
-                 adds: list[str]) -> PartitionMap:
-            """One planner entry; merges warnings."""
-            next_map, warns = plan_next_map(
-                cur, cur, nodes_all, removes, adds, model,
-                plan_options, backend=backend, device=device)
+        def plan(cur: PartitionMap, removes: list[str], adds: list[str],
+                 warm_ok: bool, recovery: bool) -> PartitionMap:
+            """One planner entry; merges warnings.  With a session: adopt
+            ``cur`` unless the session's adopted state already matches
+            (warm_ok — the recovery fast path), apply the delta, replan.
+            Recovery rounds go through the session's dedicated entry
+            (``recovery_replan``)."""
+            if session is None:
+                next_map, warns = plan_next_map(
+                    cur, cur, nodes_all, removes, adds, model,
+                    plan_options, backend=backend, device=device)
+            else:
+                if not warm_ok and not _session_matches(session, cur):
+                    session.load_map(cur)  # cold: invalidates any carry
+                if recovery:
+                    session.recovery_replan(removes)  # adds is [] here
+                else:
+                    if adds:
+                        session.add_nodes(adds)
+                    if removes:
+                        session.remove_nodes(removes)
+                    session.replan()
+                next_map, warns = session.to_map("proposed")
             for k, v in warns.items():
                 all_warnings.setdefault(k, []).extend(v)
             return next_map
@@ -312,6 +346,7 @@ async def rebalance_async(
         all_failures: list[MoveFailure] = []
         events_total = 0
         health = opts.health
+        warm_ok = False
         final: OrchestratorProgress = OrchestratorProgress()
         next_map: PartitionMap = beg
         achieved: Optional[PartitionMap] = None
@@ -337,7 +372,8 @@ async def rebalance_async(
                 break
             phase = "plan" if round_i == 0 else f"recovery_plan_{round_i}"
             with timer.phase(phase):
-                next_map = plan(beg, removes, adds)
+                next_map = plan(beg, removes, adds, warm_ok,
+                                recovery=round_i > 0)
 
             if checkpoint_path:
                 with timer.phase("checkpoint"):
@@ -398,13 +434,30 @@ async def rebalance_async(
             if not ft or not round_failures:
                 # Converged (or legacy mode, which never recovers): a
                 # quarantined node with zero failures this round means the
-                # plan already routed around it.
+                # plan already routed around it.  With a session, a clean
+                # pass adopts the proposal so the next plan — this
+                # rebalance's or a later one — warm-starts off the carry.
+                if session is not None and not round_failures and \
+                        not final.errors:
+                    session.apply()
                 break
             if round_i >= max_recovery_rounds:
                 break
 
             # -- set up the recovery round ------------------------------------
             rec.count("rebalance.recovery_rounds")
+            if session is not None:
+                # Warm fast path: failures confined to the dead nodes mean
+                # the achieved state differs from the adopted proposal only
+                # on rows that held a dead-node copy — exactly the rows
+                # remove_nodes(dead) marks dirty, so the carry stays sound.
+                confined = bool(quarantined) and all(
+                    f.node in set(quarantined) for f in round_failures)
+                if confined:
+                    session.apply()
+                    warm_ok = True
+                else:
+                    warm_ok = False
             beg = achieved
             # The original removal intent persists until drained: a node the
             # caller was decommissioning must not be re-adopted just because
@@ -455,6 +508,17 @@ def rebalance(*args, **kwargs) -> RebalanceResult:
     return asyncio.run(rebalance_async(*args, **kwargs))
 
 
+def _maps_equal(a: PartitionMap, b: PartitionMap) -> bool:
+    """Placement equality up to empty state lists (an emptied state vs
+    a never-present one).  In-list ORDER is kept — index 0 is "the
+    primary" by contract."""
+    def norm(m: PartitionMap) -> dict:
+        return {name: {s: list(ns) for s, ns in p.nodes_by_state.items()
+                       if ns}
+                for name, p in m.items()}
+    return norm(a) == norm(b)
+
+
 class RebalanceController(CycleEngine):
     """The continuous-rebalance control loop (ROADMAP item 4).
 
@@ -493,8 +557,10 @@ class RebalanceController(CycleEngine):
 
     ``device`` is where the local planner solves and where the
     orchestrator's batched diff runs (it overrides the orchestrator
-    options' own ``device``); ``session`` (a PlannerSession) is not
-    ported and raises NotImplementedError (ROADMAP A.4).
+    options' own ``device``).  With a ``session`` (a PlannerSession,
+    which solves on its own device), clean cycles ride the solver carry
+    across plans (load/adopt gated exactly like ``rebalance_async``);
+    the session and ``planner=`` are mutually exclusive.
 
     Single-task discipline (analysis/race_lint.py ``SHARED_STATE``):
     every mutation of the shared control state happens in a sync
@@ -521,7 +587,7 @@ class RebalanceController(CycleEngine):
         orchestrator_options: Optional[OrchestratorOptions] = None,
         backend: str = "auto",
         device: Any = "cuda",
-        session: Any = None,
+        session: "Optional[PlannerSession]" = None,
         planner: Optional[CyclePlanner] = None,
         find_move: Optional[FindMoveFunc] = None,
         debounce_s: float = 0.05,
@@ -530,8 +596,11 @@ class RebalanceController(CycleEngine):
         move_observers: tuple = (),
         journal: Any = None,
     ) -> None:
-        if session is not None:
-            raise NotImplementedError(_SESSION_NOT_PORTED)
+        if session is not None and planner is not None:
+            raise ValueError(
+                "session and planner are mutually exclusive: the async "
+                "planner path owns its own warm-carry lifecycle, so a "
+                "session's carry would never be consulted")
         self.model = model
         self._assign = assign_partitions
         self._find_move = find_move
@@ -545,6 +614,7 @@ class RebalanceController(CycleEngine):
             orchestrator_options or OrchestratorOptions(), device=device)
         self.backend = backend
         self.device = device
+        self.session = session
         self.max_passes_per_cycle = max(int(max_passes_per_cycle), 1)
         self._rec = get_recorder()
         super().__init__(debounce_s=debounce_s, clock=self._rec.now)
@@ -738,6 +808,40 @@ class RebalanceController(CycleEngine):
                 weights_changed = True
         self.opts.partition_weights = dict(self._pweights) or None
         self.opts.node_weights = dict(self._nweights) or None
+        if self.session is not None:
+            self._mirror_session(weights_changed)
+
+    def _mirror_session(self, weights_changed: bool) -> None:
+        """Push the folded membership/weight view into the session.
+        Weight updates invalidate the carry (they re-price everything)
+        so they are mirrored only when this burst actually changed
+        them; membership changes keep the carry warm via the session's
+        own dirty masks.
+
+        The dark set mirrored as removed includes QUARANTINED nodes —
+        the session must never plan onto a node whose mover is
+        excluded, or the pass wedges on a moverless target — and a
+        node the session still counts removed but the controller
+        considers eligible again (a failed node re-added, a healed
+        breaker) is re-added, clearing the session's removal flag:
+        returned capacity must not stay dark."""
+        session = self.session
+        assert session is not None
+        dark = self._removing | self._failed | set(self.quarantined_nodes())
+        known = set(session.nodes)
+        back = [n for n in self._nodes
+                if n not in known
+                or (n in set(session.removed_nodes) and n not in dark)]
+        if back:
+            session.add_nodes(back)
+        gone = sorted(dark - set(session.removed_nodes))
+        if gone:
+            session.remove_nodes(gone)
+        if weights_changed:
+            if self._pweights:
+                session.set_partition_weights(dict(self._pweights))
+            if self._nweights:
+                session.set_node_weights(dict(self._nweights))
 
     def _candidates(self) -> list[str]:
         dark = self._removing | self._failed | set(self.quarantined_nodes())
@@ -799,16 +903,37 @@ class RebalanceController(CycleEngine):
             report = DegradedPlacement(
                 reason="capacity-shed", nodes_available=len(candidates),
                 shed=shed, partitions=len(self.current))
-        opts = self.opts
-        if degraded_constraints is not None:
-            opts = dataclasses.replace(
-                self.opts, model_state_constraints=degraded_constraints)
-        next_map, warns = plan_next_map(
-            self.current, self.current, list(self._nodes), removes,
-            [], self.model, opts, backend=self.backend, device=self.device)
+        if self.session is not None and report is None:
+            next_map, warns = self._plan_session()
+        else:
+            opts = self.opts
+            if degraded_constraints is not None:
+                # Shedding bypasses the session: the session's encoded
+                # statics pin the full constraint set.
+                opts = dataclasses.replace(
+                    self.opts,
+                    model_state_constraints=degraded_constraints)
+            next_map, warns = plan_next_map(
+                self.current, self.current, list(self._nodes), removes,
+                [], self.model, opts, backend=self.backend,
+                device=self.device)
         for k, v in warns.items():
             self.warnings.setdefault(k, []).extend(v)
         return next_map, report
+
+    def _plan_session(self) -> tuple[PartitionMap, dict[str, list[str]]]:
+        session = self.session
+        assert session is not None
+        if not _session_matches(session, self.current):
+            session.load_map(self.current)  # cold: invalidates the carry
+        # Re-push membership before EVERY session plan (weights stay:
+        # the session's own opts already carry them, and re-encodes
+        # read them back in): the breaker can quarantine a node
+        # between passes, and a plan that still targets it would wedge
+        # on a moverless mover.
+        self._mirror_session(weights_changed=False)
+        session.replan()
+        return session.to_map("proposed")
 
     async def _plan_cycle(self, candidates: list[str]) \
             -> tuple[Optional[PartitionMap], Optional[DegradedPlacement]]:
@@ -845,6 +970,11 @@ class RebalanceController(CycleEngine):
             n_moves = count_moves(self.model, self.current, next_map,
                                   self.orch_opts.favor_min_nodes)
             if n_moves == 0:
+                if self.session is not None and \
+                        _maps_equal(self.current, next_map):
+                    # Fixpoint reached with the proposal == current:
+                    # adopt it so the NEXT cycle warm-starts.
+                    self.session.apply()
                 break
             passes += 1
             self.passes += 1
@@ -957,3 +1087,9 @@ class RebalanceController(CycleEngine):
                      and o._progress.tot_cancel == 0
                      and not o._progress.errors)
             notify(achieved, o.end_map, clean)
+        if self.session is not None and not failures and \
+                not quarantined and \
+                _maps_equal(self.current, o.end_map):
+            # Clean pass: the proposal landed verbatim — adopt it so
+            # the next plan rides the warm carry.
+            self.session.apply()

@@ -42,7 +42,19 @@ nothing of jax or of the JAX package.  In order:
    the plain plan's map with a clean audit and nothing on a removed node,
    and its plan must launch the min2 kernel; a small rebalance on the
    card must equal the CPU's, map and op log (the ``rebalance`` line);
-8. prints one JSON line of kernel measurements, the card's name and
+8. replans through the port's PlannerSession (the warm carry): at the
+   north star a cold replan after the 5% removal, then 1% of the
+   surviving nodes removed and a warm replan, which must be a one-sweep
+   carry hit bitwise equal to a cold twin session's replan, audit-clean,
+   with moves() equal to calc_all_moves, on the matrix engine (min2
+   kernel) and again on the in-kernel score engine; at the sparse
+   deployment a warm repair of the converged card solve after 100 more
+   nodes go (accepted or declined, both valid), its repair sweep on the
+   card equal to the CPU's array for array, through the sparse kernel;
+   and a small rebalance(session=) and RebalanceController(session=) on
+   the card equal to the CPU's, map, op log and counters (the
+   ``session`` line);
+9. prints one JSON line of kernel measurements, the card's name and
    power limit, the script's wall time, and last
    ``{"ok": true, "device": {...}}``.  A kernel's ``ms`` is its device
    time per call, from back-to-back calls in a CUDA graph
@@ -60,6 +72,7 @@ before printing any result.
 
 from __future__ import annotations
 
+import asyncio
 import dataclasses
 import json
 import subprocess
@@ -585,16 +598,15 @@ def rebalance_main_path(prev, nodes, removed, model, opts, plain_map,
     return info
 
 
-def small_rebalance_matches_cpu(dev) -> dict:
-    """rebalance() at P = 2048, N = 64 on the card and on the CPU: the
-    same final map and the same op log."""
+def small_map(n: int = 64, p: int = 2048):
+    """The small rebalance fixture, seed 5: p partitions over n nodes in
+    racks of 8, replica on another rack, 3 nodes removed."""
     rng = np.random.default_rng(5)
-    n = 64
     nodes = [f"s{i:02d}" for i in range(n)]
     hier = {nd: f"r{i // 8}" for i, nd in enumerate(nodes)}
     hier.update({f"r{i}": "z0" for i in range(n // 8)})
-    prim = rng.integers(0, n, 2048)
-    repl = (prim + 1 + rng.integers(0, n - 1, 2048)) % n
+    prim = rng.integers(0, n, p)
+    repl = (prim + 1 + rng.integers(0, n - 1, p)) % n
     prev = {str(i): bt.Partition(str(i), {"primary": [nodes[a]],
                                           "replica": [nodes[b]]})
             for i, (a, b) in enumerate(zip(prim.tolist(), repl.tolist()))}
@@ -602,6 +614,14 @@ def small_rebalance_matches_cpu(dev) -> dict:
     model = bt.model(primary=(0, 1), replica=(1, 1))
     opts = bt.PlanOptions(node_hierarchy=hier, hierarchy_rules={
         "replica": [bt.HierarchyRule(include_level=2, exclude_level=1)]})
+    return prev, nodes, removed, model, opts
+
+
+def small_rebalance_matches_cpu(dev) -> dict:
+    """rebalance() at P = 2048, N = 64 on the card and on the CPU: the
+    same final map and the same op log."""
+    prev, nodes, removed, model, opts = small_map()
+    n = len(nodes)
     out = []
     for device in (dev, "cpu"):
         oplog = []
@@ -706,7 +726,308 @@ def sparse_engine_matches_cpu(prev, nodes, removed, model, opts,
                              f"card differs from the CPU's at [p, s, r] "
                              f"{bad[:3].tolist()}")
     log(f"sparse solve [{problem.P}, {problem.N}] on the card == CPU: {secs}")
-    return secs
+    return secs, dict(arrays=arrays, constraints=cons, rules=rules, k=k,
+                      solved=solved[0])
+
+
+SESSION_DELTA = 100  # nodes removed for the warm replans: 1% of 10k
+_ENGINES = {"off": "matrix", "on": "fused"}
+
+
+def _plan_counts(after: dict, before: dict) -> dict:
+    """The plan.* counters of ``after`` that moved since ``before``, by
+    how much."""
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if k.startswith("plan.") and v != before.get(k, 0)}
+
+
+def _session_replan(session, rec) -> dict:
+    """One session replan with the launch counts set to 0 just before it
+    and read just after; the replan's wall time, device synchronised,
+    and the part of it spent inside the solver's ``plan.solve.attempt``
+    spans (the repair or the converged solve, device synchronised)."""
+    before = dict(rec.counters)
+    span0 = rec.span_totals.get("plan.solve.attempt", 0.0)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = session.replan().copy()
+    torch.cuda.synchronize()
+    return dict(out=out, solve_s=time.perf_counter() - t0,
+                solver_s=rec.span_totals["plan.solve.attempt"] - span0,
+                launches=launch_counts(), variants=launch_variants(),
+                counters=_plan_counts(rec.counters, before))
+
+
+def _replan_info(r: dict, base, dirty_fraction=None) -> dict:
+    return {"solve_s": r["solve_s"], "solver_s": r["solver_s"],
+            "sweeps": r["counters"].get("plan.solve.sweeps", 0),
+            "dirty_fraction": dirty_fraction,
+            "partitions_moved": int(np.any(r["out"] != base,
+                                           axis=(1, 2)).sum()),
+            "launches": {k: v for k, v in r["launches"].items() if v},
+            "counters": r["counters"]}
+
+
+def session_north_star(prev, nodes, removed, model, opts, dev, mode,
+                       fused_timed=None) -> dict:
+    """The north star through a PlannerSession on engine ``mode``: load,
+    remove 5%, cold replan (return_carry), apply; then 1% of the
+    surviving nodes removed and a warm replan.  Checks: a carry hit of
+    one sweep, no warm fallback, bitwise the replan of a cold twin
+    session (same map, same removed set), audit zero, nothing on a
+    removed node, the engine's kernel launched by the warm replan (the
+    fused one in the instantiation the kernels phase timed), and on the
+    matrix engine moves() equal to calc_all_moves on every partition."""
+    T.set_fused_score_default(mode)
+    try:
+        rng = np.random.default_rng(17)
+        gone = set(removed)
+        delta = sorted(rng.choice([nd for nd in nodes if nd not in gone],
+                                  SESSION_DELTA, replace=False).tolist())
+        rec = Recorder()
+        with use_recorder(rec):
+            s = bt.PlannerSession(model, nodes, list(prev), opts=opts,
+                                  device=dev)
+            s.load_map(prev)
+            s.remove_nodes(removed)
+            first = _session_replan(s, rec)
+            s.apply()
+            base = s.current
+            s.remove_nodes(delta)
+            warm = _session_replan(s, rec)
+            dirty = rec.histogram_summary("plan.solve.dirty_fraction")
+            twin = bt.PlannerSession(model, nodes, list(prev), opts=opts,
+                                     device=dev)
+            twin.load_map(s.to_map("current")[0])
+            twin.remove_nodes(removed + delta)
+            cold = _session_replan(twin, rec)
+        engine = T.resolve_default_fused_score(s.problem.P, s.problem.N, dev)
+    finally:
+        T.set_fused_score_default("auto")
+    index = {nd: i for i, nd in enumerate(s.nodes)}
+    ids = [index[nd] for nd in removed + delta]
+    t0 = time.perf_counter()
+    audit = bt.check_assignment(s.problem, warm["out"])
+    audit_s = time.perf_counter() - t0
+    kernel = "priced_min2_argmin" if mode == "auto" else "fused_score_min2"
+    checks = dict(
+        carry_hit=warm["counters"].get("plan.solve.carry_hit") == 1,
+        no_warm_fallback="plan.solve.warm_fallback" not in warm["counters"],
+        warm_one_sweep=warm["counters"].get("plan.solve.sweeps") == 1,
+        equals_cold_twin=bool(np.array_equal(warm["out"], cold["out"])),
+        audit_clean=not any(audit.values()),
+        nothing_on_removed=not bool(np.isin(warm["out"], ids).any()),
+        kernel_launched=warm["launches"][kernel] >= 1)
+    if fused_timed is not None:
+        checks["timed_instantiation_launched"] = \
+            fused_timed in warm["variants"].get(kernel, {})
+    info = dict(engine=_ENGINES[engine],
+                delta_nodes=len(delta),
+                first_cold=_replan_info(first, s.problem.prev),
+                warm=_replan_info(warm, base, dirty and dirty["max"]),
+                cold=_replan_info(cold, base),
+                warm_over_cold=warm["solve_s"] / cold["solve_s"],
+                variants=warm["variants"].get(kernel), audit=audit,
+                audit_s=audit_s)
+    info["solver_alternating"] = warm_vs_cold_solver(
+        s, [index[nd] for nd in delta], engine)
+    if mode == "auto":
+        t0 = time.perf_counter()
+        d_nodes, d_states, d_ops = s.moves()
+        mv = moves_batch.moves_from_arrays(
+            s.problem.partitions, s.problem.states, s.problem.nodes,
+            d_nodes, d_states, d_ops)
+        moves_s = time.perf_counter() - t0
+        want = bt.calc_all_moves(s.to_map("current")[0],
+                                 s.to_map("proposed")[0], model, False,
+                                 device=dev)
+        checks["moves_equal_calc_all_moves"] = mv == want
+        info["moves"] = dict(moves_s=moves_s, ops=sum(map(len, mv.values())),
+                             partitions=sum(1 for m in mv.values() if m))
+    info["checks"] = checks
+    log(f"session (north star, {info['engine']}): {json.dumps(info)}")
+    if not all(checks.values()):
+        raise AssertionError(f"session at the north star ({mode}): {checks}")
+    return info
+
+
+def warm_vs_cold_solver(s, delta_ids, mode: str, reps: int = 5) -> dict:
+    """The solver alone on the session's warm delta (its adopted map,
+    the delta's nodes invalid), on engine ``mode`` ("off" or "on"):
+    solve_dense_warm from the carry of that map against the cold
+    solve_converged_resilient, ``reps`` times each, alternating, each
+    result checked equal; medians of the wall times, device
+    synchronised, outside the session's host prechecks and audit gate."""
+    prob = s.problem
+    rules = tuple(tuple(prob.rules.get(si, ())) for si in range(prob.S))
+    cons = tuple(int(c) for c in prob.constraints)
+    args = s._solver_args()
+    carry = bt.carry_from_assignment(args[0], args[1], args[2])
+    dirty = np.isin(s.current, delta_ids).any(axis=(1, 2))
+    times = {"warm": [], "cold": []}
+    for _ in range(reps):
+        for kind in ("warm", "cold"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "warm":
+                out, _c = T.solve_dense_warm(*args, cons, rules, dirty=dirty,
+                                             carry=carry, fused_score=mode,
+                                             record=False)
+            else:
+                ref, _m = T.solve_converged_resilient(
+                    *args, cons, rules, max_iterations=10, mode=mode,
+                    allow_fallback=False, context="chip_smoke")
+            torch.cuda.synchronize()
+            times[kind].append(time.perf_counter() - t0)
+        if out is None or not np.array_equal(out, ref):
+            raise AssertionError("solve_dense_warm declined or differs from "
+                                 "the cold solve on the session's delta")
+    warm_s, cold_s = (float(np.median(times[k])) for k in ("warm", "cold"))
+    return dict(engine=_ENGINES[mode], reps=reps, warm_s=warm_s,
+                cold_s=cold_s,
+                warm_over_cold=warm_s / cold_s, warm_all_s=times["warm"],
+                cold_all_s=times["cold"])
+
+
+def session_sparse(state, dev) -> dict:
+    """The warm repair at the sparse deployment: the converged card solve
+    as prev, its carry from carry_from_assignment, 100 more nodes gone
+    and the rows that held them dirty; solve_sparse_warm on the card
+    (accepted or declined), then the repair sweep alone on the card and
+    on the CPU, equal array for array (assignment, new_used, ok,
+    exhausted)."""
+    prev, pw, nw, valid, stick, gids, gv = state["arrays"]
+    prev = state["solved"]
+    cons, rules, k = state["constraints"], state["rules"], state["k"]
+    rng = np.random.default_rng(19)
+    gone = rng.choice(np.nonzero(valid)[0], SESSION_DELTA, replace=False)
+    valid2 = valid.copy()
+    valid2[gone] = False
+    dirty = np.isin(prev, gone).any(axis=(1, 2))
+    arrays = (prev, pw, nw, valid2, stick, gids, gv)
+    a = bt.problem_to_torch(*arrays, device=dev)
+    carry = bt.carry_from_assignment(a[0], a[1], a[2])
+    shortlist = build_shortlist_core(a[0], a[1], a[2], a[3], a[5], a[6],
+                                     cons, rules, k)
+    rec = Recorder()
+    stats: dict = {}
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with use_recorder(rec):
+        out, _nxt = T.solve_sparse_warm(*a, cons, rules, dirty=dirty,
+                                        carry=carry, shortlist=shortlist,
+                                        stats=stats)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    launches = launch_counts()
+    variants = launch_variants()
+    sweeps = []
+    for device in (dev, torch.device("cpu")):
+        d = bt.problem_to_torch(*arrays, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = T._warm_repair_sparse(
+            *d, shortlist.to(device), torch.from_numpy(dirty).to(device),
+            carry.used.to(device), cons, rules)
+        sweeps.append(([x.cpu() for x in res], time.perf_counter() - t0))
+    (got, card_s), (want, cpu_s) = sweeps
+    compare(got, want, f"sparse repair sweep [{prev.shape[0]}, {nw.shape[0]}]"
+            " on the card vs the CPU")
+    checks = dict(
+        repair_sweep_card_equals_cpu=True,
+        sparse_kernel_launched=launches["sparse_priced_min2_cand"] >= 1,
+        decision_matches_sweep=stats["accepted"] == bool(got[2]),
+        nothing_on_removed=out is None or not bool(np.isin(out, gone).any()))
+    info = dict(P=int(prev.shape[0]), N=int(nw.shape[0]), k=k,
+                delta_nodes=SESSION_DELTA,
+                dirty_fraction=float(dirty.mean()),
+                accepted=stats["accepted"],
+                exhausted_rows=stats["exhausted_rows"],
+                fallback_rows=stats["fallback_rows"],
+                warm_s=warm_s, repair_sweep_card_s=card_s,
+                repair_sweep_cpu_s=cpu_s,
+                counters=_plan_counts(rec.counters, {}),
+                launches={k_: v for k_, v in launches.items() if v},
+                variants=variants.get("sparse_priced_min2_cand"),
+                checks=checks)
+    log(f"session (sparse 1M x 10k): {json.dumps(info)}")
+    if not all(checks.values()):
+        raise AssertionError(f"session at the sparse deployment: {checks}")
+    return info
+
+
+def small_session_matches_cpu(dev) -> dict:
+    """The 2048 x 64 fixture through rebalance(session=) twice (the
+    second through the adopted session must be a carry hit) and then a
+    RebalanceController(session=) cycle, on the card and on the CPU: the
+    maps, the op log and the session's plan counters equal."""
+    prev, nodes, removed, model, opts = small_map()
+    alive = [nd for nd in nodes if nd not in removed]
+    extra, extra2 = alive[10], alive[20]
+    orch = bt.OrchestratorOptions(**REBALANCE_OPTIONS)
+    runs = []
+    for device in (dev, "cpu"):
+        oplog: list = []
+
+        def assign(stop_ch, node, partitions, states, ops):
+            oplog.extend(zip(partitions, [node] * len(ops), states, ops))
+
+        rec = Recorder()
+        session = bt.PlannerSession(model, nodes, list(prev), opts=opts,
+                                    device=device)
+        with use_recorder(rec):
+            r1 = bt.rebalance(model, prev, nodes, removed, [], assign,
+                              session=session, device=device,
+                              orchestrator_options=orch)
+            c1 = dict(rec.counters)
+            r2 = bt.rebalance(model, r1.next_map, nodes, removed + [extra],
+                              [], assign, session=session, device=device,
+                              orchestrator_options=orch)
+            c2 = dict(rec.counters)
+            live = [nd for nd in nodes if nd not in removed + [extra]]
+
+            async def drive():
+                ctl = bt.RebalanceController(
+                    model, live, r2.next_map, assign, session=session,
+                    device=device, debounce_s=0.01,
+                    orchestrator_options=orch)
+                ctl.start()
+                ctl.submit(bt.ClusterDelta(remove=(extra2,)))
+                final = await ctl.quiesce()
+                await ctl.stop()
+                return ctl, final
+
+            ctl, final = asyncio.run(drive())
+        errors = r1.progress.errors + r2.progress.errors + ctl.failures
+        if errors:
+            raise AssertionError(f"small session run on {device}: "
+                                 f"{errors[:3]}")
+        runs.append(dict(
+            maps=[bt.partition_map_to_json(m)
+                  for m in (r1.next_map, r2.next_map, final)],
+            oplog=list(oplog),
+            counters=[_plan_counts(c1, {}), _plan_counts(c2, c1),
+                      _plan_counts(rec.counters, c2)],
+            current=session.current.copy()))
+    card, cpu = runs
+    checks = dict(
+        maps_equal=card["maps"] == cpu["maps"],
+        oplog_equal=card["oplog"] == cpu["oplog"] and bool(card["oplog"]),
+        counters_equal=card["counters"] == cpu["counters"],
+        current_equal=bool(np.array_equal(card["current"], cpu["current"])),
+        second_rebalance_carry_hit=card["counters"][1].get(
+            "plan.solve.carry_hit") == 1)
+    info = dict(P=len(prev), N=len(nodes), ops=len(card["oplog"]),
+                counters=dict(zip(("rebalance", "second_rebalance",
+                                   "controller"), card["counters"])),
+                checks=checks)
+    log(f"small session runs [2048 x 64] on the card vs the CPU: "
+        f"{json.dumps(info)}")
+    if not all(checks.values()):
+        raise AssertionError(f"small session runs: {checks}")
+    return info
 
 
 def device_kernels(fn) -> list:
@@ -801,11 +1122,23 @@ def main() -> int:
     rebalance["small_card_equals_cpu"] = small_rebalance_matches_cpu(dev)
     rebalance["diff"] = diff
     del plain_map
+    t0 = time.perf_counter()
+    session = {"north_star": {
+        "matrix": session_north_star(prev, nodes, removed, model, ns_opts,
+                                     dev, "auto"),
+        "fused": session_north_star(prev, nodes, removed, model, ns_opts,
+                                    dev, "on", fused["timed_instantiation"])}}
+    session_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     sp_map = north_star_map(P_SPARSE)
     log(f"sparse deployment map built in {time.perf_counter() - t0:.1f} s")
-    parity = sparse_engine_matches_cpu(*sp_map, dev)
+    parity, sp_state = sparse_engine_matches_cpu(*sp_map, dev)
+    t1 = time.perf_counter()
+    session["sparse"] = session_sparse(sp_state, dev)
+    session["small_card_equals_cpu"] = small_session_matches_cpu(dev)
+    session["phase_s"] = session_s + time.perf_counter() - t1
+    del sp_state
     sp, _ = run_main_path("main path, sparse engine (1M x 10k)", *sp_map)
     sp["card_vs_cpu"] = parity
     sp_variants = sp["variants"]["sparse_priced_min2_cand"]
@@ -843,6 +1176,7 @@ def main() -> int:
         "matrix": auto, "fused": on, "sparse": sp}}))
     print(json.dumps({"wall_s": time.perf_counter() - t_start}))
     print(json.dumps({"rebalance": rebalance}))
+    print(json.dumps({"session": session}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -284,3 +284,70 @@ def test_small_rebalance_on_card_matches_cpu(dev):
     (cpu_map, cpu_log, _), (gpu_map, gpu_log, launches) = out.values()
     assert gpu_map == cpu_map and gpu_log == cpu_log and cpu_log
     assert launches > 0
+
+
+# --- warm carry and the session on the card --------------------------------------
+
+
+def _session_drive(device):
+    """A 4096 x 256 rack-rule session: cold replan, apply, then 3 nodes
+    removed and a warm replan; returns the proposals, the plan counters
+    and the min2 launches of the warm replan."""
+    import blance_tpu_torch as bt
+    from blance_tpu_torch.obs import Recorder, use_recorder
+
+    rng = np.random.default_rng(12)
+    n = 256
+    nodes = [f"n{i:03d}" for i in range(n)]
+    hier = {nd: f"r{i // 16}" for i, nd in enumerate(nodes)}
+    hier.update({f"r{i}": "z0" for i in range(n // 16)})
+    prim = rng.integers(0, n, 4096)
+    prev = {str(i): bt.Partition(str(i), {
+        "primary": [nodes[a]], "replica": [nodes[(a + 1 + b) % n]]})
+        for i, (a, b) in enumerate(zip(prim.tolist(),
+                                       rng.integers(0, n - 1, 4096).tolist()))}
+    opts = bt.PlanOptions(node_hierarchy=hier, hierarchy_rules={
+        "replica": [bt.HierarchyRule(include_level=2, exclude_level=1)]})
+    rec = Recorder()
+    with use_recorder(rec):
+        s = bt.PlannerSession(bt.model(primary=(0, 1), replica=(1, 1)),
+                              nodes, sorted(prev), opts=opts, device=device)
+        s.load_map(prev)
+        s.remove_nodes(nodes[:8])
+        cold = s.replan().copy()
+        s.apply()
+        s.remove_nodes([nodes[i] for i in rng.choice(
+            np.arange(8, n), 3, replace=False)])
+        reset_launch_counts()
+        warm = s.replan().copy()
+        launches = launch_counts()["priced_min2_argmin"]
+    return cold, warm, {k: v for k, v in rec.counters.items()
+                        if k.startswith("plan.")}, launches
+
+
+def test_warm_session_on_card_matches_cpu(dev):
+    """The session's cold and warm replans on the card equal the CPU's,
+    counters included, and the warm one is a one-sweep carry hit that
+    went through the min2 kernel."""
+    cpu = _session_drive("cpu")
+    gpu = _session_drive(dev)
+    np.testing.assert_array_equal(gpu[0], cpu[0])
+    np.testing.assert_array_equal(gpu[1], cpu[1])
+    assert gpu[2] == cpu[2]
+    assert gpu[2]["plan.solve.carry_hit"] == 1
+    assert gpu[3] > 0
+
+
+def test_carry_on_card_matches_cpu(dev):
+    """carry_from_assignment on the card equals the CPU's, bitwise."""
+    from blance_tpu_torch import carry_from_assignment
+
+    arrays, statics = _rack_rule_arrays()
+    cpu_args = problem_to_torch(*arrays, device="cpu")
+    out = solve_dense_converged(*cpu_args, *statics, record=False)
+    want = carry_from_assignment(out, cpu_args[1], cpu_args[2])
+    gpu_args = problem_to_torch(*arrays, device=dev)
+    got = carry_from_assignment(out.to(dev), gpu_args[1], gpu_args[2])
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert g.cpu().numpy().tobytes() == w.numpy().tobytes()

@@ -385,12 +385,20 @@ def test_sparse_requires_nesting_rules():
 
 
 def test_unported_sparse_options_raise():
+    """p_real (shape bucketing) is the one unported option left; the
+    warm ones (carry_used, return_carry) run (tests/test_torch_warm.py
+    holds them against the reference)."""
     arrays, cons, rules = _dense_args(32, 8, 0)
     args = bt.problem_to_torch(*arrays, device="cpu")
-    for kw in (dict(carry_used=torch.zeros(2, 8)), dict(return_carry=True),
-               dict(p_real=32)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
-            ttensor.solve_sparse(*args, cons, rules, k=4, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
+        ttensor.solve_sparse(*args, cons, rules, k=4, p_real=32)
+    out, carry = ttensor.solve_sparse(*args, cons, rules, k=4,
+                                      return_carry=True)
+    seeded = ttensor.solve_sparse(*args, cons, rules, k=4,
+                                  carry_used=ttensor.carry_from_assignment(
+                                      args[0], args[1], args[2]).used)
+    assert np.array_equal(seeded, out)
+    assert np.array_equal(carry.assign.numpy(), out)
 
 
 # --- plan_next_map, map for map --------------------------------------------------------
