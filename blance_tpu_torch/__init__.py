@@ -13,6 +13,14 @@ Plan, diff and orchestrate on PyTorch:
   leaks outside the delta;
 - the move diff: ``calc_all_moves`` diffs whole maps on the device
   (``moves/batch.py``), ``calc_partition_moves`` is its host oracle;
+- the fused plan pipeline: ``plan_pipeline`` (and
+  ``PlannerSession.replan_with_moves``) runs the solve, the move diff and
+  the decode pack on the device and brings them back in one copy, bitwise
+  the staged plan + ``calc_all_moves``;
+- the native marshal path: host encode and decode run their dict/list
+  traversals in a C extension (``native/marshal.c``, built with the
+  host's gcc at first use; ``core.marshal.available()``), with the
+  pure-Python path as the fallback;
 - the orchestrator (``orchestrate_moves``) that executes a transition
   against the app's data-plane callback, and the rebalance facade
   (``rebalance``, ``rebalance_async``, ``RebalanceController``) that runs
@@ -39,6 +47,13 @@ from .core.types import (
     partition_map_to_json,
 )
 from .core.encode import DenseProblem, decode_assignment, encode_problem
+from .core.order import flatten_nodes_by_state, sort_state_names
+from .core.setops import (
+    strings_dedup,
+    strings_intersect,
+    strings_remove,
+    strings_to_set,
+)
 from .convert import (
     assign_to_numpy,
     carry_to_numpy,
@@ -54,8 +69,12 @@ from .orchestrate import OrchestratorOptions, orchestrate_moves
 from .rebalance import (
     ClusterDelta,
     RebalanceController,
+    RebalanceResult,
+    RecoveryRound,
+    load_partition_map,
     rebalance,
     rebalance_async,
+    save_partition_map,
 )
 from .plan.carry import CarryCache
 from .plan.session import PlannerSession
@@ -63,6 +82,7 @@ from .plan.tensor import (
     SolveCarry,
     carry_from_assignment,
     plan_next_map_cuda,
+    plan_pipeline,
     resolve_fused_score,
     set_dense_score_budget,
     set_fused_score_default,
@@ -78,15 +98,19 @@ __all__ = [
     "CarryCache", "ClusterDelta", "DenseProblem", "HierarchyRule",
     "HierarchyRules", "NodeStateOp", "OrchestratorOptions", "Partition",
     "PartitionMap", "PartitionModel", "PartitionModelState", "PlanOptions",
-    "PlannerSession", "RebalanceController", "SolveCarry", "assign_to_numpy",
-    "calc_all_moves", "calc_partition_moves", "carry_from_assignment",
-    "carry_to_numpy", "carry_to_torch", "cbgt_node_score_booster",
-    "check_assignment", "copy_partition_map", "decode_assignment", "encode_problem",
-    "maybe_validate", "model", "orchestrate_moves",
-    "partition_map_from_json", "partition_map_to_json", "plan_next_map",
-    "plan_next_map_cuda", "problem_to_torch", "rebalance",
-    "rebalance_async", "resolve_fused_score", "score_inputs_to_torch",
+    "PlannerSession", "RebalanceController", "RebalanceResult",
+    "RecoveryRound", "SolveCarry", "assign_to_numpy", "calc_all_moves",
+    "calc_partition_moves", "carry_from_assignment", "carry_to_numpy",
+    "carry_to_torch", "cbgt_node_score_booster", "check_assignment",
+    "copy_partition_map", "decode_assignment", "encode_problem",
+    "flatten_nodes_by_state", "load_partition_map", "maybe_validate",
+    "model", "orchestrate_moves", "partition_map_from_json",
+    "partition_map_to_json", "plan_next_map", "plan_next_map_cuda",
+    "plan_pipeline", "problem_to_torch", "rebalance", "rebalance_async",
+    "resolve_fused_score", "save_partition_map", "score_inputs_to_torch",
     "set_dense_score_budget", "set_fused_score_default",
     "solve_converged_resilient", "solve_dense", "solve_dense_converged",
     "solve_dense_warm", "solve_sparse", "solve_sparse_warm",
+    "sort_state_names", "strings_dedup", "strings_intersect",
+    "strings_remove", "strings_to_set",
 ]

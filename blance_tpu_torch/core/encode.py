@@ -1,9 +1,8 @@
 # Copied from blance_tpu/core/encode.py (DenseProblem, encode_problem,
-# decode_assignment, pack_slot_rows) on the pure-Python path only: the
-# native marshal extension's branches and the shape-bucketing helpers are
-# left out.  The integer cores (pack_assignment_core,
-# prev_from_entries_core) and their entry points are torch ports of the
-# reference's jnp functions.
+# decode_assignment with its native marshal branches and packed=/counts=,
+# pack_slot_rows); the shape-bucketing helpers are left out.  The integer
+# cores (pack_assignment_core, prev_from_entries_core) and their entry
+# points are torch ports of the reference's jnp functions.
 """Dense encoding: PartitionMap <-> int32/float32 arrays.
 
 The reference's data model is maps of strings (reference api.go:24-36); the
@@ -31,6 +30,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from . import marshal as _marshal
 from .hierarchy import find_ancestor, level_group_ids
 from .order import sort_state_names, sorted_by_partition_name
 from .setops import strings_remove
@@ -188,25 +188,53 @@ def encode_problem(
 
     # Slot depth: enough for the widest constraint and the widest prev row.
     r_max = int(constraints.max()) if len(constraints) else 0
-    for pname in partitions:
-        src = prev_map.get(pname) or partitions_to_assign[pname]
-        for s, ns in src.nodes_by_state.items():
-            if s in state_index:
-                r_max = max(r_max, len(ns))
-    r_max = max(r_max, 1)
+    # The R scan and the [P, S, R] fill each touch every cell once; at 100k
+    # partitions that dict/list traversal dominates the encode, so both run
+    # in the native marshalling layer when it is available
+    # (native/marshal.c), with this pure-Python path as the fallback.  The
+    # C fast path is stricter about shapes (real dicts, real lists); any
+    # structural surprise raises TypeError there and we fall back to this
+    # loop, which tolerates arbitrary Mappings/Sequences.
+    native = _marshal.get()
+    filled = None
+    if native is not None:
+        try:
+            r_max = max(r_max, native.max_slots(
+                partitions, prev_map, partitions_to_assign, state_index))
+            r_max = max(r_max, 1)
+            P, S = len(partitions), len(states)
+            filled = np.empty((P, S, r_max), dtype=np.int32)
+            native.fill_prev(filled, P, S, r_max, partitions, prev_map,
+                             partitions_to_assign, state_index, node_index)
+        except (TypeError, AttributeError):
+            # AttributeError: a None/falsy entry in prev_map reaches
+            # .nodes_by_state in C; the Python loop below tolerates it
+            # via the `or partitions_to_assign[...]` fallthrough.
+            filled = None
+            r_max = int(constraints.max()) if len(constraints) else 0
+    if filled is None:
+        for pname in partitions:
+            src = prev_map.get(pname) or partitions_to_assign[pname]
+            for s, ns in src.nodes_by_state.items():
+                if s in state_index:
+                    r_max = max(r_max, len(ns))
+        r_max = max(r_max, 1)
 
     P, S, N = len(partitions), len(states), len(nodes)
-    prev = np.full((P, S, r_max), -1, dtype=np.int32)
-    for pi, pname in enumerate(partitions):
-        src = prev_map.get(pname) or partitions_to_assign.get(pname)
-        if src is None:
-            continue
-        for s, ns in src.nodes_by_state.items():
-            si = state_index.get(s)
-            if si is None:
+    if filled is not None:
+        prev = filled
+    else:
+        prev = np.full((P, S, r_max), -1, dtype=np.int32)
+        for pi, pname in enumerate(partitions):
+            src = prev_map.get(pname) or partitions_to_assign.get(pname)
+            if src is None:
                 continue
-            for ri, node in enumerate(ns[:r_max]):
-                prev[pi, si, ri] = node_index.get(node, -1)
+            for s, ns in src.nodes_by_state.items():
+                si = state_index.get(s)
+                if si is None:
+                    continue
+                for ri, node in enumerate(ns[:r_max]):
+                    prev[pi, si, ri] = node_index.get(node, -1)
 
     pweights = np.ones(P, dtype=np.float32)
     if opts.partition_weights:
@@ -285,6 +313,9 @@ def decode_assignment(
     assign: np.ndarray,  # [P, S, R] int32 node ids, -1 empty
     partitions_to_assign: PartitionMap,
     nodes_to_remove: Optional[list[str]] = None,
+    *,
+    packed: Optional[np.ndarray] = None,  # [P, S, R] device-packed rows
+    counts: Optional[np.ndarray] = None,  # [P, S] per-row filled counts
 ) -> tuple[PartitionMap, dict[str, list[str]]]:
     """Dense assignment -> PartitionMap + constraint-shortfall warnings.
 
@@ -292,7 +323,15 @@ def decode_assignment(
     assignment, matching the greedy planner's pass-through of unmodeled
     states.  Vectorized over P: the id->name gather, empty-slot packing and
     shortfall detection run as whole-array numpy ops.
+
+    ``packed``/``counts`` (both or neither) short-circuit the host pack:
+    the fused plan pipeline computes them on the device
+    (:func:`pack_assignment_core`) and brings them back with the
+    assignment, leaving only the id->name gather and list building here.
     """
+    if (packed is None) != (counts is None):
+        raise ValueError("decode_assignment: packed and counts must be "
+                         "passed together")
     assign = np.asarray(assign)
     warnings: dict[str, list[str]] = {}
     P = problem.P
@@ -313,11 +352,15 @@ def decode_assignment(
             per_state_rows[si] = [[] for _ in range(P)]
             per_state_counts[si] = np.zeros(P, dtype=np.int64)
             continue
-        ids = assign[:, si, :]
-        mask = ids >= 0
-        row_counts = mask.sum(axis=1)
-        order = np.argsort(~mask, axis=1, kind="stable")
-        row_ids = np.take_along_axis(ids, order, axis=1)
+        if packed is not None and counts is not None:
+            row_ids = np.asarray(packed)[:, si, :]
+            row_counts = np.asarray(counts)[:, si].astype(np.int64)
+        else:
+            ids = assign[:, si, :]
+            mask = ids >= 0
+            row_counts = mask.sum(axis=1)
+            order = np.argsort(~mask, axis=1, kind="stable")
+            row_ids = np.take_along_axis(ids, order, axis=1)
         names = names_arr[np.maximum(row_ids, 0)]
         nested = names.tolist()
         if row_counts.min() == row_ids.shape[1]:  # all slots filled
@@ -338,25 +381,35 @@ def decode_assignment(
     mod_names = [s for _, s in modeled]
     rows_per_state = [per_state_rows[si] for si, _ in modeled]
     removed = nodes_to_remove or []
-    next_map: PartitionMap = {}
-    rows_iter = zip(*rows_per_state) if rows_per_state \
-        else (() for _ in range(P))
-    get_src = partitions_to_assign.get
-    for pname, vals in zip(problem.partitions, rows_iter):
-        src = get_src(pname)
-        # keys() <= set is a C-level check; the passthrough branch
-        # (source carries unmodeled / zero-constraint states) is rare
-        # in practice.
-        if src is None or src.nodes_by_state.keys() <= solved_states:
-            nbs = dict(zip(mod_names, vals))
-        else:
-            nbs = {}
-            for s, ns in src.nodes_by_state.items():
-                if s not in solved_states:
-                    nbs[s] = strings_remove(ns, removed)
-            for s, v in zip(mod_names, vals):
-                nbs[s] = v
-        next_map[pname] = Partition(pname, nbs)
+    native = _marshal.get()
+    next_map = None
+    if native is not None:
+        try:
+            next_map = native.build_map(
+                Partition, problem.partitions, mod_names, rows_per_state,
+                partitions_to_assign, solved_states, set(removed))
+        except (TypeError, AttributeError):
+            next_map = None  # structural surprise: pure-Python fallback
+    if next_map is None:
+        next_map = {}
+        rows_iter = zip(*rows_per_state) if rows_per_state \
+            else (() for _ in range(P))
+        get_src = partitions_to_assign.get
+        for pname, vals in zip(problem.partitions, rows_iter):
+            src = get_src(pname)
+            # keys() <= set is a C-level check; the passthrough branch
+            # (source carries unmodeled / zero-constraint states) is rare
+            # in practice.
+            if src is None or src.nodes_by_state.keys() <= solved_states:
+                nbs = dict(zip(mod_names, vals))
+            else:
+                nbs = {}
+                for s, ns in src.nodes_by_state.items():
+                    if s not in solved_states:
+                        nbs[s] = strings_remove(ns, removed)
+                for s, v in zip(mod_names, vals):
+                    nbs[s] = v
+            next_map[pname] = Partition(pname, nbs)
 
     for si, sname in modeled:
         want = int(constraints[si])

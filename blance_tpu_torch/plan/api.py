@@ -11,15 +11,23 @@ reference's PlanNextMapEx, api.go:147-157) for the batched planner:
   backends, which the reference's auto picks for small problems, are not
   ported yet (ROADMAP queue A).
 
+``PlanOptions.fused_pipeline`` routes the plan through the fused pipeline
+(plan/tensor.py ``plan_pipeline``), whose map is bitwise the staged
+path's.  Every call records the reference's ``plan.plan_next_map`` span.
+
 Options the port cannot honor yet raise NotImplementedError naming the
 ROADMAP item that ports them.  There is no silent fallback.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 from ..core.types import PartitionMap, PartitionModel, PlanOptions
+from ..obs import get_recorder
+
+if TYPE_CHECKING:  # annotation-only
+    from ..utils.trace import PhaseTimer
 
 __all__ = ["plan_next_map", "cbgt_node_score_booster"]
 
@@ -49,8 +57,6 @@ def _unsupported(opts: PlanOptions) -> Optional[str]:
                 "exact greedy/native backends (ROADMAP A.11)")
     if opts.shape_bucketing:
         return "PlanOptions.shape_bucketing is not ported (ROADMAP A.13)"
-    if opts.fused_pipeline:
-        return "PlanOptions.fused_pipeline is not ported (ROADMAP A.5)"
     return None
 
 
@@ -65,6 +71,7 @@ def plan_next_map(
     backend: str = "cuda",
     device="cuda",
     timings: Optional[dict] = None,
+    timer: Optional["PhaseTimer"] = None,
 ) -> tuple[PartitionMap, dict[str, list[str]]]:
     """Compute the next balanced partition map on ``device``.
 
@@ -73,7 +80,9 @@ def plan_next_map(
     plan.go:231-235).  ``sparse=None`` picks the sparse engine once the
     dense matrix engine's projected footprint passes the budget and the
     rules nest.  ``timings`` receives the phase wall times, the engine
-    and its counts (see plan_next_map_cuda)."""
+    and its counts of the staged path (see plan_next_map_cuda); ``timer``
+    (utils.trace.PhaseTimer) attributes wall-clock to encode / solve /
+    decode, or with ``fused_pipeline`` to encode / dispatch / decode."""
     if model is None:
         raise ValueError("model is required")
     if backend not in ("cuda", "auto"):
@@ -82,8 +91,18 @@ def plan_next_map(
     why = _unsupported(opts)
     if why is not None:
         raise NotImplementedError(why)
-    from .tensor import plan_next_map_cuda
+    from .tensor import plan_next_map_cuda, plan_pipeline
 
-    return plan_next_map_cuda(
-        prev_map, partitions_to_assign, nodes_all, nodes_to_remove,
-        nodes_to_add, model, opts, device=device, timings=timings)
+    with get_recorder().span(
+            "plan.plan_next_map", backend="cuda", requested=backend,
+            partitions=len(partitions_to_assign), nodes=len(nodes_all)):
+        if opts.fused_pipeline:
+            next_map, warnings, _ = plan_pipeline(
+                prev_map, partitions_to_assign, nodes_all, nodes_to_remove,
+                nodes_to_add, model, opts, timer, want_moves=False,
+                device=device)
+            return next_map, warnings
+        return plan_next_map_cuda(
+            prev_map, partitions_to_assign, nodes_all, nodes_to_remove,
+            nodes_to_add, model, opts, timer, device=device,
+            timings=timings)

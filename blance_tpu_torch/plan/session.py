@@ -1,8 +1,8 @@
 # Copied from blance_tpu/plan/session.py.  The session solves on a torch
 # device ("cuda" by default) through the port's solvers; ``current`` and
 # ``proposed`` stay host numpy arrays, so the carry cache's identity match
-# works as in the reference.  The mesh (sharded) session is ROADMAP A.9 and
-# replan_with_moves (the fused pipeline) is ROADMAP A.5: both raise.
+# works as in the reference.  The mesh (sharded) session is ROADMAP A.9
+# and raises.
 """Long-lived dense planning sessions.
 
 ``plan_next_map`` is a pure function of PartitionMaps: every call pays the
@@ -424,13 +424,123 @@ class PlannerSession:
         self.remove_nodes(list(dead_nodes))
         return self.replan()
 
-    def replan_with_moves(self, favor_min_nodes: bool = False):
-        """The fused replan (solve + move diff + decode pack in one
-        device program) is not ported: ROADMAP A.5.  Use replan()
-        followed by moves()."""
-        raise NotImplementedError(
-            "PlannerSession.replan_with_moves (the fused plan pipeline) "
-            "is not ported (ROADMAP A.5); call replan() then moves()")
+    def replan_with_moves(
+        self, favor_min_nodes: bool = False
+    ) -> tuple[NPArray, tuple[NPArray, NPArray, NPArray]]:
+        """Fused replan: the solve, the move diff and the decode pack on
+        the session's device, their outputs back in one copy (the plan
+        pipeline, plan/tensor.py).
+
+        Semantically ``replan()`` followed by ``moves(favor_min_nodes)``,
+        bitwise in the proposed assignment and the move arrays, but the
+        delta replan crosses from the device once after the solve.  Falls
+        back like replan(): the cold pipeline on a carry miss, a decline
+        or an audit violation; the other engine on an engine failure.
+        Stores ``proposed`` and the pending carry like replan()."""
+        prob = self._problem
+        rules = tuple(tuple(prob.rules.get(si, ())) for si in range(prob.S))
+        constraints = tuple(int(c) for c in prob.constraints)
+        if prob.P == 0 or prob.N == 0 or prob.S == 0:
+            self.proposed = self.current.copy()
+            width = 2 * prob.S * max(self.current.shape[2], 1)
+            empty = np.full((prob.P, width), -1, np.int32)
+            return self.proposed, (empty, empty.copy(), empty.copy())
+
+        rec = get_recorder()
+        rec.count("plan.pipeline.calls")
+        iters = max(int(self.opts.max_iterations), 1)
+        mode = _tensor.resolve_default_fused_score(prob.P, prob.N,
+                                                   self.device)
+
+        carry, dirty_base = self._carries.consume(self._ckey, self.current)
+        if carry is None:
+            rec.count("plan.solve.carry_miss")
+        result = None
+        if carry is not None:
+            dirty = effective_dirty(dirty_base, self.current,
+                                    prob.constraints)
+            if self._capacity_shrank(carry, dirty):
+                rec.count("plan.solve.carry_miss")
+            else:
+                result = self._warm_pipeline(
+                    carry, dirty, constraints, rules, mode, favor_min_nodes)
+                if result is not None and \
+                        self._audit_gate(prob, result[0]):
+                    rec.count("plan.solve.warm_fallback")
+                    result = None
+                if result is not None:
+                    rec.count("plan.solve.carry_hit")
+                    rec.count("plan.pipeline.warm")
+
+        if result is None:
+            result = self._cold_pipeline(constraints, rules, iters, mode,
+                                         favor_min_nodes)
+        assign, new_carry, darrs = result
+        maybe_validate(prob, assign, self.opts.validate_assignment,
+                       "PlannerSession.replan_with_moves")
+        self.proposed = assign
+        self._carries.store_pending(self._ckey, new_carry)
+        return assign, darrs
+
+    def _warm_pipeline(
+        self, carry: SolveCarry, dirty: NPArray, constraints: Constraints,
+        rules: Rules, mode: str, favor_min_nodes: bool,
+    ) -> Optional[tuple[Any, ...]]:
+        """One warm pipeline run; None on decline or failure.  Returns
+        (assign, next_carry, (d_nodes, d_states, d_ops)), the arrays off
+        the device in one copy that also carries the acceptance flag."""
+        rec = get_recorder()
+        dirty_np, dirty_t = _tensor._dirty_mask(dirty, self.device)
+        try:
+            rec.observe("plan.solve.dirty_fraction",
+                        float(dirty_np.mean()) if dirty_np.size else 0.0)
+            t0 = rec.now()
+            with rec.span("plan.pipeline.dispatch", warm=True, engine=mode):
+                args = self._solver_args()
+                (out, prices, used, ok, d_nodes, d_states, d_ops, _packed,
+                 _counts) = _tensor._pipeline_warm_impl(
+                    *args, dirty_t, carry.used.to(self.device),
+                    constraints, rules, fused_score=mode,
+                    favor_min_nodes=favor_min_nodes)
+                out_np, ok_np, *darrs = _tensor._fetch(
+                    out, ok, d_nodes, d_states, d_ops)
+            rec.observe("plan.pipeline.dispatch_s", rec.now() - t0)
+            if not bool(ok_np):
+                rec.count("plan.solve.warm_fallback")
+                rec.count("plan.solve.sweeps", 1)  # the spent repair
+                return None
+            _tensor._record_sweeps(1)
+            rec.set_attr("warm", True)
+            return (out_np, SolveCarry(prices=prices, assign=out, used=used),
+                    tuple(darrs))
+        except (ValueError, TypeError):
+            raise  # deterministic input errors: same on the cold path
+        except Exception as e:
+            import warnings as _warnings
+
+            first = (str(e).splitlines() or [""])[0][:200]
+            _warnings.warn(
+                f"blance_tpu_torch PlannerSession.replan_with_moves: warm "
+                f"pipeline failed ({type(e).__name__}: {first}); falling "
+                f"back to a cold solve", UserWarning, stacklevel=3)
+            rec.count("plan.solve.warm_fallback")
+            return None
+
+    def _cold_pipeline(
+        self, constraints: Constraints, rules: Rules, iters: int,
+        mode: str, favor_min_nodes: bool,
+    ) -> tuple[Any, ...]:
+        """Cold pipeline run; returns (assign, next_carry, diff arrays)."""
+        prob = self._problem
+        assign, _sweeps, new_carry, darrs, _packed = \
+            _tensor._dispatch_pipeline_cold(
+                self.current, prob.partition_weights, prob.node_weights,
+                prob.valid_node, prob.stickiness, prob.gids,
+                prob.gid_valid, constraints, rules, max_iterations=iters,
+                fused_score=mode,
+                allow_fallback=_tensor._FUSED_SCORE_DEFAULT == "auto",
+                favor_min_nodes=favor_min_nodes, device=self.device)
+        return assign, new_carry, darrs
 
     def moves(
         self, favor_min_nodes: bool = False

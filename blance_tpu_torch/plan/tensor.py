@@ -45,8 +45,11 @@ and accept it only when it stayed inside the delta's dirty rows; the
 acceptance flag is computed on the device and read once.  Sweeps, engine
 choice and warm outcomes are counted on the port's recorder
 (``blance_tpu_torch.obs``) under the reference's ``plan.solve.*`` names.
-Not ported here: node-axis and partition-axis sharding, shape bucketing
-and the fused pipelines.
+The fused plan pipeline (``plan_pipeline``, and the session's
+``replan_with_moves`` through ``_dispatch_pipeline_cold`` and
+``_pipeline_warm_impl``) runs the solve, the move diff and the decode
+pack on the device and brings their outputs back in one copy.  Not
+ported here: node-axis and partition-axis sharding and shape bucketing.
 """
 
 from __future__ import annotations
@@ -58,7 +61,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..core.encode import NPArray, decode_assignment, encode_problem
+from ..core.encode import (NPArray, decode_assignment, encode_problem,
+                           pack_assignment_core)
 from ..core.shortlist import (
     auto_shortlist_k,
     build_shortlist_core,
@@ -77,7 +81,10 @@ from ..ops.score_fused import (
     pack_score_inputs,
     score_at_columns,
 )
+from ..moves.batch import diff_assignments, moves_from_arrays
 from ..obs import get_recorder
+from ..obs.recorder import phase_span
+from ..utils.trace import PhaseTimer
 from .audit import maybe_validate
 
 __all__ = ["plan_next_map_cuda", "solve_dense", "solve_dense_converged",
@@ -88,7 +95,7 @@ __all__ = ["plan_next_map_cuda", "solve_dense", "solve_dense_converged",
            "set_dense_score_budget", "dense_score_budget_bytes",
            "solve_sparse", "sparse_rules_supported", "SolveCarry",
            "carry_from_assignment", "solve_dense_warm",
-           "solve_sparse_warm"]
+           "solve_sparse_warm", "plan_pipeline"]
 
 Constraints = tuple[int, ...]
 StateRules = tuple[tuple[int, int], ...]
@@ -1077,15 +1084,17 @@ def _check_tier_band_scale(prev, pweights, nweights, valid, stickiness,
     """Assert the tier-equality band's scale assumption (the reference's
     _RULE_TIER note): raise ValueError when the within-tier score mass a
     node can carry eats into the _RULE_TIER/2 band.  Host numpy, memoized
-    per (prev identity, weight fingerprint)."""
+    per (prev identity, weight fingerprint).  Takes host arrays or
+    tensors; the pipeline checks its host arrays before the upload, so
+    nothing comes back from the device for it."""
     if not any(rl for rl in rules):
         return
     prev_in = prev
-    prev = prev.cpu().numpy()
-    pw = pweights.cpu().numpy().astype(np.float64)
-    nw = nweights.cpu().numpy().astype(np.float64)
-    valid = valid.cpu().numpy().astype(bool)
-    stick = stickiness.cpu().numpy().astype(np.float64)
+    prev = _np(prev)
+    pw = _np(pweights).astype(np.float64)
+    nw = _np(nweights).astype(np.float64)
+    valid = _np(valid).astype(bool)
+    stick = _np(stickiness).astype(np.float64)
     n = nw.shape[0]
     if prev.size == 0 or n == 0:
         return
@@ -1154,18 +1163,30 @@ def solve_dense_converged(prev, pweights, nweights, valid, stickiness,
 _ENGINE_NAMES = {"off": "matrix", "on": "fused"}
 
 
+def _annotate(timer, key: str, value: str) -> None:
+    """``timer.annotate`` forwards to the recorder's current span, so
+    write to the recorder directly only when there is no timer."""
+    if timer is not None:
+        timer.annotate(key, value)
+    else:
+        get_recorder().set_attr(key, value)
+
+
 def solve_converged_resilient(
     prev, pweights, nweights, valid, stickiness, gids, gid_valid,
     constraints, rules, *, max_iterations: int, mode: str,
     allow_fallback: bool, context: str, carry_used=None,
-    return_carry: bool = False, stats: Optional[dict] = None,
+    return_carry: bool = False, stats: Optional[dict] = None, timer=None,
 ):
     """solve_dense_converged with engine-failure degradation: with
     ``allow_fallback`` (the mode came from "auto") a failed engine
     retries once on the other kernel, with a UserWarning and a
     ``plan.engine_fallback`` count.  Returns (assignment as numpy,
     engine mode that ran), plus the converged SolveCarry with
-    ``return_carry``; ``carry_used`` seeds the first sweep."""
+    ``return_carry``; ``carry_used`` seeds the first sweep.  The engine
+    that ran (and any fallback) is annotated on ``timer`` (a PhaseTimer,
+    which forwards to the recorder) or, without one, on the recorder's
+    current span."""
     device = prev.device
     rec = get_recorder()
 
@@ -1195,8 +1216,8 @@ def solve_converged_resilient(
         rec.count("plan.engine_fallback")
         out, out_np = run(alt)
         mode = alt
-        rec.set_attr("engine_fallback", f"-> {alt}")
-    rec.set_attr("engine", _ENGINE_NAMES[mode])
+        _annotate(timer, "engine_fallback", f"-> {alt}")
+    _annotate(timer, "engine", _ENGINE_NAMES[mode])
     if return_carry:
         return out_np, mode, carry_from_assignment(out, pweights, nweights)
     return out_np, mode
@@ -1746,6 +1767,7 @@ def plan_next_map_cuda(
     nodes_to_add: Optional[list[str]],
     model: PartitionModel,
     opts: Optional[PlanOptions] = None,
+    timer=None,
     *,
     device="cuda",
     timings: Optional[dict] = None,
@@ -1755,18 +1777,23 @@ def plan_next_map_cuda(
     ``opts.sparse`` asks for it or, with ``sparse=None``, when the
     matrix engine's projected footprint exceeds the budget and the rules
     nest; else a dense engine), the audit, decode.  Same inputs and
-    outputs as the reference's plan_next_map_tpu.  ``timings``, when
-    given, receives encode_s / solve_s / audit_s / decode_s wall times
-    (the device synchronised before each clock read), the engine that
-    ran ("matrix", "fused" or "sparse"), the sweep count and the kernel
-    launches of the solve; on the sparse engine also k, shortlist_s,
-    exhausted_rows and fallback_rows (see solve_sparse)."""
+    outputs as the reference's plan_next_map_tpu, and the same
+    ``plan.encode`` / ``plan.solve`` / ``plan.decode`` spans, which also
+    accumulate into ``timer`` (a PhaseTimer) when one is given.
+    ``timings``, when given, receives encode_s / solve_s / audit_s /
+    decode_s wall times (the device synchronised before each clock
+    read), the engine that ran ("matrix", "fused" or "sparse"), the
+    sweep count and the kernel launches of the solve; on the sparse
+    engine also k, shortlist_s, exhausted_rows and fallback_rows (see
+    solve_sparse)."""
     opts = opts or PlanOptions()
     device = resolve_device(device, "plan_next_map_cuda")
+    timer = timer if timer is not None else PhaseTimer()
     del nodes_to_add
     stamps = {"t0": time.perf_counter()}
-    problem = encode_problem(prev_map, partitions_to_assign, nodes_all,
-                             nodes_to_remove, model, opts)
+    with phase_span("plan.encode", timer=timer):
+        problem = encode_problem(prev_map, partitions_to_assign, nodes_all,
+                                 nodes_to_remove, model, opts)
     stamps["t1"] = time.perf_counter()
     if problem.P == 0 or problem.N == 0 or problem.S == 0:
         return decode_assignment(
@@ -1776,33 +1803,40 @@ def plan_next_map_cuda(
     rules = tuple(tuple(problem.rules.get(si, ()))
                   for si in range(problem.S))
     constraints = tuple(int(c) for c in problem.constraints)
-    args = problem_to_torch(
-        problem.prev, problem.partition_weights, problem.node_weights,
-        problem.valid_node, problem.stickiness, problem.gids,
-        problem.gid_valid, device=device)
     stats: dict = {}
     launches0 = launch_counts()
     max_iterations = max(int(opts.max_iterations), 1)
-    if _sparse_selected(opts, problem.P, problem.N, rules, device):
-        assign = solve_sparse(
-            *args, constraints, rules,
-            k=_opts_shortlist_k(opts, problem.N, constraints, rules),
-            max_iterations=max_iterations, stats=stats)
-        engine = "sparse"
-    else:
-        assign, mode = solve_converged_resilient(
-            *args, constraints, rules, max_iterations=max_iterations,
-            mode=resolve_default_fused_score(problem.P, problem.N, device),
-            allow_fallback=_FUSED_SCORE_DEFAULT == "auto",
-            context="plan_next_map_cuda", stats=stats)
-        engine = _ENGINE_NAMES[mode]
-    _sync(device)
+    use_sparse = _sparse_selected(opts, problem.P, problem.N, rules, device)
+    with phase_span("plan.solve", timer=timer, partitions=problem.P,
+                    nodes=problem.N,
+                    engine=("sparse" if use_sparse else None)):
+        args = problem_to_torch(
+            problem.prev, problem.partition_weights, problem.node_weights,
+            problem.valid_node, problem.stickiness, problem.gids,
+            problem.gid_valid, device=device)
+        if use_sparse:
+            assign = solve_sparse(
+                *args, constraints, rules,
+                k=_opts_shortlist_k(opts, problem.N, constraints, rules),
+                max_iterations=max_iterations, stats=stats)
+            engine = "sparse"
+            timer.annotate("engine", engine)
+        else:
+            assign, mode = solve_converged_resilient(
+                *args, constraints, rules, max_iterations=max_iterations,
+                mode=resolve_default_fused_score(problem.P, problem.N,
+                                                 device),
+                allow_fallback=_FUSED_SCORE_DEFAULT == "auto",
+                context="plan_next_map_cuda", stats=stats, timer=timer)
+            engine = _ENGINE_NAMES[mode]
+        _sync(device)
     stamps["t2"] = time.perf_counter()
     maybe_validate(problem, assign, opts.validate_assignment,
                    "plan_next_map_cuda")
     stamps["t2a"] = time.perf_counter()
-    result = decode_assignment(problem, assign, partitions_to_assign,
-                               nodes_to_remove)
+    with phase_span("plan.decode", timer=timer):
+        result = decode_assignment(problem, assign, partitions_to_assign,
+                                   nodes_to_remove)
     stamps["t3"] = time.perf_counter()
     if timings is not None:
         timings.update(
@@ -1815,3 +1849,332 @@ def plan_next_map_cuda(
                       for name, c in launch_counts().items()},
             **stats)
     return result
+
+
+# --- the fused plan pipeline -------------------------------------------------
+#
+# The reference chains solve -> move diff -> decode pack into ONE jitted
+# program.  Here the fixpoint's exit test and the auction's rounds read a
+# scalar back per sweep and per round, so the pipeline cannot be one
+# program.  Its counterpart of "one dispatch" is ONE device-to-host copy
+# for every output after the solve: the diff and the pack run on the
+# solver's own tensors, and the assignment, the three diff arrays, the
+# packed rows and their counts (and the warm path's acceptance flag) come
+# back together in one int32 buffer (``_fetch``).  The reference donates
+# ``prev`` (and the warm carry table) into its outputs; torch has no
+# donation and the port needs none: the uploaded ``prev`` tensor is the
+# diff's beginning state as it is, never copied.
+
+
+def _fetch(*tensors: torch.Tensor) -> list[NPArray]:
+    """Bring ``tensors`` (int32 or bool, on one device) to the host in one
+    copy: flattened into one int32 buffer on their device, copied once,
+    and split into numpy arrays of their shapes (bool ones as bool)."""
+    flat = torch.cat([t.reshape(-1).to(torch.int32)
+                      for t in tensors]).cpu().numpy()
+    out, off = [], 0
+    for t in tensors:
+        a = flat[off:off + t.numel()].reshape(tuple(t.shape))
+        out.append(a.astype(bool) if t.dtype == torch.bool else a)
+        off += t.numel()
+    return out
+
+
+def _pipeline_cold_impl(prev, pweights, nweights, valid, stickiness, gids,
+                        gid_valid, constraints: Constraints, rules: Rules,
+                        max_iterations: int = 10, fused_score: str = "off",
+                        favor_min_nodes: bool = False,
+                        carry_used: Optional[torch.Tensor] = None):
+    """Cold pipeline body: the converged solve, then diff(prev, out) and
+    the decode pack on the solver's own tensors.
+
+    Returns (assign, sweeps, prices, used, d_nodes, d_states, d_ops,
+    packed, counts): tensors on prev's device, ``sweeps`` an int.
+    ``prices``/``used`` are the next SolveCarry's tables, built with
+    carry_from_assignment's own ops.  The solve is the unchanged
+    fixpoint, so ``assign`` is bitwise the staged path's."""
+    out, sweeps = _solve_dense_converged_impl(
+        prev, pweights, nweights, valid, stickiness, gids, gid_valid,
+        constraints, rules, max_iterations, fused_score, carry_used)
+    used = _used_by_state(out, pweights, nweights.shape[0], prev.shape[1])
+    d_nodes, d_states, d_ops = diff_assignments(
+        prev, out, favor_min_nodes=favor_min_nodes)
+    packed, counts = pack_assignment_core(out)
+    return (out, sweeps, used.sum(0), used, d_nodes, d_states, d_ops,
+            packed, counts)
+
+
+def _pipeline_warm_impl(prev, pweights, nweights, valid, stickiness, gids,
+                        gid_valid, dirty, carry_used,
+                        constraints: Constraints, rules: Rules,
+                        fused_score: str = "off",
+                        favor_min_nodes: bool = False):
+    """Warm pipeline body: one carry-seeded repair sweep (``_warm_repair``,
+    its acceptance flag included), then the diff and the pack.
+
+    Returns (assign, prices, used, ok, d_nodes, d_states, d_ops, packed,
+    counts); ``ok`` (a 0-d bool tensor) False means the repair leaked and
+    the caller runs the cold pipeline, the diff and pack then wasted:
+    declines are the rare path."""
+    out, new_used, ok = _warm_repair(
+        prev, pweights, nweights, valid, stickiness, gids, gid_valid,
+        dirty, carry_used, constraints, rules, fused_score)
+    d_nodes, d_states, d_ops = diff_assignments(
+        prev, out, favor_min_nodes=favor_min_nodes)
+    packed, counts = pack_assignment_core(out)
+    return (out, new_used.sum(0), new_used, ok, d_nodes, d_states, d_ops,
+            packed, counts)
+
+
+def _pipeline_sparse_cold_impl(prev, pweights, nweights, valid, stickiness,
+                               gids, gid_valid, constraints: Constraints,
+                               rules: Rules, max_iterations: int = 10,
+                               shortlist_k: int = 16,
+                               favor_min_nodes: bool = False,
+                               carry_used: Optional[torch.Tensor] = None):
+    """Sparse pipeline body: shortlist build, the sparse converged solve,
+    the diff and the pack.  Returns the cold pipeline's tuple plus the
+    exhaustion flags; the dispatcher re-places flagged rows on the host
+    and re-derives the diff and the pack for them."""
+    shortlist = build_shortlist_core(prev, pweights, nweights, valid, gids,
+                                     gid_valid, constraints, rules,
+                                     shortlist_k)
+    out, sweeps, exh = _solve_sparse_converged_impl(
+        prev, pweights, nweights, valid, stickiness, gids, gid_valid,
+        shortlist, constraints, rules, max_iterations, carry_used)
+    used = _used_by_state(out, pweights, nweights.shape[0], prev.shape[1])
+    d_nodes, d_states, d_ops = diff_assignments(
+        prev, out, favor_min_nodes=favor_min_nodes)
+    packed, counts = pack_assignment_core(out)
+    return (out, sweeps, used.sum(0), used, d_nodes, d_states, d_ops,
+            packed, counts, exh)
+
+
+def _seeded_beg_map(prev_map: PartitionMap,
+                    partitions_to_assign: PartitionMap) -> PartitionMap:
+    """The beginning state the planner actually diffs against: prev_map
+    entries where present, partitions_to_assign seeds elsewhere — the
+    same ``prev_map.get(p) or partitions_to_assign[p]`` rule
+    encode_problem fills prev[P, S, R] with."""
+    return {name: (prev_map.get(name) or partitions_to_assign[name])
+            for name in partitions_to_assign}
+
+
+def plan_pipeline(
+    prev_map: PartitionMap,
+    partitions_to_assign: PartitionMap,
+    nodes_all: list[str],
+    nodes_to_remove: Optional[list[str]],
+    nodes_to_add: Optional[list[str]],
+    model: PartitionModel,
+    opts: Optional[PlanOptions] = None,
+    timer=None,
+    *,
+    favor_min_nodes: bool = False,
+    want_moves: bool = True,
+    device="cuda",
+):
+    """plan_next_map_cuda and the move diff with one device-to-host copy.
+
+    Returns (next_map, warnings, moves): the map and warnings are bitwise
+    ``plan_next_map_cuda``'s, and ``moves`` equals
+    ``calc_all_moves(_seeded_beg_map(prev_map, partitions_to_assign),
+    next_map, model, favor_min_nodes)``, the per-partition ordered op
+    lists the orchestrator consumes.  The encode stays on the host
+    (string interning); the solve, the diff and the decode pack run on
+    ``device`` and come back in one copy, and the decode's host share is
+    the id->name gather.
+
+    Caveat shared with PlannerSession.moves(): partitions whose beginning
+    state holds one node in several states diff through the dense
+    one-state-per-node encoding (calc_all_moves's irregular-partition
+    host fallback does not apply); the solver's own outputs never do
+    that.
+
+    Engine or runtime failures degrade to the staged path
+    (plan_next_map_cuda and calc_all_moves, on the same device) with a
+    UserWarning, counted as ``plan.pipeline.fallback``.  ``want_moves=
+    False`` skips the host move materialization and returns ``{}`` as the
+    third element (plan_next_map's ``fused_pipeline`` option).  Options
+    the port cannot honor yet raise NotImplementedError naming their
+    ROADMAP item, as plan_next_map does."""
+    from ..moves.batch import calc_all_moves
+    from .api import _unsupported
+
+    opts = opts or PlanOptions()
+    why = _unsupported(opts)
+    if why is not None:
+        raise NotImplementedError(why)
+    device = resolve_device(device, "plan_pipeline")
+    timer = timer if timer is not None else PhaseTimer()
+    rec = get_recorder()
+    del nodes_to_add
+
+    with rec.span("plan.pipeline", partitions=len(partitions_to_assign),
+                  nodes=len(nodes_all)):
+        rec.count("plan.pipeline.calls")
+        with phase_span("plan.encode", timer=timer):
+            problem = encode_problem(prev_map, partitions_to_assign,
+                                     nodes_all, nodes_to_remove, model, opts)
+        if problem.P == 0 or problem.N == 0 or problem.S == 0:
+            next_map, warnings = decode_assignment(
+                problem,
+                np.full((problem.P, problem.S, max(problem.R, 1)), -1,
+                        np.int32),
+                partitions_to_assign, nodes_to_remove)
+            return next_map, warnings, {n: [] for n in problem.partitions}
+
+        rules = tuple(tuple(problem.rules.get(si, ()))
+                      for si in range(problem.S))
+        constraints = tuple(int(c) for c in problem.constraints)
+        arrays = (problem.prev, problem.partition_weights,
+                  problem.node_weights, problem.valid_node,
+                  problem.stickiness, problem.gids, problem.gid_valid)
+        _check_tier_band_scale(*arrays[:5], constraints, rules)
+        max_iterations = max(int(opts.max_iterations), 1)
+        try:
+            if _sparse_selected(opts, problem.P, problem.N, rules, device):
+                res = _dispatch_pipeline_sparse(
+                    *arrays, constraints, rules,
+                    max_iterations=max_iterations,
+                    shortlist_k=_opts_shortlist_k(opts, problem.N,
+                                                  constraints, rules),
+                    favor_min_nodes=favor_min_nodes, device=device,
+                    timer=timer)
+            else:
+                res = _dispatch_pipeline_cold(
+                    *arrays, constraints, rules,
+                    max_iterations=max_iterations,
+                    fused_score=resolve_default_fused_score(
+                        problem.P, problem.N, device),
+                    allow_fallback=_FUSED_SCORE_DEFAULT == "auto",
+                    favor_min_nodes=favor_min_nodes, device=device,
+                    timer=timer)
+        except (ValueError, TypeError):
+            raise  # deterministic input errors: the same on the staged path
+        except Exception as e:
+            first = (str(e).splitlines() or [""])[0][:200]
+            _warnings.warn(
+                f"blance_tpu_torch plan_pipeline: the pipeline failed "
+                f"({type(e).__name__}: {first}); degrading to the staged "
+                f"path", UserWarning, stacklevel=2)
+            rec.count("plan.pipeline.fallback")
+            next_map, warnings = plan_next_map_cuda(
+                prev_map, partitions_to_assign, nodes_all, nodes_to_remove,
+                None, model, opts, timer, device=device)
+            moves = calc_all_moves(
+                _seeded_beg_map(prev_map, partitions_to_assign), next_map,
+                model, favor_min_nodes, device=device) if want_moves else {}
+            return next_map, warnings, moves
+
+        assign, _sweeps, _carry, (d_nodes, d_states, d_ops), \
+            (packed, counts) = res
+        maybe_validate(problem, assign, opts.validate_assignment,
+                       "plan_pipeline")
+        with phase_span("plan.decode", timer=timer):
+            next_map, warnings = decode_assignment(
+                problem, assign, partitions_to_assign, nodes_to_remove,
+                packed=packed, counts=counts)
+        if not want_moves:
+            return next_map, warnings, {}
+        with phase_span("plan.pipeline.materialize", timer=timer):
+            moves = moves_from_arrays(problem.partitions, problem.states,
+                                      problem.nodes, d_nodes, d_states,
+                                      d_ops)
+        return next_map, warnings, moves
+
+
+def _dispatch_pipeline_cold(
+    prev_a, pw_a, nw_a, valid_a, stick_a, gids_a, gv_a,
+    constraints: Constraints, rules: Rules, *, max_iterations: int,
+    fused_score: str, allow_fallback: bool, favor_min_nodes: bool,
+    device: torch.device, timer=None, carry_used=None,
+):
+    """One cold pipeline run on ``device`` from host arrays, with
+    solve_converged_resilient's engine-failure degradation (retry once on
+    the other engine when the mode came from "auto", on a card).  Returns
+    (assign, sweeps, SolveCarry, (d_nodes, d_states, d_ops), (packed,
+    counts)), the arrays numpy and off the device in one copy."""
+    rec = get_recorder()
+
+    def run(m: str):
+        check_dense_memory(prev_a.shape[0], prev_a.shape[1],
+                           nw_a.shape[-1], m, device)
+        t0 = rec.now()
+        with phase_span("plan.pipeline.dispatch", timer=timer, engine=m):
+            args = problem_to_torch(prev_a, pw_a, nw_a, valid_a, stick_a,
+                                    gids_a, gv_a, device=device)
+            (assign, sweeps, prices, used, d_nodes, d_states, d_ops,
+             packed, counts) = _pipeline_cold_impl(
+                *args, constraints, rules, max_iterations=max_iterations,
+                fused_score=m, favor_min_nodes=favor_min_nodes,
+                carry_used=(None if carry_used is None
+                            else carry_used.to(device)))
+            host = _fetch(assign, d_nodes, d_states, d_ops, packed, counts)
+        rec.observe("plan.pipeline.dispatch_s", rec.now() - t0)
+        _record_sweeps(sweeps)
+        if timer is not None:
+            timer.annotate("engine", _ENGINE_NAMES[m])
+        return (host[0], sweeps,
+                SolveCarry(prices=prices, assign=assign, used=used),
+                tuple(host[1:4]), tuple(host[4:6]))
+
+    try:
+        return run(fused_score)
+    except (ValueError, TypeError):
+        raise
+    except Exception as e:
+        alt = {"off": "on", "on": "off"}.get(fused_score)
+        if not allow_fallback or alt is None or device.type != "cuda":
+            raise
+        first = (str(e).splitlines() or [""])[0][:200]
+        _warnings.warn(
+            f"blance_tpu_torch plan_pipeline: score engine {fused_score!r} "
+            f"failed ({type(e).__name__}: {first}); retrying with {alt!r}",
+            UserWarning, stacklevel=3)
+        rec.count("plan.engine_fallback")
+        if timer is not None:
+            timer.annotate("engine_fallback", f"-> {alt}")
+        return run(alt)
+
+
+def _dispatch_pipeline_sparse(
+    prev_a, pw_a, nw_a, valid_a, stick_a, gids_a, gv_a,
+    constraints: Constraints, rules: Rules, *, max_iterations: int,
+    shortlist_k: int, favor_min_nodes: bool, device: torch.device,
+    timer=None,
+):
+    """One sparse pipeline run on ``device`` from host arrays; returns
+    ``_dispatch_pipeline_cold``'s tuple.  Exhausted rows are re-placed by
+    the host fallback against the host ``prev_a``, and their diff, pack
+    and carry re-derived on the device from the patched assignment (one
+    more copy, on that rare path only)."""
+    rec = get_recorder()
+    t0 = rec.now()
+    with phase_span("plan.pipeline.dispatch", timer=timer, engine="sparse"):
+        args = problem_to_torch(prev_a, pw_a, nw_a, valid_a, stick_a,
+                                gids_a, gv_a, device=device)
+        (assign, sweeps, prices, used, d_nodes, d_states, d_ops, packed,
+         counts, exh) = _pipeline_sparse_cold_impl(
+            *args, constraints, rules, max_iterations=max_iterations,
+            shortlist_k=shortlist_k, favor_min_nodes=favor_min_nodes)
+        host = _fetch(assign, d_nodes, d_states, d_ops, packed, counts, exh)
+    rec.observe("plan.pipeline.dispatch_s", rec.now() - t0)
+    rec.set_gauge("plan.sparse.k_effective", float(shortlist_k))
+    _record_sweeps(sweeps)
+    if timer is not None:
+        timer.annotate("engine", "sparse")
+    patched, replaced = _apply_sparse_fallback(
+        host[0], host[6], prev_a, pw_a, nw_a, valid_a, stick_a, gids_a,
+        gv_a, constraints, rules)
+    if not replaced:
+        return (host[0], sweeps,
+                SolveCarry(prices=prices, assign=assign, used=used),
+                tuple(host[1:4]), tuple(host[4:6]))
+    dev_assign = torch.from_numpy(patched).to(device)
+    redo = _fetch(*diff_assignments(args[0], dev_assign,
+                                    favor_min_nodes=favor_min_nodes),
+                  *pack_assignment_core(dev_assign))
+    return (patched, sweeps, carry_from_assignment(dev_assign, args[1],
+                                                   args[2]),
+            tuple(redo[:3]), tuple(redo[3:]))

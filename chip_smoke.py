@@ -54,7 +54,21 @@ nothing of jax or of the JAX package.  In order:
    and a small rebalance(session=) and RebalanceController(session=) on
    the card equal to the CPU's, map, op log and counters (the
    ``session`` line);
-9. prints one JSON line of kernel measurements, the card's name and
+9. runs the fused plan pipeline (the ``pipeline`` line): at the north
+   star ``plan_pipeline`` on the matrix engine (both emission orders) and
+   on the in-kernel score engine, each against a staged twin
+   (plan_next_map, then calc_all_moves on the card): map, warnings and
+   moves equal, the engine's kernel launched, no fallback, and no more
+   device-to-host copies (``Memcpy DtoH`` activities under
+   torch.profiler) than the twin; ``plan_next_map`` with
+   ``fused_pipeline`` equal too; twin sessions, ``replan_with_moves()``
+   beside ``replan()`` + ``moves()``, cold and after the 1% delta warm,
+   bitwise equal; at the sparse deployment ``plan_pipeline`` with
+   ``sparse=None`` on the sparse engine, equal to the staged sparse
+   plan's map and to calc_all_moves.  The native marshal extension must
+   have loaded, and at the north star encode and decode give the same
+   arrays and map with and without it;
+10. prints one JSON line of kernel measurements, the card's name and
    power limit, the script's wall time, and last
    ``{"ok": true, "device": {...}}``.  A kernel's ``ms`` is its device
    time per call, from back-to-back calls in a CUDA graph
@@ -73,7 +87,9 @@ before printing any result.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -86,12 +102,14 @@ import torch
 import blance_tpu_torch as bt
 from blance_tpu_torch.ops import (_build, launch_counts, launch_variants,
                                   reset_launch_counts)
+from blance_tpu_torch.core import marshal
 from blance_tpu_torch.core.order import sort_state_names
 from blance_tpu_torch.core.shortlist import build_shortlist_core
 from blance_tpu_torch.moves import batch as moves_batch
 from blance_tpu_torch.obs import Recorder, use_recorder
 from blance_tpu_torch.ops import reduce2, score_fused, sparse2
 from blance_tpu_torch.plan import tensor as T
+from blance_tpu_torch.utils.trace import PhaseTimer
 
 P_MAIN, N_MAIN = 100_000, 10_000
 P_SPARSE = 1_000_000  # the sparse engine's deployment: 1M x 10k
@@ -734,6 +752,14 @@ SESSION_DELTA = 100  # nodes removed for the warm replans: 1% of 10k
 _ENGINES = {"off": "matrix", "on": "fused"}
 
 
+def session_delta(nodes, removed) -> list:
+    """The session phases' delta: 1% of the surviving nodes, seed 17."""
+    rng = np.random.default_rng(17)
+    gone = set(removed)
+    return sorted(rng.choice([nd for nd in nodes if nd not in gone],
+                             SESSION_DELTA, replace=False).tolist())
+
+
 def _plan_counts(after: dict, before: dict) -> dict:
     """The plan.* counters of ``after`` that moved since ``before``, by
     how much."""
@@ -781,10 +807,7 @@ def session_north_star(prev, nodes, removed, model, opts, dev, mode,
     matrix engine moves() equal to calc_all_moves on every partition."""
     T.set_fused_score_default(mode)
     try:
-        rng = np.random.default_rng(17)
-        gone = set(removed)
-        delta = sorted(rng.choice([nd for nd in nodes if nd not in gone],
-                                  SESSION_DELTA, replace=False).tolist())
+        delta = session_delta(nodes, removed)
         rec = Recorder()
         with use_recorder(rec):
             s = bt.PlannerSession(model, nodes, list(prev), opts=opts,
@@ -1071,6 +1094,242 @@ def profile_main_path(mode, prev, nodes, removed, model, opts) -> dict:
                     for k, ms, c in rows[:10]]}
 
 
+def _ops_of(moves) -> dict:
+    return {k: [(o.node, o.state, o.op) for o in ops]
+            for k, ops in moves.items()}
+
+
+def _same_map(a, b) -> bool:
+    """Two PartitionMaps equal, partition order included (cheaper than
+    comparing their JSON at 1M partitions)."""
+    return list(a) == list(b) and a == b
+
+
+@contextlib.contextmanager
+def traced():
+    """torch.profiler over the block with CUDA activities only (the
+    card's kernels and copies, no host-op records, so the host runs at
+    its own pace).  The dict it yields receives, after the block, the
+    Memcpy activities by kind, their device-to-host count (each host
+    read of a device value is one) and the full (generation-2) garbage
+    collections that ran inside the block."""
+    from torch.profiler import ProfilerActivity, profile
+
+    res: dict = {}
+    gen2 = gc.get_stats()[2]["collections"]
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", module=r"torch\.")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            yield res
+            torch.cuda.synchronize()
+    copies = {e.key: e.count for e in prof.key_averages()
+              if e.key.startswith("Memcpy")}
+    res.update(memcpy=copies, d2h_copies=sum(
+        n for k, n in copies.items() if k.startswith("Memcpy DtoH")),
+        gc_full=gc.get_stats()[2]["collections"] - gen2)
+
+
+def run_pipeline(prev, nodes, removed, model, opts, favor=False) -> tuple:
+    """One plan_pipeline on the card under a fresh recorder and timer,
+    traced, the launch counts set to 0 just before it and read just
+    after; wall time on the host clock, the device synchronised."""
+    rec, timer = Recorder(), PhaseTimer()
+    reset_launch_counts()
+    with traced() as tr:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with use_recorder(rec):
+            out = bt.plan_pipeline(prev, prev, nodes, removed, [], model,
+                                   opts, timer, favor_min_nodes=favor)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    info = dict({f"{k}_s": v for k, v in timer.totals.items()}, wall_s=wall,
+                engine=timer.annotations.get("engine"),
+                launches={k: v for k, v in launch_counts().items() if v},
+                variants={k: v for k, v in launch_variants().items() if v},
+                counters=_plan_counts(rec.counters, {}), **tr)
+    return out, info
+
+
+def run_staged(prev, nodes, removed, model, opts, favor=False,
+               plan=None) -> tuple:
+    """The staged twin on the card, traced: plan_next_map (unless
+    ``plan`` gives the (map, warnings, wall s) of one already run), then
+    calc_all_moves of the map; each timed on the host clock, the device
+    synchronised."""
+    with traced() as tr:
+        if plan is None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plan = (*bt.plan_next_map(prev, prev, nodes, removed, [], model,
+                                      opts, backend="cuda"),
+                    time.perf_counter() - t0)
+        smap, swarn, plan_s = plan
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        moves = bt.calc_all_moves(T._seeded_beg_map(prev, prev), smap, model,
+                                  favor, device="cuda")
+        calc_s = time.perf_counter() - t0
+    return (smap, swarn, moves), dict(plan_wall_s=plan_s,
+                                      calc_all_moves_s=calc_s,
+                                      wall_s=plan_s + calc_s, **tr)
+
+
+def pipeline_vs_staged(label, prev, nodes, removed, model, opts, kernel,
+                       timed_variant=None, plain=None,
+                       favors=(False,)) -> dict:
+    """plan_pipeline against its staged twin on the current engine, both
+    traced alike: map, warnings and moves equal (``favors`` emission
+    orders), the engine's kernel launched (in ``timed_variant`` when
+    given), no fallback, and no more device-to-host copies than the
+    twin's (which must show some, or the count says nothing); the map
+    also equal to ``plain`` (the plain main-path map) when given.  The
+    staged twin plans once and diffs in each order.  The objects alive
+    before are frozen out of the garbage collector's passes (the script
+    holds several maps of P partitions), so a full collection of them
+    lands in neither side's window."""
+    res = {}
+    staged_plan = None
+    gc.collect()
+    gc.freeze()
+    try:
+        for favor in favors:
+            (pmap, pwarn, pmoves), info = run_pipeline(prev, nodes, removed,
+                                                       model, opts, favor)
+            (smap, swarn, smoves), staged = run_staged(
+                prev, nodes, removed, model, opts, favor, plan=staged_plan)
+            staged_plan = (smap, swarn, staged["plan_wall_s"])
+            checks = dict(
+                map_equals_staged=_same_map(pmap, smap),
+                warnings_equal_staged=pwarn == swarn,
+                moves_equal_calc_all_moves=_ops_of(pmoves)
+                == _ops_of(smoves),
+                kernel_launched=info["launches"].get(kernel, 0) >= 1,
+                no_pipeline_fallback="plan.pipeline.fallback" not in
+                info["counters"],
+                no_engine_fallback="plan.engine_fallback" not in
+                info["counters"])
+            if plain is not None:
+                checks["map_equals_plain_map"] = _same_map(pmap, plain)
+            if timed_variant is not None:
+                checks["timed_instantiation_launched"] = \
+                    timed_variant in info["variants"].get(kernel, {})
+            if not favor:
+                checks["staged_copies_seen"] = staged["d2h_copies"] > 0
+                checks["d2h_copies_at_most_staged"] = \
+                    info["d2h_copies"] <= staged["d2h_copies"]
+            del pmap, pwarn, pmoves, smoves
+            info.update(staged=staged, pipeline_over_staged=info["wall_s"]
+                        / staged["wall_s"], checks=checks)
+            res["favor_min_nodes" if favor else "availability"] = info
+            log(f"pipeline ({label}, favor_min_nodes={favor}): "
+                f"{json.dumps(info)}")
+            if not all(checks.values()):
+                raise AssertionError(f"pipeline {label} favor_min_nodes="
+                                     f"{favor}: {checks}")
+    finally:
+        gc.unfreeze()
+    return res
+
+
+def session_pipeline_twin(prev, nodes, removed, model, opts, dev,
+                          mode) -> dict:
+    """Twin sessions on engine ``mode`` at the north star: one replans
+    with replan() + moves(), the other with replan_with_moves(), cold
+    after the 5% removal and warm after the session phase's 1% delta; the
+    proposals and all three diff arrays bitwise equal, the warm fused
+    replan a carry hit through the warm pipeline."""
+    delta = session_delta(nodes, removed)
+    T.set_fused_score_default(mode)
+    runs = {}
+    try:
+        for kind in ("staged", "fused"):
+            rec = Recorder()
+            steps = []
+            with use_recorder(rec):
+                s = bt.PlannerSession(model, nodes, list(prev), opts=opts,
+                                      device=dev)
+                s.load_map(prev)
+                for delta_nodes in (removed, delta):
+                    s.remove_nodes(delta_nodes)
+                    before = dict(rec.counters)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    if kind == "staged":
+                        out = (s.replan().copy(), s.moves())
+                    else:
+                        a, mv = s.replan_with_moves()
+                        out = (a.copy(), mv)
+                    torch.cuda.synchronize()
+                    steps.append(dict(out=out,
+                                      s=time.perf_counter() - t0,
+                                      counters=_plan_counts(rec.counters,
+                                                            before)))
+                    s.apply()
+            runs[kind] = steps
+    finally:
+        T.set_fused_score_default("auto")
+    equal = [bool(np.array_equal(a["out"][0], b["out"][0])) and all(
+        np.array_equal(x, y) for x, y in zip(a["out"][1], b["out"][1]))
+        for a, b in zip(runs["staged"], runs["fused"])]
+    warm = runs["fused"][1]["counters"]
+    checks = dict(cold_equal=equal[0], warm_equal=equal[1],
+                  warm_pipeline=warm.get("plan.pipeline.warm") == 1,
+                  carry_hit=warm.get("plan.solve.carry_hit") == 1)
+    info = dict(engine=_ENGINES[mode if mode != "auto" else "off"],
+                delta_nodes=len(delta),
+                cold_s={k: v[0]["s"] for k, v in runs.items()},
+                warm_s={k: v[1]["s"] for k, v in runs.items()},
+                warm_counters=warm, checks=checks)
+    log(f"session pipeline twin ({info['engine']}): {json.dumps(info)}")
+    if not all(checks.values()):
+        raise AssertionError(f"session pipeline twin ({mode}): {checks}")
+    return info
+
+
+def marshal_parity(prev, nodes, removed, model, opts, plain_map) -> dict:
+    """encode_problem and decode_assignment at the north star with the
+    native marshal extension and on the pure-Python path: the same arrays
+    and the same map, and the time of each."""
+    times, outs = {}, {}
+    after = bt.encode_problem(plain_map, plain_map, nodes, removed, model,
+                              opts).prev
+    try:
+        for native in (True, False):
+            marshal._MOD, marshal._FAILED = None, not native
+            if marshal.available() != native:
+                raise AssertionError("marshal loader did not switch")
+            t0 = time.perf_counter()
+            problem = bt.encode_problem(prev, prev, nodes, removed, model,
+                                        opts)
+            t1 = time.perf_counter()
+            out = bt.decode_assignment(problem, after, prev, removed)
+            t2 = time.perf_counter()
+            key = "native" if native else "python"
+            times[key] = {"encode_s": t1 - t0, "decode_s": t2 - t1}
+            outs[key] = (problem, bt.partition_map_to_json(out[0]), out[1])
+    finally:
+        marshal._MOD, marshal._FAILED = None, False
+    if not marshal.available():
+        raise AssertionError("the native marshal extension did not reload")
+    (a, amap, awarn), (b, bmap, bwarn) = outs["native"], outs["python"]
+    fields = ("prev", "partition_weights", "node_weights", "valid_node",
+              "stickiness", "gids", "gid_valid", "constraints")
+    checks = dict(
+        encode_arrays_equal=all(
+            getattr(a, f).dtype == getattr(b, f).dtype
+            and np.array_equal(getattr(a, f), getattr(b, f)) for f in fields)
+        and (a.partitions, a.nodes, a.states) == (b.partitions, b.nodes,
+                                                  b.states),
+        decode_equal=amap == bmap and awarn == bwarn,
+        decode_equals_plain_map=amap == bt.partition_map_to_json(plain_map))
+    info = dict(times, checks=checks)
+    log(f"marshal (north star): {json.dumps(info)}")
+    if not all(checks.values()):
+        raise AssertionError(f"marshal parity: {checks}")
+    return info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is False; needs one GPU")
@@ -1089,6 +1348,13 @@ def main() -> int:
     for name, text in build_logs.items():
         log(f"--- nvcc {name}.cu\n{text.strip()}")
     log(f"kernels built in {build_s:.1f} s")
+    t0 = time.perf_counter()
+    if not marshal.available():
+        raise AssertionError("the native marshal extension did not build or "
+                             "load (gcc and the Python headers are needed)")
+    marshal_build_s = time.perf_counter() - t0
+    log(f"native marshal extension loaded in {marshal_build_s:.1f} s: "
+        f"{marshal.get().__file__}")
 
     min2 = check_min2(dev)
     fused = check_fused(dev)
@@ -1121,6 +1387,44 @@ def main() -> int:
                                     plain_map, diff)
     rebalance["small_card_equals_cpu"] = small_rebalance_matches_cpu(dev)
     rebalance["diff"] = diff
+
+    parts: dict = {}
+    t0 = time.perf_counter()
+    pipeline = {"native_marshal": marshal.available(),
+                "marshal_build_s": marshal_build_s,
+                "marshal": marshal_parity(prev, nodes, removed, model,
+                                          ns_opts, plain_map)}
+    parts["marshal"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    T.set_fused_score_default("auto")
+    pipeline["north_star"] = {"matrix": pipeline_vs_staged(
+        "north star, matrix", prev, nodes, removed, model, ns_opts,
+        "priced_min2_argmin", plain=plain_map, favors=(False, True))}
+    fused_opts = dataclasses.replace(ns_opts, fused_pipeline=True)
+    checked = bt.plan_next_map(prev, prev, nodes, removed, [], model,
+                               fused_opts, backend="cuda")
+    if not _same_map(checked[0], plain_map) or checked[1]:
+        raise AssertionError("plan_next_map(fused_pipeline=True) differs "
+                             "from the staged map")
+    pipeline["north_star"]["plan_next_map_fused_pipeline_equal"] = True
+    del checked
+    parts["matrix"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    T.set_fused_score_default("on")
+    try:
+        pipeline["north_star"]["fused"] = pipeline_vs_staged(
+            "north star, fused", prev, nodes, removed, model, ns_opts,
+            "fused_score_min2", timed_variant=fused["timed_instantiation"],
+            plain=plain_map)
+    finally:
+        T.set_fused_score_default("auto")
+    parts["fused"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pipeline["sessions"] = {
+        _ENGINES[m if m != "auto" else "off"]: session_pipeline_twin(
+            prev, nodes, removed, model, ns_opts, dev, m)
+        for m in ("auto", "on")}
+    parts["sessions"] = time.perf_counter() - t0
     del plain_map
     t0 = time.perf_counter()
     session = {"north_star": {
@@ -1139,7 +1443,8 @@ def main() -> int:
     session["small_card_equals_cpu"] = small_session_matches_cpu(dev)
     session["phase_s"] = session_s + time.perf_counter() - t1
     del sp_state
-    sp, _ = run_main_path("main path, sparse engine (1M x 10k)", *sp_map)
+    sp, sp_out = run_main_path("main path, sparse engine (1M x 10k)",
+                               *sp_map)
     sp["card_vs_cpu"] = parity
     sp_variants = sp["variants"]["sparse_priced_min2_cand"]
     if sp["engine"] != "sparse" or \
@@ -1147,6 +1452,20 @@ def main() -> int:
             set(sp_variants) != {sparse["timed_instantiation"]}:
         raise AssertionError(f"sparse run: engine {sp['engine']}, launches "
                              f"{sp['variants']}")
+    t0 = time.perf_counter()
+    (sp_prev, sp_nodes, sp_removed, sp_model, sp_opts) = sp_map
+    pipeline["sparse"] = pipeline_vs_staged(
+        "sparse 1M x 10k", sp_prev, sp_nodes, sp_removed, sp_model, sp_opts,
+        "sparse_priced_min2_cand", plain=sp_out)["availability"]
+    sp_pipe = pipeline["sparse"]
+    if sp_pipe["engine"] != "sparse" or set(
+            sp_pipe["variants"]["sparse_priced_min2_cand"]) != \
+            {sparse["timed_instantiation"]}:
+        raise AssertionError(f"sparse pipeline: engine {sp_pipe['engine']}, "
+                             f"variants {sp_pipe['variants']}")
+    del sp_out
+    parts["sparse"] = time.perf_counter() - t0
+    pipeline.update(parts_s=parts, phase_s=sum(parts.values()))
 
     kernels = [
         dict(name="priced_min2_argmin", route="cuda",
@@ -1177,6 +1496,7 @@ def main() -> int:
     print(json.dumps({"wall_s": time.perf_counter() - t_start}))
     print(json.dumps({"rebalance": rebalance}))
     print(json.dumps({"session": session}))
+    print(json.dumps({"pipeline": pipeline}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -351,3 +351,78 @@ def test_carry_on_card_matches_cpu(dev):
     for g, w in zip(got, want):
         assert g.device.type == "cuda"
         assert g.cpu().numpy().tobytes() == w.numpy().tobytes()
+
+
+# --- the fused plan pipeline on the card -----------------------------------------
+
+
+def _pipeline_fixture():
+    """4096 partitions x 256 nodes in racks of 16, replica on another
+    rack, 8 nodes removed."""
+    import blance_tpu_torch as bt
+
+    rng = np.random.default_rng(14)
+    n = 256
+    nodes = [f"n{i:03d}" for i in range(n)]
+    hier = {nd: f"r{i // 16}" for i, nd in enumerate(nodes)}
+    hier.update({f"r{i}": "z0" for i in range(n // 16)})
+    prim = rng.integers(0, n, 4096)
+    repl = (prim + 1 + rng.integers(0, n - 1, 4096)) % n
+    prev = {str(i): bt.Partition(str(i), {"primary": [nodes[a]],
+                                          "replica": [nodes[b]]})
+            for i, (a, b) in enumerate(zip(prim.tolist(), repl.tolist()))}
+    rules = {"replica": [bt.HierarchyRule(include_level=2, exclude_level=1)]}
+    return prev, nodes, nodes[:8], hier, rules
+
+
+def _pipeline_run(device, mode, **opts_kw):
+    """plan_pipeline on ``device`` with the dense engine ``mode``; returns
+    (map JSON, warnings, moves as tuples, plan counters, launches)."""
+    import blance_tpu_torch as bt
+    from blance_tpu_torch.obs import Recorder, use_recorder
+    from blance_tpu_torch.plan import tensor as T
+
+    prev, nodes, removed, hier, rules = _pipeline_fixture()
+    opts = bt.PlanOptions(node_hierarchy=hier, hierarchy_rules=rules,
+                          **opts_kw)
+    rec = Recorder()
+    T.set_fused_score_default(mode)
+    try:
+        reset_launch_counts()
+        with use_recorder(rec):
+            m, w, mv = bt.plan_pipeline(prev, prev, nodes, removed, [],
+                                        bt.model(primary=(0, 1),
+                                                 replica=(1, 1)),
+                                        opts, device=device)
+        launches = launch_counts()
+    finally:
+        T.set_fused_score_default("auto")
+    moves = {k: [(o.node, o.state, o.op) for o in ops]
+             for k, ops in mv.items()}
+    counters = {k: v for k, v in rec.counters.items()
+                if k.startswith("plan.")}
+    return bt.partition_map_to_json(m), w, moves, counters, launches
+
+
+@pytest.mark.parametrize("engine,kernel", [("off", "priced_min2_argmin"),
+                                           ("on", "fused_score_min2")])
+def test_pipeline_on_card_matches_cpu(dev, engine, kernel):
+    """plan_pipeline on the card (matrix engine: min2 kernel; fused
+    engine: the in-kernel score) equals the CPU's map, warnings, moves
+    and counters at 4096 x 256, with no fallback."""
+    cpu = _pipeline_run("cpu", engine)
+    gpu = _pipeline_run(dev, engine)
+    assert gpu[:4] == cpu[:4]
+    assert gpu[4][kernel] > 0
+    assert "plan.pipeline.fallback" not in gpu[3]
+    assert "plan.engine_fallback" not in gpu[3]
+
+
+def test_sparse_pipeline_on_card_matches_cpu(dev):
+    """The sparse pipeline (K = 6 < N) on the card equals the CPU's, and
+    went through the gathered sparse kernel."""
+    cpu = _pipeline_run("cpu", "auto", sparse=True, sparse_k=6)
+    gpu = _pipeline_run(dev, "auto", sparse=True, sparse_k=6)
+    assert gpu[:4] == cpu[:4]
+    assert gpu[4]["sparse_priced_min2_cand"] > 0
+    assert "plan.pipeline.fallback" not in gpu[3]

@@ -86,7 +86,6 @@ def test_cuda_default_raises_without_gpu(monkeypatch):
     dict(node_score_booster=lambda w, s: 0.0),
     dict(node_weights={"a": -1}),
     dict(shape_bucketing=True),
-    dict(fused_pipeline=True),
 ])
 def test_unported_options_raise(spec):
     import blance_tpu_torch as bt
@@ -96,6 +95,25 @@ def test_unported_options_raise(spec):
         bt.plan_next_map(parts, parts, ["a", "b", "c"], [], [],
                          bt.model(primary=(0, 1)), bt.PlanOptions(**spec),
                          device="cpu")
+
+
+# Exported by the reference and waiting for the exact backends (ROADMAP
+# A.11).
+_WAIT_FOR_A11 = {"NodeScoreContext", "count_state_nodes", "default_node_score",
+                 "plan_next_map_greedy", "plan_next_map_legacy"}
+
+
+def test_port_exports_the_reference_surface():
+    """Every name the reference exports is exported by the port, except
+    those still waiting for their ROADMAP item; each export resolves."""
+    import blance_tpu_torch as bt
+
+    jax = pytest.importorskip("jax")  # noqa: F841 (the reference needs it)
+    import blance_tpu
+
+    missing = set(blance_tpu.__all__) - set(bt.__all__)
+    assert missing <= _WAIT_FOR_A11, sorted(missing - _WAIT_FOR_A11)
+    assert all(hasattr(bt, name) for name in bt.__all__)
 
 
 def test_cbgt_booster_and_sparse_none_plan_on_cpu():

@@ -195,17 +195,22 @@ def test_checkpoint_round_trip(tmp_path):
 
 
 def test_session_is_not_ported():
-    """The parts of a PlannerSession the port does not have yet raise
-    and name their ROADMAP items: the sharded session (mesh=, A.9) and
-    the fused replan (replan_with_moves, A.5).  The session itself runs
-    (tests/test_torch_session.py)."""
+    """The part of a PlannerSession the port does not have yet raises and
+    names its ROADMAP item: the sharded session (mesh=, A.9).  The fused
+    replan (replan_with_moves) runs: on a one-partition session it
+    returns the proposal and its move arrays (the session itself in
+    tests/test_torch_session.py, the pipeline in
+    tests/test_torch_pipeline.py)."""
     m = bt.model(primary=(0, 1))
     with pytest.raises(NotImplementedError, match="A.9"):
         bt.PlannerSession(m, ["a", "b"], ["p0"], mesh=object(),
                           device="cpu")
     s = bt.PlannerSession(m, ["a", "b"], ["p0"], device="cpu")
-    with pytest.raises(NotImplementedError, match="A.5"):
-        s.replan_with_moves()
+    assign, (nodes, states, ops) = s.replan_with_moves()
+    assert assign.shape == (1, 1, 1) and assign[0, 0, 0] in (0, 1)
+    assert nodes.shape == states.shape == ops.shape == (1, 2)
+    assert ops[0].tolist() == [0, -1]  # one add into the empty slot
+    assert nodes[0, 0] == assign[0, 0, 0]
 
 
 def test_rebalance_asks_for_the_card(monkeypatch):
