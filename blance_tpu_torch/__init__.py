@@ -5,7 +5,14 @@ Plan, diff and orchestrate on PyTorch:
 - the planner's cold-solve paths (``plan_next_map(..., backend="cuda")``):
   the dense engines and the sparse shortlist engine, with the three TPU
   kernels on those paths rewritten as CUDA C++ kernels for Hopper
-  (``ops/csrc``);
+  (``ops/csrc``), and shape bucketing (``PlanOptions.shape_bucketing``:
+  inert padding to a static bucket, the real partition count threaded to
+  the fill term as ``p_real``);
+- the exact planners: ``backend="greedy"`` (``plan_next_map_greedy``) and
+  ``backend="native"`` (the same algorithm in C++, ``native/planner.cpp``,
+  built with the host's g++ at first use); ``backend="auto"`` picks
+  native for small problems and the card for large ones, and custom
+  placement hooks on the "cuda" backend run on the exact path;
 - warm delta replans: ``PlannerSession`` keeps the solver's auction state
   (``SolveCarry``, held in a ``CarryCache``) between replans, so a delta
   replan runs one carry-seeded repair sweep (``solve_dense_warm``,
@@ -48,6 +55,12 @@ from .core.types import (
 )
 from .core.encode import DenseProblem, decode_assignment, encode_problem
 from .core.order import flatten_nodes_by_state, sort_state_names
+from .plan.greedy import (
+    NodeScoreContext,
+    count_state_nodes,
+    default_node_score,
+    plan_next_map_greedy,
+)
 from .core.setops import (
     strings_dedup,
     strings_intersect,
@@ -61,7 +74,11 @@ from .convert import (
     problem_to_torch,
     score_inputs_to_torch,
 )
-from .plan.api import cbgt_node_score_booster, plan_next_map
+from .plan.api import (
+    cbgt_node_score_booster,
+    plan_next_map,
+    plan_next_map_legacy,
+)
 from .plan.audit import check_assignment, maybe_validate
 from .moves.batch import calc_all_moves
 from .moves.calc import NodeStateOp, calc_partition_moves
@@ -96,16 +113,18 @@ from .plan.tensor import (
 
 __all__ = [
     "CarryCache", "ClusterDelta", "DenseProblem", "HierarchyRule",
-    "HierarchyRules", "NodeStateOp", "OrchestratorOptions", "Partition",
+    "HierarchyRules", "NodeScoreContext", "NodeStateOp",
+    "OrchestratorOptions", "Partition",
     "PartitionMap", "PartitionModel", "PartitionModelState", "PlanOptions",
     "PlannerSession", "RebalanceController", "RebalanceResult",
     "RecoveryRound", "SolveCarry", "assign_to_numpy", "calc_all_moves",
     "calc_partition_moves", "carry_from_assignment", "carry_to_numpy",
     "carry_to_torch", "cbgt_node_score_booster", "check_assignment",
-    "copy_partition_map", "decode_assignment", "encode_problem",
-    "flatten_nodes_by_state", "load_partition_map", "maybe_validate",
-    "model", "orchestrate_moves", "partition_map_from_json",
-    "partition_map_to_json", "plan_next_map", "plan_next_map_cuda",
+    "copy_partition_map", "count_state_nodes", "decode_assignment",
+    "default_node_score", "encode_problem", "flatten_nodes_by_state",
+    "load_partition_map", "maybe_validate", "model", "orchestrate_moves",
+    "partition_map_from_json", "partition_map_to_json", "plan_next_map",
+    "plan_next_map_cuda", "plan_next_map_greedy", "plan_next_map_legacy",
     "plan_pipeline", "problem_to_torch", "rebalance", "rebalance_async",
     "resolve_fused_score", "save_partition_map", "score_inputs_to_torch",
     "set_dense_score_budget", "set_fused_score_default",

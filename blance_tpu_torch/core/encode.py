@@ -1,8 +1,10 @@
 # Copied from blance_tpu/core/encode.py (DenseProblem, encode_problem,
 # decode_assignment with its native marshal branches and packed=/counts=,
-# pack_slot_rows); the shape-bucketing helpers are left out.  The integer
-# cores (pack_assignment_core, prev_from_entries_core) and their entry
-# points are torch ports of the reference's jnp functions.
+# pack_slot_rows, and the shape-bucketing helpers bucket_size, pad_to and
+# pad_problem_arrays); the fleet's stack_problem_arrays and
+# strip_prev_rows are left out.  The integer cores (pack_assignment_core,
+# prev_from_entries_core) and their entry points are torch ports of the
+# reference's jnp functions.
 """Dense encoding: PartitionMap <-> int32/float32 arrays.
 
 The reference's data model is maps of strings (reference api.go:24-36); the
@@ -43,9 +45,83 @@ from .types import (
 
 __all__ = ["DenseProblem", "NPArray", "encode_problem", "decode_assignment",
            "pack_assignment_core", "pack_assignment",
-           "prev_from_entries_core", "prev_from_entries", "pack_slot_rows"]
+           "prev_from_entries_core", "prev_from_entries", "pack_slot_rows",
+           "bucket_size", "pad_to", "pad_problem_arrays"]
 
 NPArray = np.ndarray[Any, np.dtype[Any]]
+
+# Shape-bucket granularity: buckets per power-of-two octave.  8 keeps the
+# worst-case padding overhead at 1/8 = 12.5% of the axis while collapsing
+# the jit-cache key space to ~8 entries per octave — the GSPMD insight
+# (arXiv:2105.04663) that repeated invocation is cheap exactly when the
+# compiled program's static shapes are reused.
+_BUCKET_GRANULARITY = 8
+
+
+def bucket_size(x: int, granularity: int = _BUCKET_GRANULARITY) -> int:
+    """Round ``x`` up to the next static-shape bucket.
+
+    Buckets are multiples of 2**floor(log2(x)) / granularity, i.e. the
+    octave [2^k, 2^(k+1)) is split into ``granularity`` evenly spaced
+    sizes.  A cluster drifting 1000 -> 1007 -> 998 nodes maps to one
+    bucket (1024), so every replan hits the jit cache instead of
+    recompiling; the pad rows/columns are inert by construction (weight-0
+    partitions, invalid nodes — the same trick parallel/sharded.py uses
+    for mesh divisibility)."""
+    if x <= granularity:
+        return max(x, 0)
+    step = max(1, (1 << (x.bit_length() - 1)) // granularity)
+    return -(-x // step) * step
+
+
+def pad_to(arr: np.ndarray, axis: int, target: int,
+           fill: float | int | bool) -> np.ndarray:
+    """Pad ``arr`` along ``axis`` up to ``target`` entries with ``fill``;
+    no-op when already that long.  The one padding spelling of shape
+    bucketing."""
+    cur = arr.shape[axis]
+    if cur >= target:
+        return arr
+    pad_shape = list(arr.shape)
+    pad_shape[axis] = target - cur
+    return np.concatenate(
+        [arr, np.full(pad_shape, fill, arr.dtype)], axis=axis)
+
+
+def pad_problem_arrays(
+    prev: np.ndarray,
+    partition_weights: np.ndarray,
+    node_weights: np.ndarray,
+    valid_node: np.ndarray,
+    stickiness: np.ndarray,
+    gids: np.ndarray,
+    gid_valid: np.ndarray,
+    p_target: int,
+    n_target: int,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray,
+           np.ndarray, np.ndarray]:
+    """Pad one problem's solver arrays to (p_target, n_target), inertly.
+
+    THE bit-neutral padding recipe, shared by the shape-bucketed paths
+    of plan_next_map_cuda and plan_pipeline (and the reference's fleet
+    batch stacker):
+    pad partitions are weight-0 bidders (their assignments are sliced
+    off by the caller) and pad nodes invalid (valid=False => zero
+    capacity, +INF score, gid_valid=False), the same inert-padding
+    contract parallel/sharded.py relies on, so the real rows solve
+    identically to the unpadded problem.  Parameters and the returned
+    tuple both follow the solver's positional order (prev, pweights,
+    nweights, valid, stickiness, gids, gid_valid) so the call sites
+    splat straight into solve_dense and friends."""
+    prev = pad_to(prev, 0, p_target, -1)
+    partition_weights = pad_to(partition_weights, 0, p_target, 0.0)
+    stickiness = pad_to(stickiness, 0, p_target, 0.0)
+    node_weights = pad_to(node_weights, 0, n_target, 1.0)
+    valid_node = pad_to(valid_node, 0, n_target, False)
+    gids = pad_to(gids, 1, n_target, -1)
+    gid_valid = pad_to(gid_valid, 1, n_target, False)
+    return (prev, partition_weights, node_weights, valid_node,
+            stickiness, gids, gid_valid)
 
 # --- device integer cores ---------------------------------------------------
 #

@@ -1,8 +1,8 @@
 # Copied from blance_tpu/plan/greedy.py (sort_state_names,
 # _partition_name_key, sorted_by_partition_name, flatten_nodes_by_state):
-# encode_problem, the move calculus and the orchestrator need the planner's
-# deterministic state and partition order; the greedy planner itself is not
-# part of the port yet.
+# encode_problem, the move calculus, the orchestrator and the exact planners
+# (plan/greedy.py, plan/native.py) share the planner's deterministic state
+# and partition order, kept once here.
 """State and partition ordering shared by encode and the planners."""
 
 from __future__ import annotations

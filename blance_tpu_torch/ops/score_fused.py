@@ -15,7 +15,10 @@ on the CPU (XLA):
 
 - the fill term ``0.001 * total / P`` with P a trace-time constant is
   folded by XLA into ``total * fl32(fl32(0.001) * fl32(1 / P))``; the
-  port multiplies by that constant (:func:`fill_scale`);
+  port multiplies by that constant (:func:`fill_scale`).  With P a
+  traced scalar (``p_real``, shape bucketing) XLA instead divides once
+  by the product ``(fl32(0.001) * total) / (max(P, 1) * w_div)``, and so
+  does the port (:func:`fill_term`);
 - XLA contracts the jitter add ``score + 1e-5 * jitter_hash`` into one
   fused multiply-add; the port rounds it once too (:func:`jitter_add`),
   and the kernel spells it ``fmaf``.
@@ -38,7 +41,8 @@ import torch
 
 __all__ = ["fused_score_min2", "fused_score_min2_reference", "ScoreInputs",
            "pack_score_inputs", "score_at_columns", "jitter_hash",
-           "jitter_add", "fill_scale", "FUSED_VARIANTS", "fused_variant"]
+           "jitter_add", "fill_scale", "fill_term", "FUSED_VARIANTS",
+           "fused_variant"]
 
 _INF = 1.0e9
 _RULE_MISS = 1.0e6
@@ -89,6 +93,22 @@ def fill_scale(total_p) -> float:
     return float(np.float32(np.float32(0.001) * (np.float32(1.0) / p)))
 
 
+def fill_term(total: torch.Tensor, total_p, w_div: torch.Tensor) \
+        -> torch.Tensor:
+    """The balance term ``(0.001 * total / max(P, 1)) / w_div`` as the
+    jitted reference computes it.  ``total_p`` a Python number (the
+    partition count, a trace-time constant there): multiply by
+    :func:`fill_scale`.  ``total_p`` a 0-d float32 tensor (``p_real``,
+    traced there): XLA rewrites the two divisions into one by the
+    product, ``(fl32(0.001) * total) / (max(P, 1) * w_div)``, at every
+    site that builds the term (matrix build, ``score_at_columns``' base,
+    the fused kernel's ``base``, the sparse columns)."""
+    if isinstance(total_p, torch.Tensor):
+        return (total * float(np.float32(0.001))) / \
+            (total_p.clamp(min=1.0) * w_div)
+    return (total * fill_scale(total_p)) / w_div
+
+
 class ScoreInputs(NamedTuple):
     """Packed per-slot score inputs.
 
@@ -131,8 +151,9 @@ def pack_score_inputs(
     """Build ScoreInputs from the auction's terms (plain PyTorch).
 
     ``total_p`` is the partition count as a Python number (the
-    reference's trace-time constant; see :func:`fill_scale`)."""
-    base = (total_l * fill_scale(total_p)) / w_div_l
+    reference's trace-time constant) or, under shape bucketing, the real
+    partition count as a 0-d float32 tensor (see :func:`fill_term`)."""
+    base = fill_term(total_l, total_p, w_div_l)
     validf = valid_l.to(torch.float32)
     p = prev_slot.shape[0]
     dev = base.device

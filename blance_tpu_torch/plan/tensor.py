@@ -36,7 +36,7 @@ Bit-equality with the reference on the CPU rests on three rules kept
 throughout: integer weights (float32 sums of whole numbers below 2**24
 are exact in any order, so atomic ``index_add_`` order on CUDA cannot
 change them); stable argsorts where JAX's are stable (all of them); and
-the fill/jitter rounding of ops/score_fused.py (``fill_scale``,
+the fill/jitter rounding of ops/score_fused.py (``fill_term``,
 ``jitter_add``).
 
 Warm replans (``SolveCarry``, ``solve_dense_warm``, ``solve_sparse_warm``)
@@ -48,8 +48,12 @@ choice and warm outcomes are counted on the port's recorder
 The fused plan pipeline (``plan_pipeline``, and the session's
 ``replan_with_moves`` through ``_dispatch_pipeline_cold`` and
 ``_pipeline_warm_impl``) runs the solve, the move diff and the decode
-pack on the device and brings their outputs back in one copy.  Not
-ported here: node-axis and partition-axis sharding and shape bucketing.
+pack on the device and brings their outputs back in one copy.  Shape
+bucketing (``PlanOptions.shape_bucketing``) pads a plan to a static
+bucket with inert rows and columns and threads the real partition count
+(``p_real``) to the fill term; custom placement hooks run on the exact
+planner (``_cuda_supported``).  Not ported here: node-axis and
+partition-axis sharding.
 """
 
 from __future__ import annotations
@@ -61,8 +65,9 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..core.encode import (NPArray, decode_assignment, encode_problem,
-                           pack_assignment_core)
+from ..core.encode import (NPArray, bucket_size, decode_assignment,
+                           encode_problem, pack_assignment_core,
+                           pad_problem_arrays)
 from ..core.shortlist import (
     auto_shortlist_k,
     build_shortlist_core,
@@ -75,7 +80,7 @@ from ..ops.sparse2 import sparse_priced_min2_cand
 from ..convert import problem_to_torch, resolve_device
 from ..ops.score_fused import (
     _ROW_CELLS,
-    fill_scale,
+    fill_term,
     fused_score_min2,
     jitter_add,
     pack_score_inputs,
@@ -543,7 +548,7 @@ def _sparse_score_cols(
     rows: torch.Tensor,  # [M] row ids (global partition ids: one device)
     *,
     total: torch.Tensor,  # [N] fill vector
-    total_p: int,  # partition count (see fill_scale)
+    total_p,  # partition count, or the 0-d p_real tensor (fill_term)
     w_div: torch.Tensor,  # [N]
     neg_boost: torch.Tensor,  # [N]
     valid: torch.Tensor,  # [N] bool
@@ -566,7 +571,7 @@ def _sparse_score_cols(
     cl = c.long()
     okc = cols >= 0
     st = stick_si[rows][:, None]
-    score = (total[cl] * fill_scale(total_p)) / w_div[cl]
+    score = fill_term(total[cl], total_p, w_div[cl])
     score = score - 0.01 * ((prev_slot[rows][:, None] == cols) & okc)
     nb = neg_boost[cl]
     score = score + torch.maximum(nb, torch.where(nb > 0, st, 0.0))
@@ -733,19 +738,20 @@ def _assign_slot(
     return slot_assign, used
 
 
-def _matrix_score(total, total_p: int, w_div, neg_boost, valid, stick_si,
+def _matrix_score(total, total_p, w_div, neg_boost, valid, stick_si,
                   prev_slot, prev_state_ids, anchors, gids, gid_valid,
                   state_rules: StateRules, taken_ids) -> torch.Tensor:
     """The matrix engine's score[P, N], term order as the reference's
     build (tensor.py:1526-1560), in row chunks so that temporaries stay
-    bounded at any P.  The fill term multiplies by ``fill_scale`` (XLA's
-    fold of ``0.001 * total / P``) and the jitter add rounds once
-    (``jitter_add``, XLA's fused multiply-add)."""
+    bounded at any P.  The fill term is ``fill_term`` (XLA's fold of
+    ``0.001 * total / P``, or its one division under a traced ``p_real``)
+    and the jitter add rounds once (``jitter_add``, XLA's fused
+    multiply-add)."""
     p = prev_slot.shape[0]
     n = total.shape[0]
     dev = total.device
     cols = torch.arange(n, dtype=torch.int32, device=dev)
-    score_row = (total[None, :] * fill_scale(total_p)) / w_div[None, :]
+    score_row = fill_term(total[None, :], total_p, w_div[None, :])
     nb = neg_boost[None, :]
     taken = torch.stack(list(taken_ids), dim=1) if taken_ids else None
     out = torch.empty((p, n), dtype=torch.float32, device=dev)
@@ -782,6 +788,9 @@ def _solve_assign(
     # node ids (-1 pads), ascending per row: the sparse engine
     carry_used: Optional[torch.Tensor] = None,  # [S, N] warm seed
     # (SolveCarry.used matching prev): replaces the seed scatters
+    p_real=None,  # the count of REAL partitions when prev carries inert
+    # pad rows (shape bucketing): a number or a 0-d tensor, the fill
+    # term's denominator as the reference's traced scalar (fill_term)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One assignment sweep on one device; returns (assign[P, S, R],
     exhausted[P]).  ``exhausted`` is all-False on the dense engines; on
@@ -805,6 +814,8 @@ def _solve_assign(
         raise ValueError(
             f"prev slot depth R={r_max} < max constraints {max(constraints)}")
 
+    total_p = p if p_real is None else \
+        torch.as_tensor(p_real, dtype=torch.float32, device=dev)
     total_w = pweights.sum()
     w_div = torch.where(nweights > 0, nweights, 1.0)
     neg_boost = torch.where(nweights < 0, -nweights, 0.0)
@@ -914,7 +925,7 @@ def _solve_assign(
                     torch.full((p,), -1, dtype=torch.int32, device=dev),
                     prev_state_ids, anchors, gids, gid_valid, rules[si],
                     tuple(taken_ids), pweights, total_w, cap_share,
-                    init_assign, pin_used, shortlist)
+                    init_assign, pin_used, shortlist, total_p)
                 exhausted = exhausted | exh_slot
 
             assign[:, si, ri] = slot_assign
@@ -931,9 +942,11 @@ def _solve_assign(
 def _run_auction(fused_score, p, n, total, w_div, neg_boost, valid,
                  stick_si, prev_slot, prev_state_ids, anchors, gids,
                  gid_valid, state_rules, taken_ids, pweights, total_w,
-                 cap_share, init_assign, pin_used, shortlist=None):
+                 cap_share, init_assign, pin_used, shortlist, total_p):
     """Score + auction + force for one slot, through any engine; returns
-    (slot_assign, used, exhausted[P] for this slot)."""
+    (slot_assign, used, exhausted[P] for this slot).  ``shortlist`` is
+    the sparse engine's [P, K] table (None on the dense engines);
+    ``total_p`` the fill term's partition count (see fill_term)."""
     dev = total.device
     anchors_k = anchors if state_rules else \
         torch.full((p, 1), -1, dtype=torch.int32, device=dev)
@@ -943,7 +956,7 @@ def _run_auction(fused_score, p, n, total, w_div, neg_boost, valid,
         # +_INF, so stragglers never leave their candidate set.
         cand = shortlist.contiguous()
         score_kw = dict(
-            total=total, total_p=p, w_div=w_div, neg_boost=neg_boost,
+            total=total, total_p=total_p, w_div=w_div, neg_boost=neg_boost,
             valid=valid, gids=gids, gid_valid=gid_valid, stick_si=stick_si,
             prev_slot=prev_slot, prev_state=prev_state_ids,
             taken_ids=taken_ids, anchors=anchors_k, rules=state_rules,
@@ -963,7 +976,8 @@ def _run_auction(fused_score, p, n, total, w_div, neg_boost, valid,
             return torch.where(in_sl, vals, _INF)
     elif fused_score == "on":
         si_pack = pack_score_inputs(
-            total_l=total, total_p=p, w_div_l=w_div, neg_boost_l=neg_boost,
+            total_l=total, total_p=total_p, w_div_l=w_div,
+            neg_boost_l=neg_boost,
             valid_l=valid, stickiness_si=stick_si, prev_slot=prev_slot,
             prev_state=prev_state_ids, taken_ids=list(taken_ids),
             anchors=anchors_k, gids_l=gids, gid_valid=gid_valid, gids=gids,
@@ -974,7 +988,7 @@ def _run_auction(fused_score, p, n, total, w_div, neg_boost, valid,
                                     nrules=len(state_rules),
                                     jitter_scale=_JITTER)
 
-        base_full = (total * fill_scale(p)) / w_div
+        base_full = fill_term(total, total_p, w_div)
 
         def score_at_fn(rows, cols_global):
             return score_at_columns(
@@ -985,7 +999,8 @@ def _run_auction(fused_score, p, n, total, w_div, neg_boost, valid,
                 taken_ids=taken_ids, stick=stick_si, jitter_scale=_JITTER,
                 pbase=0)
     else:
-        score = _matrix_score(total, p, w_div, neg_boost, valid, stick_si,
+        score = _matrix_score(total, total_p, w_div, neg_boost, valid,
+                              stick_si,
                               prev_slot, prev_state_ids, anchors, gids,
                               gid_valid, state_rules, taken_ids)
 
@@ -1042,26 +1057,31 @@ def _run_auction(fused_score, p, n, total, w_div, neg_boost, valid,
 def solve_dense(prev, pweights, nweights, valid, stickiness, gids,
                 gid_valid, constraints: Constraints, rules: Rules,
                 fused_score: str = "off",
-                carry_used: Optional[torch.Tensor] = None) -> torch.Tensor:
+                carry_used: Optional[torch.Tensor] = None,
+                p_real=None) -> torch.Tensor:
     """Solve the whole placement problem once; returns assign[P, S, R].
-    ``carry_used`` seeds the sweep's fill totals (see _solve_assign)."""
+    ``carry_used`` seeds the sweep's fill totals and ``p_real`` is the
+    real partition count under padding (see _solve_assign)."""
     return _solve_assign(prev, pweights, nweights, valid, stickiness, gids,
                          gid_valid, constraints, rules, fused_score,
-                         carry_used=carry_used)[0]
+                         carry_used=carry_used, p_real=p_real)[0]
 
 
 def _solve_dense_converged_impl(prev, pweights, nweights, valid, stickiness,
                                 gids, gid_valid, constraints, rules,
                                 max_iterations: int = 10,
                                 fused_score: str = "off",
-                                carry_used: Optional[torch.Tensor] = None):
+                                carry_used: Optional[torch.Tensor] = None,
+                                p_real=None):
     """The fixpoint loop; returns (assign, sweeps executed).  One host
     read of the changed flag per sweep.  ``carry_used`` seeds the FIRST
-    sweep only: later sweeps re-derive their seed from their own input."""
+    sweep only: later sweeps re-derive their seed from their own input;
+    ``p_real`` is the real partition count under padding (see
+    _solve_assign)."""
     def solve(x, cu=None):
         return solve_dense(x, pweights, nweights, valid, stickiness, gids,
                            gid_valid, constraints, rules, fused_score,
-                           carry_used=cu)
+                           carry_used=cu, p_real=p_real)
 
     out, prev_i, it = solve(prev, carry_used), prev, 1
     while it < max_iterations and bool((out != prev_i).any()):
@@ -1138,19 +1158,20 @@ def solve_dense_converged(prev, pweights, nweights, valid, stickiness,
                           fused_score: str = "off", record: bool = True,
                           carry_used: Optional[torch.Tensor] = None,
                           return_carry: bool = False,
-                          stats: Optional[dict] = None):
+                          stats: Optional[dict] = None, p_real=None):
     """solve_dense iterated to a fixpoint (reference plan.go:23-58); the
     first pass does the work, later passes confirm.  The executed pass
     count goes to the recorder's ``plan.solve.sweeps`` (``record=False``
     skips it) and, when ``stats`` is given, under its "sweeps".
     ``carry_used`` (SolveCarry.used matching ``prev``) seeds the first
     sweep; ``return_carry`` returns (assign, SolveCarry) instead of
-    assign."""
+    assign; ``p_real`` is the real partition count when the arrays carry
+    inert pad rows (shape bucketing; see _solve_assign)."""
     _check_tier_band_scale(prev, pweights, nweights, valid, stickiness,
                            constraints, rules)
     out, sweeps = _solve_dense_converged_impl(
         prev, pweights, nweights, valid, stickiness, gids, gid_valid,
-        constraints, rules, max_iterations, fused_score, carry_used)
+        constraints, rules, max_iterations, fused_score, carry_used, p_real)
     if record:
         _record_sweeps(sweeps)
     if stats is not None:
@@ -1177,6 +1198,7 @@ def solve_converged_resilient(
     constraints, rules, *, max_iterations: int, mode: str,
     allow_fallback: bool, context: str, carry_used=None,
     return_carry: bool = False, stats: Optional[dict] = None, timer=None,
+    p_real=None,
 ):
     """solve_dense_converged with engine-failure degradation: with
     ``allow_fallback`` (the mode came from "auto") a failed engine
@@ -1186,7 +1208,7 @@ def solve_converged_resilient(
     ``return_carry``; ``carry_used`` seeds the first sweep.  The engine
     that ran (and any fallback) is annotated on ``timer`` (a PhaseTimer,
     which forwards to the recorder) or, without one, on the recorder's
-    current span."""
+    current span.  ``p_real``: see solve_dense_converged."""
     device = prev.device
     rec = get_recorder()
 
@@ -1197,7 +1219,8 @@ def solve_converged_resilient(
             out = solve_dense_converged(
                 prev, pweights, nweights, valid, stickiness, gids,
                 gid_valid, constraints, rules, max_iterations=max_iterations,
-                fused_score=m, carry_used=carry_used, stats=stats)
+                fused_score=m, carry_used=carry_used, stats=stats,
+                p_real=p_real)
             return out, out.cpu().numpy()
 
     try:
@@ -1228,7 +1251,7 @@ def solve_converged_resilient(
 
 def _warm_repair(prev, pweights, nweights, valid, stickiness, gids,
                  gid_valid, dirty, carry_used, constraints: Constraints,
-                 rules: Rules, fused_score: str = "off"):
+                 rules: Rules, fused_score: str = "off", p_real=None):
     """ONE carry-seeded repair sweep and its acceptance flag; returns
     (assign, new_used[S, N], ok) with ``ok`` a 0-d bool tensor on the
     device.
@@ -1239,7 +1262,7 @@ def _warm_repair(prev, pweights, nweights, valid, stickiness, gids,
     when the repair stayed inside the delta (``_repair_ok``)."""
     out = solve_dense(prev, pweights, nweights, valid, stickiness, gids,
                       gid_valid, constraints, rules, fused_score,
-                      carry_used=carry_used)
+                      carry_used=carry_used, p_real=p_real)
     new_used = _used_by_state(out, pweights, nweights.shape[0],
                               prev.shape[1])
     ok = _repair_ok(prev, out, new_used, carry_used, dirty, pweights,
@@ -1305,15 +1328,14 @@ def solve_dense_warm(
     run the cold path (``solve_converged_resilient``).  The carry is
     single-use by contract; ``donate`` is accepted for the reference's
     signature and changes nothing (no buffer is reused in place).
+    ``p_real`` is the real partition count when the arrays carry inert
+    pad rows (shape bucketing; see _solve_assign).
 
     Records ``plan.solve.dirty_fraction``, ``plan.solve.warm_fallback``
     on a decline, the executed sweep in ``plan.solve.sweeps`` and a
     ``warm`` attribute on acceptance; ``plan.solve.carry_hit`` is the
     caller's to count once its own gates pass."""
     del donate
-    if p_real is not None:
-        raise NotImplementedError(
-            "p_real (shape bucketing) is not ported (ROADMAP A.13)")
     if fused_score not in ("off", "on"):
         raise ValueError(f"unresolved fused-score mode: {fused_score!r}")
     rec = get_recorder()
@@ -1330,7 +1352,7 @@ def solve_dense_warm(
         out, new_used, ok = _warm_repair(
             prev, pweights, nweights, valid, stickiness, gids, gid_valid,
             dirty_t, carry.used.to(prev.device), constraints, rules,
-            fused_score)
+            fused_score, p_real)
         accepted = bool(ok)
     if not accepted:
         return _warm_declined(record)
@@ -1362,7 +1384,8 @@ def _solve_sparse_converged_impl(prev, pweights, nweights, valid,
                                  stickiness, gids, gid_valid, shortlist,
                                  constraints, rules,
                                  max_iterations: int = 10,
-                                 carry_used: Optional[torch.Tensor] = None):
+                                 carry_used: Optional[torch.Tensor] = None,
+                                 p_real=None):
     """The sparse fixpoint; returns (assign, sweeps, exhausted[P]).  The
     exhaustion flags are the LAST executed sweep's: rows still unservable
     at the fixpoint, which the host fallback re-places.  ``carry_used``
@@ -1370,7 +1393,8 @@ def _solve_sparse_converged_impl(prev, pweights, nweights, valid,
     def solve(x, cu=None):
         return _solve_assign(x, pweights, nweights, valid, stickiness, gids,
                              gid_valid, constraints, rules, "off",
-                             shortlist=shortlist, carry_used=cu)
+                             shortlist=shortlist, carry_used=cu,
+                             p_real=p_real)
 
     (out, exh), prev_i, it = solve(prev, carry_used), prev, 1
     while it < max_iterations and bool((out != prev_i).any()):
@@ -1381,7 +1405,7 @@ def _solve_sparse_converged_impl(prev, pweights, nweights, valid,
 
 def _warm_repair_sparse(prev, pweights, nweights, valid, stickiness, gids,
                         gid_valid, shortlist, dirty, carry_used,
-                        constraints: Constraints, rules: Rules):
+                        constraints: Constraints, rules: Rules, p_real=None):
     """ONE carry-seeded sparse repair sweep; returns (assign,
     new_used[S, N], ok, exhausted[P]) with ``_warm_repair``'s acceptance
     gates.  Exhausted rows come back -1 and, being changed rows, are
@@ -1389,7 +1413,8 @@ def _warm_repair_sparse(prev, pweights, nweights, valid, stickiness, gids,
     through the per-row dense fallback."""
     out, exh = _solve_assign(prev, pweights, nweights, valid, stickiness,
                              gids, gid_valid, constraints, rules, "off",
-                             shortlist=shortlist, carry_used=carry_used)
+                             shortlist=shortlist, carry_used=carry_used,
+                             p_real=p_real)
     new_used = _used_by_state(out, pweights, nweights.shape[0],
                               prev.shape[1])
     ok = _repair_ok(prev, out, new_used, carry_used, dirty, pweights,
@@ -1637,10 +1662,9 @@ def solve_sparse(
     device decides (the reference's ``sparse_impl`` has no counterpart).
     ``stats``, when given, receives sweeps, k, shortlist_s (build wall
     time, device synchronised), exhausted_rows (the last sweep's flags)
-    and fallback_rows (rows the fallback changed)."""
-    if p_real is not None:
-        raise NotImplementedError(
-            "p_real (shape bucketing) is not ported (ROADMAP A.13)")
+    and fallback_rows (rows the fallback changed).  ``p_real`` is the
+    real partition count when the arrays carry inert pad rows (shape
+    bucketing; see _solve_assign)."""
     constraints, rules = _sparse_statics(prev, pweights, nweights, valid,
                                          stickiness, constraints, rules)
     shortlist, shortlist_s = _build_or_adopt_shortlist(
@@ -1650,7 +1674,7 @@ def solve_sparse(
         out, sweeps, exh = _solve_sparse_converged_impl(
             prev, pweights, nweights, valid, stickiness, gids, gid_valid,
             shortlist, constraints, rules, max(int(max_iterations), 1),
-            carry_used)
+            carry_used, p_real)
         out_np = out.cpu().numpy()
         exh_np = exh.cpu().numpy()
     if record:
@@ -1682,11 +1706,9 @@ def solve_sparse_warm(
     per-row dense fallback, against the pre-repair ``prev``, and the
     returned carry is rebuilt from the patched assignment when the
     fallback replaced rows.  ``stats``, when given, receives k,
-    shortlist_s, accepted, exhausted_rows and fallback_rows."""
+    shortlist_s, accepted, exhausted_rows and fallback_rows.  ``p_real``:
+    see solve_sparse."""
     del donate
-    if p_real is not None:
-        raise NotImplementedError(
-            "p_real (shape bucketing) is not ported (ROADMAP A.13)")
     constraints, rules = _sparse_statics(prev, pweights, nweights, valid,
                                          stickiness, constraints, rules)
     rec = get_recorder()
@@ -1701,7 +1723,7 @@ def solve_sparse_warm(
         out, new_used, ok, exh = _warm_repair_sparse(
             prev, pweights, nweights, valid, stickiness, gids, gid_valid,
             shortlist, dirty_t, carry.used.to(prev.device), constraints,
-            rules)
+            rules, p_real)
         accepted = bool(ok)
     if stats is not None:
         stats.update(k=int(shortlist.shape[1]), shortlist_s=shortlist_s,
@@ -1759,6 +1781,48 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _cuda_supported(opts: PlanOptions) -> bool:
+    """Can the batched solver honor these options' placement policy?
+    The reference's ``_tpu_supported`` under the port's name.
+
+    The device score bakes in the default scoring formula plus the cbgt
+    booster shape max(-weight, stickiness); an arbitrary Python
+    ``node_scorer``/``node_sorter`` or a non-cbgt ``node_score_booster``
+    cannot run on the card (reference contract: plan.go:566-580,693-697).
+    Negative node weights WITHOUT a booster are unsupported too: the
+    reference ignores them (plan.go:675-684 boosts only when the booster
+    is set), while the device score would pin them."""
+    if opts.node_scorer is not None or opts.node_sorter is not None:
+        return False
+    booster = opts.node_score_booster
+    if booster is not None and \
+            getattr(booster, "__blance_native__", None) != "cbgt":
+        return False
+    if booster is None and opts.node_weights and \
+            any(w < 0 for w in opts.node_weights.values()):
+        return False
+    return True
+
+
+def _solver_arrays(problem, opts: PlanOptions, device: torch.device):
+    """The solver's host arrays for ``problem``, the (P, N) shape it
+    solves at and its ``p_real``.  With ``opts.shape_bucketing`` the
+    arrays are padded to (bucket_size(P), bucket_size(N)) with inert rows
+    and columns (``pad_problem_arrays``: weight-0 pad partitions, invalid
+    pad nodes) and ``p_real`` is the real P as a 0-d float32 tensor on
+    ``device``, the fill term's denominator; without it the arrays are the
+    encoded ones and ``p_real`` None."""
+    arrays = (problem.prev, problem.partition_weights, problem.node_weights,
+              problem.valid_node, problem.stickiness, problem.gids,
+              problem.gid_valid)
+    if not opts.shape_bucketing:
+        return arrays, (problem.P, problem.N), None
+    solve_p, solve_n = bucket_size(problem.P), bucket_size(problem.N)
+    return (pad_problem_arrays(*arrays, solve_p, solve_n), (solve_p, solve_n),
+            torch.tensor(float(problem.P), dtype=torch.float32,
+                         device=device))
+
+
 def plan_next_map_cuda(
     prev_map: PartitionMap,
     partitions_to_assign: PartitionMap,
@@ -1785,10 +1849,28 @@ def plan_next_map_cuda(
     read), the engine that ran ("matrix", "fused" or "sparse"), the
     sweep count and the kernel launches of the solve; on the sparse
     engine also k, shortlist_s, exhausted_rows and fallback_rows (see
-    solve_sparse)."""
+    solve_sparse).
+
+    Custom placement hooks the device score cannot express
+    (``_cuda_supported``) run the exact native planner (the Python greedy
+    where that cannot run) inside a ``plan.solve`` span with
+    ``engine="exact-fallback"``, so a cbgt-style app keeps its policy.
+    ``opts.shape_bucketing`` pads the problem to the next bucket
+    (``_solver_arrays``), chooses the engine at the padded shape, solves
+    with the real P as ``p_real`` (recorded as ``bucketed_shape`` on
+    ``plan.solve``) and slices the pad rows off before the audit."""
     opts = opts or PlanOptions()
     device = resolve_device(device, "plan_next_map_cuda")
     timer = timer if timer is not None else PhaseTimer()
+    if not _cuda_supported(opts):
+        from .native import plan_next_map_native  # falls back to greedy
+
+        # The exact path has no encode/solve/decode split; attribute it
+        # all to "solve" so a caller's timer still sees the wall-clock.
+        with phase_span("plan.solve", timer=timer, engine="exact-fallback"):
+            return plan_next_map_native(
+                prev_map, partitions_to_assign, nodes_all,
+                nodes_to_remove, nodes_to_add, model, opts)
     del nodes_to_add
     stamps = {"t0": time.perf_counter()}
     with phase_span("plan.encode", timer=timer):
@@ -1806,30 +1888,32 @@ def plan_next_map_cuda(
     stats: dict = {}
     launches0 = launch_counts()
     max_iterations = max(int(opts.max_iterations), 1)
-    use_sparse = _sparse_selected(opts, problem.P, problem.N, rules, device)
+    arrays, (solve_p, solve_n), p_real = _solver_arrays(problem, opts,
+                                                        device)
+    use_sparse = _sparse_selected(opts, solve_p, solve_n, rules, device)
     with phase_span("plan.solve", timer=timer, partitions=problem.P,
                     nodes=problem.N,
-                    engine=("sparse" if use_sparse else None)):
-        args = problem_to_torch(
-            problem.prev, problem.partition_weights, problem.node_weights,
-            problem.valid_node, problem.stickiness, problem.gids,
-            problem.gid_valid, device=device)
+                    engine=("sparse" if use_sparse else None),
+                    bucketed_shape=((solve_p, solve_n)
+                                    if opts.shape_bucketing else None)):
+        args = problem_to_torch(*arrays, device=device)
         if use_sparse:
             assign = solve_sparse(
                 *args, constraints, rules,
-                k=_opts_shortlist_k(opts, problem.N, constraints, rules),
-                max_iterations=max_iterations, stats=stats)
+                k=_opts_shortlist_k(opts, solve_n, constraints, rules),
+                max_iterations=max_iterations, stats=stats, p_real=p_real)
             engine = "sparse"
             timer.annotate("engine", engine)
         else:
             assign, mode = solve_converged_resilient(
                 *args, constraints, rules, max_iterations=max_iterations,
-                mode=resolve_default_fused_score(problem.P, problem.N,
-                                                 device),
+                mode=resolve_default_fused_score(solve_p, solve_n, device),
                 allow_fallback=_FUSED_SCORE_DEFAULT == "auto",
-                context="plan_next_map_cuda", stats=stats, timer=timer)
+                context="plan_next_map_cuda", stats=stats, timer=timer,
+                p_real=p_real)
             engine = _ENGINE_NAMES[mode]
         _sync(device)
+    assign = assign[:problem.P]  # bucketing's pad rows are not real work
     stamps["t2"] = time.perf_counter()
     maybe_validate(problem, assign, opts.validate_assignment,
                    "plan_next_map_cuda")
@@ -1884,7 +1968,8 @@ def _pipeline_cold_impl(prev, pweights, nweights, valid, stickiness, gids,
                         gid_valid, constraints: Constraints, rules: Rules,
                         max_iterations: int = 10, fused_score: str = "off",
                         favor_min_nodes: bool = False,
-                        carry_used: Optional[torch.Tensor] = None):
+                        carry_used: Optional[torch.Tensor] = None,
+                        p_real=None):
     """Cold pipeline body: the converged solve, then diff(prev, out) and
     the decode pack on the solver's own tensors.
 
@@ -1895,7 +1980,7 @@ def _pipeline_cold_impl(prev, pweights, nweights, valid, stickiness, gids,
     fixpoint, so ``assign`` is bitwise the staged path's."""
     out, sweeps = _solve_dense_converged_impl(
         prev, pweights, nweights, valid, stickiness, gids, gid_valid,
-        constraints, rules, max_iterations, fused_score, carry_used)
+        constraints, rules, max_iterations, fused_score, carry_used, p_real)
     used = _used_by_state(out, pweights, nweights.shape[0], prev.shape[1])
     d_nodes, d_states, d_ops = diff_assignments(
         prev, out, favor_min_nodes=favor_min_nodes)
@@ -1908,7 +1993,7 @@ def _pipeline_warm_impl(prev, pweights, nweights, valid, stickiness, gids,
                         gid_valid, dirty, carry_used,
                         constraints: Constraints, rules: Rules,
                         fused_score: str = "off",
-                        favor_min_nodes: bool = False):
+                        favor_min_nodes: bool = False, p_real=None):
     """Warm pipeline body: one carry-seeded repair sweep (``_warm_repair``,
     its acceptance flag included), then the diff and the pack.
 
@@ -1918,7 +2003,7 @@ def _pipeline_warm_impl(prev, pweights, nweights, valid, stickiness, gids,
     declines are the rare path."""
     out, new_used, ok = _warm_repair(
         prev, pweights, nweights, valid, stickiness, gids, gid_valid,
-        dirty, carry_used, constraints, rules, fused_score)
+        dirty, carry_used, constraints, rules, fused_score, p_real)
     d_nodes, d_states, d_ops = diff_assignments(
         prev, out, favor_min_nodes=favor_min_nodes)
     packed, counts = pack_assignment_core(out)
@@ -1931,7 +2016,8 @@ def _pipeline_sparse_cold_impl(prev, pweights, nweights, valid, stickiness,
                                rules: Rules, max_iterations: int = 10,
                                shortlist_k: int = 16,
                                favor_min_nodes: bool = False,
-                               carry_used: Optional[torch.Tensor] = None):
+                               carry_used: Optional[torch.Tensor] = None,
+                               p_real=None):
     """Sparse pipeline body: shortlist build, the sparse converged solve,
     the diff and the pack.  Returns the cold pipeline's tuple plus the
     exhaustion flags; the dispatcher re-places flagged rows on the host
@@ -1941,7 +2027,7 @@ def _pipeline_sparse_cold_impl(prev, pweights, nweights, valid, stickiness,
                                      shortlist_k)
     out, sweeps, exh = _solve_sparse_converged_impl(
         prev, pweights, nweights, valid, stickiness, gids, gid_valid,
-        shortlist, constraints, rules, max_iterations, carry_used)
+        shortlist, constraints, rules, max_iterations, carry_used, p_real)
     used = _used_by_state(out, pweights, nweights.shape[0], prev.shape[1])
     d_nodes, d_states, d_ops = diff_assignments(
         prev, out, favor_min_nodes=favor_min_nodes)
@@ -1995,19 +2081,28 @@ def plan_pipeline(
     (plan_next_map_cuda and calc_all_moves, on the same device) with a
     UserWarning, counted as ``plan.pipeline.fallback``.  ``want_moves=
     False`` skips the host move materialization and returns ``{}`` as the
-    third element (plan_next_map's ``fused_pipeline`` option).  Options
-    the port cannot honor yet raise NotImplementedError naming their
-    ROADMAP item, as plan_next_map does."""
+    third element (plan_next_map's ``fused_pipeline`` option).
+
+    Custom placement hooks (``_cuda_supported``) take the exact path:
+    ``plan_next_map_cuda``'s exact fallback, then ``calc_all_moves`` on
+    ``device``.  ``opts.shape_bucketing`` pads as plan_next_map_cuda does
+    and slices the pad rows off every output."""
     from ..moves.batch import calc_all_moves
-    from .api import _unsupported
 
     opts = opts or PlanOptions()
-    why = _unsupported(opts)
-    if why is not None:
-        raise NotImplementedError(why)
     device = resolve_device(device, "plan_pipeline")
     timer = timer if timer is not None else PhaseTimer()
     rec = get_recorder()
+    if not _cuda_supported(opts):
+        # The exact path keeps custom placement hooks; the move diff
+        # still runs on the device against the dense maps.
+        next_map, warnings = plan_next_map_cuda(
+            prev_map, partitions_to_assign, nodes_all, nodes_to_remove,
+            nodes_to_add, model, opts, timer, device=device)
+        moves = calc_all_moves(
+            _seeded_beg_map(prev_map, partitions_to_assign), next_map,
+            model, favor_min_nodes, device=device) if want_moves else {}
+        return next_map, warnings, moves
     del nodes_to_add
 
     with rec.span("plan.pipeline", partitions=len(partitions_to_assign),
@@ -2027,29 +2122,28 @@ def plan_pipeline(
         rules = tuple(tuple(problem.rules.get(si, ()))
                       for si in range(problem.S))
         constraints = tuple(int(c) for c in problem.constraints)
-        arrays = (problem.prev, problem.partition_weights,
-                  problem.node_weights, problem.valid_node,
-                  problem.stickiness, problem.gids, problem.gid_valid)
+        arrays, (solve_p, solve_n), p_real = _solver_arrays(problem, opts,
+                                                            device)
         _check_tier_band_scale(*arrays[:5], constraints, rules)
         max_iterations = max(int(opts.max_iterations), 1)
         try:
-            if _sparse_selected(opts, problem.P, problem.N, rules, device):
+            if _sparse_selected(opts, solve_p, solve_n, rules, device):
                 res = _dispatch_pipeline_sparse(
                     *arrays, constraints, rules,
                     max_iterations=max_iterations,
-                    shortlist_k=_opts_shortlist_k(opts, problem.N,
+                    shortlist_k=_opts_shortlist_k(opts, solve_n,
                                                   constraints, rules),
                     favor_min_nodes=favor_min_nodes, device=device,
-                    timer=timer)
+                    timer=timer, p_real=p_real)
             else:
                 res = _dispatch_pipeline_cold(
                     *arrays, constraints, rules,
                     max_iterations=max_iterations,
                     fused_score=resolve_default_fused_score(
-                        problem.P, problem.N, device),
+                        solve_p, solve_n, device),
                     allow_fallback=_FUSED_SCORE_DEFAULT == "auto",
                     favor_min_nodes=favor_min_nodes, device=device,
-                    timer=timer)
+                    timer=timer, p_real=p_real)
         except (ValueError, TypeError):
             raise  # deterministic input errors: the same on the staged path
         except Exception as e:
@@ -2069,18 +2163,20 @@ def plan_pipeline(
 
         assign, _sweeps, _carry, (d_nodes, d_states, d_ops), \
             (packed, counts) = res
+        real = problem.P  # bucketing's pad rows are sliced off
+        assign = assign[:real]
         maybe_validate(problem, assign, opts.validate_assignment,
                        "plan_pipeline")
         with phase_span("plan.decode", timer=timer):
             next_map, warnings = decode_assignment(
                 problem, assign, partitions_to_assign, nodes_to_remove,
-                packed=packed, counts=counts)
+                packed=packed[:real], counts=counts[:real])
         if not want_moves:
             return next_map, warnings, {}
         with phase_span("plan.pipeline.materialize", timer=timer):
             moves = moves_from_arrays(problem.partitions, problem.states,
-                                      problem.nodes, d_nodes, d_states,
-                                      d_ops)
+                                      problem.nodes, d_nodes[:real],
+                                      d_states[:real], d_ops[:real])
         return next_map, warnings, moves
 
 
@@ -2088,7 +2184,7 @@ def _dispatch_pipeline_cold(
     prev_a, pw_a, nw_a, valid_a, stick_a, gids_a, gv_a,
     constraints: Constraints, rules: Rules, *, max_iterations: int,
     fused_score: str, allow_fallback: bool, favor_min_nodes: bool,
-    device: torch.device, timer=None, carry_used=None,
+    device: torch.device, timer=None, carry_used=None, p_real=None,
 ):
     """One cold pipeline run on ``device`` from host arrays, with
     solve_converged_resilient's engine-failure degradation (retry once on
@@ -2109,7 +2205,7 @@ def _dispatch_pipeline_cold(
                 *args, constraints, rules, max_iterations=max_iterations,
                 fused_score=m, favor_min_nodes=favor_min_nodes,
                 carry_used=(None if carry_used is None
-                            else carry_used.to(device)))
+                            else carry_used.to(device)), p_real=p_real)
             host = _fetch(assign, d_nodes, d_states, d_ops, packed, counts)
         rec.observe("plan.pipeline.dispatch_s", rec.now() - t0)
         _record_sweeps(sweeps)
@@ -2142,7 +2238,7 @@ def _dispatch_pipeline_sparse(
     prev_a, pw_a, nw_a, valid_a, stick_a, gids_a, gv_a,
     constraints: Constraints, rules: Rules, *, max_iterations: int,
     shortlist_k: int, favor_min_nodes: bool, device: torch.device,
-    timer=None,
+    timer=None, p_real=None,
 ):
     """One sparse pipeline run on ``device`` from host arrays; returns
     ``_dispatch_pipeline_cold``'s tuple.  Exhausted rows are re-placed by
@@ -2157,7 +2253,8 @@ def _dispatch_pipeline_sparse(
         (assign, sweeps, prices, used, d_nodes, d_states, d_ops, packed,
          counts, exh) = _pipeline_sparse_cold_impl(
             *args, constraints, rules, max_iterations=max_iterations,
-            shortlist_k=shortlist_k, favor_min_nodes=favor_min_nodes)
+            shortlist_k=shortlist_k, favor_min_nodes=favor_min_nodes,
+            p_real=p_real)
         host = _fetch(assign, d_nodes, d_states, d_ops, packed, counts, exh)
     rec.observe("plan.pipeline.dispatch_s", rec.now() - t0)
     rec.set_gauge("plan.sparse.k_effective", float(shortlist_k))

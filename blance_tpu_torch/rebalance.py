@@ -1,12 +1,13 @@
 # Copied from blance_tpu/rebalance.py.  Planning goes through the port's
-# plan_next_map (backend "auto" by default, which is "cuda" in the port)
-# or, with session=, the port's PlannerSession (which solves on its own
-# device); rebalance_async and RebalanceController take ``device`` ("cuda"
-# by default) for the planner and the orchestrator's batched diff.  The
-# controller's backend
-# defaults to "auto" (the reference's "greedy" is not ported, ROADMAP
-# A.11); its journal= stays the reference's duck-typed feed (the journal
-# itself is ROADMAP A.7).
+# plan_next_map or, with session=, the port's PlannerSession (which solves
+# on its own device); rebalance_async and RebalanceController take
+# ``device`` ("cuda" by default) for the planner and the orchestrator's
+# batched diff.  The controller's backend defaults to "auto" where the
+# reference's defaults to "greedy": auto routes as the reference's does,
+# to the exact native planner below the cell threshold and to the card
+# above it, where "greedy" would keep every plan on the host.  Its
+# journal= stays the reference's duck-typed feed (the journal itself is
+# ROADMAP A.7).
 """App-level rebalance facade: plan -> diff -> orchestrate in one call.
 
 The reference leaves this composition to the application (SURVEY.md §3.4:

@@ -68,7 +68,31 @@ nothing of jax or of the JAX package.  In order:
    plan's map and to calc_all_moves.  The native marshal extension must
    have loaded, and at the north star encode and decode give the same
    arrays and map with and without it;
-10. prints one JSON line of kernel measurements, the card's name and
+10. runs the exact backends on the card's host (the ``exact`` line): the
+   native planner must build from the port's own planner.cpp;
+   backend="auto" routes 1024 x 255 nodes (261 120 cells) to native
+   (no kernel launched) and 1024 x 256 to the card (min2 launched);
+   native and greedy give the same map and warnings at BASELINE.json's
+   second configuration (4096 x 64, primary + 2 replicas, rack rules);
+   a node_sorter hook on backend="cuda" and in plan_pipeline takes the
+   exact path (greedy's map, engine "exact-fallback", the pipeline's
+   moves equal to calc_partition_moves); bench.py's exact CPU baseline
+   (100k x 1k, one pass) runs through native beside the card, both
+   audit-clean, and native against the card's plan wall time at eight
+   sizes from 4096 cells to 64 times the threshold (the median of 3
+   calls after a warm-up);
+11. plans with shape bucketing (the ``bucketed`` line): the north star
+   padded to 106 496 x 10 240 on the matrix and the fused engines
+   (audit 0, no empty slot, no pad node; churn and spread beside the
+   unbucketed plan's; plan_pipeline equal to the staged bucketed plan in
+   map, warnings and moves), the north-star solve with p_real unpadded
+   and padded equal on the real rows, a small off-bucket plan on the
+   card equal to the CPU's on each engine, and the 1M sparse deployment
+   padded to 1 048 576 on the sparse engine; each kernel, on the inputs
+   the bucketed runs gave its first call, bitwise its plain version at
+   the padded shape (added to the ``kernels`` line with
+   ``path="bucketed"``);
+12. prints one JSON line of kernel measurements, the card's name and
    power limit, the script's wall time, and last
    ``{"ok": true, "device": {...}}``.  A kernel's ``ms`` is its device
    time per call, from back-to-back calls in a CUDA graph
@@ -91,6 +115,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -103,11 +128,14 @@ import blance_tpu_torch as bt
 from blance_tpu_torch.ops import (_build, launch_counts, launch_variants,
                                   reset_launch_counts)
 from blance_tpu_torch.core import marshal
+from blance_tpu_torch.core.encode import bucket_size, pad_problem_arrays
 from blance_tpu_torch.core.order import sort_state_names
 from blance_tpu_torch.core.shortlist import build_shortlist_core
 from blance_tpu_torch.moves import batch as moves_batch
 from blance_tpu_torch.obs import Recorder, use_recorder
+from blance_tpu_torch.obs.sinks import InMemorySink
 from blance_tpu_torch.ops import reduce2, score_fused, sparse2
+from blance_tpu_torch.plan import native as native_planner
 from blance_tpu_torch.plan import tensor as T
 from blance_tpu_torch.utils.trace import PhaseTimer
 
@@ -413,11 +441,10 @@ def check_sparse_min2(dev: torch.device) -> dict:
     return out
 
 
-def north_star_map(p: int = P_MAIN):
+def north_star_map(p: int = P_MAIN, n: int = N_MAIN):
     """The bench.py build_dense deployment as a PartitionMap, seed 0, at
-    ``p`` partitions x 10k nodes."""
+    ``p`` partitions x ``n`` nodes (10k)."""
     rng = np.random.default_rng(0)
-    n = N_MAIN
     nodes = [f"n{i:05d}" for i in range(n)]
     hier = {nd: f"r{i // 25:04d}" for i, nd in enumerate(nodes)}
     hier.update({f"r{i:04d}": "z0" for i in range(n // 25)})
@@ -1330,6 +1357,453 @@ def marshal_parity(prev, nodes, removed, model, opts, plain_map) -> dict:
     return info
 
 
+# --- the exact backends (the ``exact`` line) ---------------------------------
+
+
+def bench_cpu_map(p: int, n: int):
+    """bench.py's exact CPU baseline problem (``_make_map`` and
+    ``_rack_opts``, seed 0): p partitions x n nodes, primary + 1 replica,
+    racks of 25 under one zone, replica on another rack, 5% of nodes
+    removed."""
+    rng = np.random.default_rng(0)
+    nodes = [f"n{i:05d}" for i in range(n)]
+    removed = [nodes[i] for i in rng.choice(n, n // 20, replace=False)]
+    prim = rng.integers(0, n, p)
+    repl = (prim + 1 + rng.integers(0, n - 1, p)) % n
+    prev = {str(i): bt.Partition(str(i), {"primary": [nodes[a]],
+                                          "replica": [nodes[b]]})
+            for i, (a, b) in enumerate(zip(prim.tolist(), repl.tolist()))}
+    hier = {nd: f"r{i // 25}" for i, nd in enumerate(nodes)}
+    hier.update({f"r{i}": "z0" for i in range((n + 24) // 25)})
+    opts = bt.PlanOptions(node_hierarchy=hier, hierarchy_rules={
+        "replica": [bt.HierarchyRule(include_level=2, exclude_level=1)]})
+    return prev, nodes, removed, opts
+
+
+def config2():
+    """BASELINE.json's second configuration (bench_configs.py config 2):
+    4096 partitions x 64 nodes, primary + 2 replicas, nodes in 8 racks
+    under one zone, each replica on another rack.  Returns the fresh
+    cluster's first native plan as the map to replan, the nodes, the
+    options and the model."""
+    nodes = [f"n{i:05d}" for i in range(64)]
+    parts = {str(i): bt.Partition(str(i), {}) for i in range(4096)}
+    hier = {nd: f"r{i % 8}" for i, nd in enumerate(nodes)}
+    hier.update({f"r{i}": "z0" for i in range(8)})
+    opts = bt.PlanOptions(node_hierarchy=hier, hierarchy_rules={
+        "replica": [bt.HierarchyRule(include_level=2, exclude_level=1)]})
+    model = bt.model(primary=(0, 1), replica=(1, 2))
+    prev, _ = bt.plan_next_map(parts, parts, nodes, [], nodes, model, opts,
+                               backend="native")
+    return prev, nodes, opts, model
+
+
+def plan_traced(prev, nodes, removed, model, opts, backend) -> tuple:
+    """plan_next_map on the card (where the backend solves there) under a
+    recorder with an in-memory sink, the launch counts set to 0 just
+    before it and read just after; returns (map, warnings) and the
+    resolved backend, the plan.solve engine, the wall time (device
+    synchronised), the launches and the card's sweeps (None on the exact
+    backends)."""
+    rec, sink = Recorder(), InMemorySink()
+    rec.add_sink(sink)
+    timings: dict = {}
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with use_recorder(rec):
+        out = bt.plan_next_map(prev, prev, nodes, removed, [], model, opts,
+                               backend=backend, timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    top = sink.by_name("plan.plan_next_map")[-1].attrs
+    solve = sink.by_name("plan.solve")
+    return out, dict(backend=top["backend"], requested=top["requested"],
+                     engine=solve[-1].attrs.get("engine") if solve else None,
+                     wall_s=wall, sweeps=timings.get("sweeps"),
+                     launches={k: v for k, v in launch_counts().items() if v})
+
+
+def default_order_sorter(ctx, nodes):
+    """A node_sorter hook that orders as the default score does (score,
+    then node position): the device score cannot run it, so the "cuda"
+    backend takes the exact path, and its map must be greedy's."""
+    return sorted(nodes, key=lambda nd: (bt.default_node_score(ctx, nd),
+                                         ctx.node_positions.get(nd, 0)))
+
+
+CPU_BASELINE = (100_000, 1000)  # bench.py bench_cpu at the 100k x 1k config
+CROSSOVER = ((256, 16), (1024, 32), (1024, 64), (1024, 128), (1024, 255),
+             (1024, 256), (4096, 256), (16384, 1024))
+CROSSOVER_REPEATS = 3  # timed calls per backend and size, after a warm-up
+
+
+def exact_phase() -> dict:
+    """The exact backends on the card's host: (a) backend="auto" routes
+    1024 x 255 (261 120 cells) to native and 1024 x 256 (262 144) to the
+    card; (b) native and greedy bit-identical at BASELINE.json's second
+    configuration; (c) bench.py's exact CPU baseline (100k x 1k, one
+    pass) through native, beside the card; (d) a node_sorter hook on
+    backend="cuda" and in plan_pipeline takes the exact path (greedy's
+    map, engine "exact-fallback", moves equal to calc_partition_moves);
+    (e) native against cuda plan wall time from 4096 cells to 64 times
+    the threshold (the crossover), the median of 3 calls after one
+    warm-up call per backend and size."""
+    if not native_planner.native_available():
+        raise AssertionError("the native planner did not build or load "
+                             "(g++ is needed)")
+    model = bt.model(primary=(0, 1), replica=(1, 1))
+    res: dict = {"library": native_planner._LIB._name}
+
+    routing = {}
+    for n in (255, 256):
+        prev, nodes, removed, opts = bench_cpu_map(1024, n)
+        _out, routing[f"1024x{n}"] = plan_traced(prev, nodes, removed, model,
+                                                 opts, "auto")
+    below, at = routing["1024x255"], routing["1024x256"]
+    checks = dict(
+        below_threshold_native=below["backend"] == "native",
+        at_threshold_cuda=at["backend"] == "cuda",
+        native_launched_no_kernel=not below["launches"],
+        cuda_launched_min2=at["launches"].get("priced_min2_argmin", 0) >= 1)
+    res["routing"] = routing
+
+    prev2, nodes2, opts2, model2 = config2()
+    gone2 = nodes2[5:7]  # the replan drops two nodes, so it moves copies
+    outs, times = {}, {}
+    for backend in ("native", "greedy"):
+        t0 = time.perf_counter()
+        outs[backend] = bt.plan_next_map(prev2, prev2, nodes2, gone2, [],
+                                         model2, opts2, backend=backend)
+        times[backend] = time.perf_counter() - t0
+    greedy_map, greedy_warn = outs["greedy"]
+    checks["native_equals_greedy"] = \
+        _same_map(outs["native"][0], greedy_map) and \
+        outs["native"][1] == greedy_warn
+    res["native_vs_greedy"] = dict(P=4096, N=64, seconds=times,
+                                   warnings=len(greedy_warn))
+
+    hooked = dataclasses.replace(opts2, node_sorter=default_order_sorter)
+    (fmap, fwarn), fb = plan_traced(prev2, nodes2, gone2, model2, hooked,
+                                    "cuda")
+    t0 = time.perf_counter()
+    pmap, pwarn, pmoves = bt.plan_pipeline(prev2, prev2, nodes2, gone2, [],
+                                           model2, hooked)
+    fb["pipeline_wall_s"] = time.perf_counter() - t0
+    states = sort_state_names(model2)
+    bad = [k for k in prev2 if pmoves[k] != bt.calc_partition_moves(
+        states, prev2[k].nodes_by_state, pmap[k].nodes_by_state)]
+    checks.update(
+        fallback_engine=fb["engine"] == "exact-fallback",
+        fallback_equals_greedy=_same_map(fmap, greedy_map)
+        and fwarn == greedy_warn,
+        pipeline_equals_greedy=_same_map(pmap, greedy_map)
+        and pwarn == greedy_warn,
+        pipeline_moves_equal_host=not bad and list(pmoves) == list(pmap),
+        pipeline_moved=any(pmoves.values()))
+    fb["moves"] = sum(map(len, pmoves.values()))
+    res["fallback"] = fb
+
+    prev, nodes, removed, opts = bench_cpu_map(*CPU_BASELINE)
+    opts.max_iterations = 1  # bench.py bench_cpu: one pass
+    base = {}
+    for backend in ("native", "cuda"):
+        out, info = plan_traced(prev, nodes, removed, model, opts, backend)
+        problem = bt.encode_problem(prev, prev, nodes, removed, model, opts)
+        after = bt.encode_problem(out[0], out[0], nodes, removed, model, opts)
+        info["audit"] = bt.check_assignment(problem, after.prev)
+        base[backend] = info
+    base["native_over_cuda"] = base["native"]["wall_s"] / \
+        base["cuda"]["wall_s"]
+    checks.update(
+        baseline_native_no_kernel=not base["native"]["launches"],
+        baseline_native_audit_clean=not any(base["native"]["audit"].values()),
+        baseline_cuda_audit_clean=not any(base["cuda"]["audit"].values()))
+    res["cpu_baseline"] = dict(P=CPU_BASELINE[0], N=CPU_BASELINE[1],
+                               max_iterations=1, **base)
+
+    cross = []
+    for p, n in CROSSOVER:
+        prev, nodes, removed, opts = bench_cpu_map(p, n)
+        row = {"P": p, "N": n, "cells": p * n}
+        for backend in ("native", "cuda"):
+            # One warm-up call per shape, then the median of the timed
+            # ones: the card's first call at a shape pays for allocation.
+            infos = [plan_traced(prev, nodes, removed, model, opts,
+                                 backend)[1]
+                     for _ in range(1 + CROSSOVER_REPEATS)][1:]
+            walls = [info["wall_s"] for info in infos]
+            row[f"{backend}_s"] = statistics.median(walls)
+            row[f"{backend}_walls_s"] = walls
+        row.update(cuda_sweeps=infos[-1]["sweeps"],
+                   cuda_launches=infos[-1]["launches"])
+        row["native_over_cuda"] = row["native_s"] / row["cuda_s"]
+        cross.append(row)
+    res["crossover"] = dict(threshold_cells=256 * 1024, warmups=1,
+                            repeats=CROSSOVER_REPEATS, rows=cross)
+    res["checks"] = checks
+    log(f"exact: {json.dumps(res)}")
+    if not all(checks.values()):
+        raise AssertionError(f"exact backends: {checks}")
+    return res
+
+
+# --- shape bucketing (the ``bucketed`` line) ----------------------------------
+
+
+@contextlib.contextmanager
+def first_call(name: str, want=lambda args, kw: True):
+    """Record the arguments of the first call of ``plan.tensor.<name>``
+    (a kernel wrapper the solver calls) that ``want`` accepts; the
+    wrapper itself still runs, and counts, as before."""
+    orig = getattr(T, name)
+    seen: dict = {}
+
+    def spy(*args, **kw):
+        if not seen and want(args, kw):
+            seen.update(args=args, kw=kw)
+        return orig(*args, **kw)
+
+    setattr(T, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(T, name, orig)
+
+
+def bucketed_plan(label, prev, nodes, removed, model, opts, kernel,
+                  want=lambda args, kw: True) -> tuple:
+    """run_main_path with shape_bucketing under a recorder: the padded
+    shape off the plan.solve span, the first ``kernel`` call's inputs,
+    and no pad node (nor any unknown node) in the map."""
+    rec, sink = Recorder(), InMemorySink()
+    rec.add_sink(sink)
+    with first_call(kernel, want) as seen, use_recorder(rec):
+        info, out = run_main_path(label, prev, nodes, removed, model, opts)
+    info["bucketed_shape"] = list(sink.by_name("plan.solve")[-1]
+                                  .attrs["bucketed_shape"])
+    known = set(nodes)
+    info["pad_or_unknown_nodes"] = sum(nd not in known for p in out.values()
+                                       for ns in p.nodes_by_state.values()
+                                       for nd in ns)
+    return info, out, seen
+
+
+def padded_kernel_entry(kind: str, seen: dict, launches: int) -> dict:
+    """One kernel against its plain version on the inputs the bucketed
+    main path gave its first call, at the padded shape, bitwise; timed
+    like the kernels phase, with its bound from these inputs."""
+    args, kw = seen["args"], seen["kw"]
+    if kind == "min2":
+        score, price = args
+        p, n = score.shape
+        kernel = lambda: reduce2.priced_min2_argmin(score, price)  # noqa: E731
+        plain = lambda: reduce2.min2_argmin_reference(  # noqa: E731
+            score + price[None, :])
+        library = lambda: torch.topk(score + price[None, :], 2,  # noqa: E731
+                                     dim=1, largest=False)
+        bound = _bound(p * n * 4 + n * 4 + p * 12, p * n * 3)
+    elif kind == "fused":
+        price, si = args[:2]
+        p, n = si.stick.shape[0], price.shape[0]
+        call = dict(nrules=kw["nrules"], jitter_scale=kw["jitter_scale"])
+        kernel = lambda: score_fused.fused_score_min2(  # noqa: E731
+            price, si, *args[2:4], **call)
+        plain = lambda: score_fused.fused_score_min2_reference(  # noqa: E731
+            price, si, *args[2:4], **call)
+        library = None
+        widths = (si.prev_state.shape[1], si.taken.shape[1],
+                  si.present.shape[1])
+        ops = p * n * fused_ops_per_cell(*widths, kw["nrules"])
+        in_bytes = sum(x.numel() * x.element_size() for x in si) + n * 4
+        bound = _bound(in_bytes + p * 16, ops)
+    else:
+        score, cand, price_n = args
+        p, n = score.shape
+        kernel = lambda: sparse2.sparse_priced_min2_cand(  # noqa: E731
+            score, cand, price_n)
+        plain = lambda: sparse2.sparse_min2_cand_reference(  # noqa: E731
+            score, cand, price_n)
+        library = lambda: torch.topk(  # noqa: E731
+            score + price_n[cand.clamp(0, price_n.shape[0] - 1).long()], 2,
+            dim=1, largest=False)
+        bound = _bound(p * n * 8 + price_n.shape[0] * 4 + p * 20, p * n * 3)
+    err = compare(kernel(), plain(), f"{kind} kernel at the padded [{p}, {n}]")
+    log(f"{kind} kernel == plain at the padded [{p}, {n}] (bitwise)")
+    return dict(shape=[p, n], launches=launches, max_abs_err=err,
+                ms=graph_ms(kernel, calls=5 if kind == "fused" else 20),
+                ms_events=time_ms(kernel),
+                plain_ms=time_ms(plain, reps=2 if kind == "fused" else 3,
+                                 warmup=1),
+                library_ms=None if library is None else time_ms(library,
+                                                                reps=3),
+                **bound)
+
+
+def small_bucketed_matches_cpu(dev) -> dict:
+    """A small off-bucket plan (2049 x 61, solved at 2304 x 64) with
+    shape_bucketing on each engine: the card's map equals the CPU's."""
+    rng = np.random.default_rng(23)
+    n, p = 61, 2049
+    nodes = [f"s{i:02d}" for i in range(n)]
+    hier = {nd: f"r{i // 8}" for i, nd in enumerate(nodes)}
+    hier.update({f"r{i}": "z0" for i in range((n + 7) // 8)})
+    prim = rng.integers(0, n, p)
+    repl = (prim + 1 + rng.integers(0, n - 1, p)) % n
+    prev = {str(i): bt.Partition(str(i), {"primary": [nodes[a]],
+                                          "replica": [nodes[b]]})
+            for i, (a, b) in enumerate(zip(prim.tolist(), repl.tolist()))}
+    model = bt.model(primary=(0, 1), replica=(1, 1))
+    res = {}
+    for engine, mode, kw in (("matrix", "off", {}), ("fused", "on", {}),
+                             ("sparse", "auto", dict(sparse=True,
+                                                     sparse_k=6))):
+        opts = bt.PlanOptions(node_hierarchy=hier, shape_bucketing=True,
+                              hierarchy_rules={"replica": [
+                                  bt.HierarchyRule(2, 1)]}, **kw)
+        got = []
+        T.set_fused_score_default(mode)
+        try:
+            for device in (dev, "cpu"):
+                timings: dict = {}
+                out = bt.plan_next_map(prev, prev, nodes, nodes[:2], [],
+                                       model, opts, device=device,
+                                       timings=timings)
+                got.append((bt.partition_map_to_json(out[0]), out[1],
+                            timings["engine"]))
+        finally:
+            T.set_fused_score_default("auto")
+        res[engine] = got[0] == got[1] and got[0][2] == engine
+    log(f"small bucketed plans [2049 x 61] on the card == CPU: {res}")
+    return res
+
+
+def bucketed_phase(dev, prev, nodes, removed, model, ns_opts, plain, sp_map,
+                   timed_fused) -> tuple:
+    """Shape bucketing on the card: (a) the north star with
+    shape_bucketing, padded to 106 496 x 10 240, on the engine auto picks
+    (matrix) and on the fused engine: audit 0, no empty slot, no pad
+    node, churn and spread beside the unbucketed plan's, and
+    plan_pipeline bucketed equal to the staged bucketed plan (map,
+    warnings, moves); (b) the north-star solve with p_real unpadded and
+    padded equal on the real rows; (c) a small off-bucket plan on the
+    card equal to the CPU's on each engine; (d) the 1M sparse deployment
+    bucketed (to 1 048 576) on the sparse engine, audit 0, no pad node;
+    (e) each kernel bitwise its plain version, and timed, on the inputs
+    the bucketed runs gave it.  Returns the line and the kernel
+    entries."""
+    b_opts = dataclasses.replace(ns_opts, shape_bucketing=True)
+    res, checks, entries = {}, {}, {}
+    T.set_fused_score_default("auto")
+    info, b_map, seen = bucketed_plan(
+        "bucketed north star, auto engine", prev, nodes, removed, model,
+        b_opts, "priced_min2_argmin")
+    res["matrix"] = info
+    checks["matrix_engine"] = info["engine"] == "matrix" and \
+        info["launches"]["priced_min2_argmin"] >= 1
+    entries["min2"] = padded_kernel_entry(
+        "min2", seen, info["launches"]["priced_min2_argmin"])
+    del seen
+    torch.cuda.empty_cache()
+
+    def timed(args, kw):
+        si = args[1]
+        return score_fused.fused_variant(
+            kw["nrules"], si.prev_state.shape[1], si.taken.shape[1],
+            si.present.shape[1]) == timed_fused
+
+    T.set_fused_score_default("on")
+    try:
+        info_f, f_map, seen = bucketed_plan(
+            "bucketed north star, fused engine", prev, nodes, removed, model,
+            dataclasses.replace(b_opts, sparse=False), "fused_score_min2",
+            timed)
+    finally:
+        T.set_fused_score_default("auto")
+    res["fused"] = info_f
+    checks["fused_engine"] = info_f["engine"] == "fused" and \
+        info_f["launches"]["fused_score_min2"] >= 1
+    entries["fused"] = padded_kernel_entry(
+        "fused", seen, info_f["launches"]["fused_score_min2"])
+    del seen, f_map
+    padded_ns = [bucket_size(len(prev)), bucket_size(len(nodes))]
+    for engine, i in (("matrix", info), ("fused", info_f)):
+        i["unbucketed"] = {k: plain[engine][k] for k in
+                           ("partitions_moved", "load_spread")}
+        checks[f"{engine}_padded_shape"] = i["bucketed_shape"] == padded_ns
+        checks[f"{engine}_no_pad_node"] = i["pad_or_unknown_nodes"] == 0
+
+    gc.collect()
+    gc.freeze()
+    try:
+        (pmap, pwarn, pmoves), pinfo = run_pipeline(prev, nodes, removed,
+                                                    model, b_opts)
+        (smap, swarn, smoves), staged = run_staged(
+            prev, nodes, removed, model, b_opts)
+    finally:
+        gc.unfreeze()
+    checks.update(
+        pipeline_map_equals_staged=_same_map(pmap, smap) and
+        _same_map(pmap, b_map),
+        pipeline_warnings_equal=pwarn == swarn,
+        pipeline_moves_equal=_ops_of(pmoves) == _ops_of(smoves),
+        pipeline_no_fallback="plan.pipeline.fallback" not in
+        pinfo["counters"])
+    res["pipeline"] = dict(wall_s=pinfo["wall_s"],
+                           staged_wall_s=staged["wall_s"],
+                           launches=pinfo["launches"])
+    del pmap, pmoves, smap, smoves, b_map
+
+    problem = bt.encode_problem(prev, prev, nodes, removed, model, ns_opts)
+    arrays = (problem.prev, problem.partition_weights, problem.node_weights,
+              problem.valid_node, problem.stickiness, problem.gids,
+              problem.gid_valid)
+    rules = tuple(tuple(problem.rules.get(si, ())) for si in range(problem.S))
+    cons = tuple(int(c) for c in problem.constraints)
+    p_real = torch.tensor(float(problem.P), device=dev)
+    solved, secs = [], []
+    for arrs in (arrays, pad_problem_arrays(
+            *arrays, bucket_size(problem.P), bucket_size(problem.N))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = T.solve_dense_converged(*bt.problem_to_torch(*arrs, device=dev),
+                                      cons, rules, fused_score="off",
+                                      record=False, p_real=p_real)
+        solved.append(out[:problem.P].cpu().numpy())
+        secs.append(time.perf_counter() - t0)
+    bad = np.argwhere(solved[0] != solved[1])
+    checks["padding_bit_neutral"] = bad.size == 0
+    res["bit_neutral"] = dict(unpadded_s=secs[0], padded_s=secs[1],
+                              first_diff=bad[:1].tolist())
+    del solved, arrays, problem
+
+    res["small_card_equals_cpu"] = small_bucketed_matches_cpu(dev)
+    checks["small_card_equals_cpu"] = all(
+        res["small_card_equals_cpu"].values())
+
+    sp_prev, sp_nodes, sp_removed, sp_model, sp_opts = sp_map
+    info_s, s_out, seen = bucketed_plan(
+        "bucketed sparse 1M x 10k", sp_prev, sp_nodes, sp_removed, sp_model,
+        dataclasses.replace(sp_opts, shape_bucketing=True),
+        "sparse_priced_min2_cand")
+    del s_out
+    res["sparse"] = info_s
+    checks.update(
+        sparse_engine=info_s["engine"] == "sparse",
+        sparse_padded_shape=info_s["bucketed_shape"] == [
+            bucket_size(len(sp_prev)), bucket_size(len(sp_nodes))],
+        sparse_no_pad_node=info_s["pad_or_unknown_nodes"] == 0)
+    entries["sparse"] = padded_kernel_entry(
+        "sparse", seen, info_s["launches"]["sparse_priced_min2_cand"])
+    del seen
+    res["kernels"] = entries
+    res["checks"] = checks
+    log(f"bucketed: {json.dumps(res)}")
+    if not all(checks.values()):
+        raise AssertionError(f"bucketed: {checks}")
+    return res, entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is False; needs one GPU")
@@ -1467,6 +1941,15 @@ def main() -> int:
     parts["sparse"] = time.perf_counter() - t0
     pipeline.update(parts_s=parts, phase_s=sum(parts.values()))
 
+    t0 = time.perf_counter()
+    exact = exact_phase()
+    exact["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bucketed, padded = bucketed_phase(
+        dev, prev, nodes, removed, model, ns_opts,
+        {"matrix": auto, "fused": on}, sp_map, fused["timed_instantiation"])
+    bucketed["phase_s"] = time.perf_counter() - t0
+
     kernels = [
         dict(name="priced_min2_argmin", route="cuda",
              source="blance_tpu_torch/ops/csrc/min2.cu",
@@ -1487,6 +1970,13 @@ def main() -> int:
              launches=sp["launches"]["sparse_priced_min2_cand"],
              instantiations=sp_variants, bitwise=True, **sparse),
     ]
+    # The same kernels at the bucketed path's padded shapes, on the inputs
+    # the bucketed runs gave their first calls.
+    for entry, key in zip(list(kernels), ("min2", "fused", "sparse")):
+        kernels.append(dict(
+            name=entry["name"], route="cuda", source=entry["source"],
+            replaces=entry["replaces"], path="bucketed", bitwise=True,
+            **padded[key]))
     prof = [profile_main_path(m, prev, nodes, removed, model, opts)
             for m in ("off", "on")]
     prof.append(profile_main_path("auto", *sp_map))
@@ -1497,6 +1987,8 @@ def main() -> int:
     print(json.dumps({"rebalance": rebalance}))
     print(json.dumps({"session": session}))
     print(json.dumps({"pipeline": pipeline}))
+    print(json.dumps({"exact": exact}))
+    print(json.dumps({"bucketed": bucketed}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -52,18 +52,25 @@ def test_min2_kernel_matches_plain(dev, shape, quant):
     _same(got, reduce2.min2_argmin_reference(x + price[None, :]))
 
 
-def _fused_inputs(dev, seed, P, N, R, T, A, nrules):
+def _fused_inputs(dev, seed, P, N, R, T, A, nrules, total_p=None,
+                  n_real=None):
+    """Random in-kernel score inputs; ``total_p`` (default P) is the fill
+    term's partition count, a 0-d tensor for a bucketed solve's p_real,
+    and columns from ``n_real`` on are invalid pad nodes."""
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(np.asarray(a)).to(dev)  # noqa: E731
     rack = rng.integers(0, 5, N).astype(np.int32)
     gids = t(np.stack([np.arange(N, dtype=np.int32), rack, rack // 3]))
     taken = rng.integers(-1, N, (P, T)).astype(np.int32)
+    valid = rng.random(N) < 0.85
+    valid[N if n_real is None else n_real:] = False
     si = score_fused.pack_score_inputs(
-        total_l=t(rng.integers(0, 60, N).astype(np.float32)), total_p=P,
+        total_l=t(rng.integers(0, 60, N).astype(np.float32)),
+        total_p=P if total_p is None else total_p,
         w_div_l=t(rng.integers(1, 4, N).astype(np.float32)),
         neg_boost_l=t(np.where(rng.random(N) < 0.3, 2.0, 0.0)
                       .astype(np.float32)),
-        valid_l=t(rng.random(N) < 0.85),
+        valid_l=t(valid),
         stickiness_si=t(np.full(P, 1.5, np.float32)),
         prev_slot=t(rng.integers(-1, N, P).astype(np.int32)),
         prev_state=t(rng.integers(-1, N, (P, R)).astype(np.int32)),
@@ -426,3 +433,80 @@ def test_sparse_pipeline_on_card_matches_cpu(dev):
     assert gpu[:4] == cpu[:4]
     assert gpu[4]["sparse_priced_min2_cand"] > 0
     assert "plan.pipeline.fallback" not in gpu[3]
+
+
+# --- shape bucketing on the card ---------------------------------------------------
+
+
+PADDED = [((2049, 61), (2304, 64)), ((4099, 777), (4608, 832))]
+
+
+@pytest.mark.parametrize("real,padded", PADDED)
+def test_min2_kernel_at_padded_shape_matches_plain(dev, real, padded):
+    """The priced min2 at a bucket-padded, ragged shape: pad columns score
+    +1e9 like invalid nodes, pad rows keep scores (weight-0 bidders)."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.floor(torch.randn(padded, generator=g) * 3) * 0.125
+    x[:, real[1]:] += 1e9
+    x = x.to(dev)
+    price = (torch.arange(padded[1], dtype=torch.float32) % 5 * 0.25).to(dev)
+    got = reduce2.priced_min2_argmin(x, price)
+    _same(got, reduce2.min2_argmin_reference(x + price[None, :]))
+
+
+@pytest.mark.parametrize("nrules", [0, 1])
+@pytest.mark.parametrize("real,padded", PADDED)
+def test_fused_kernel_at_padded_shape_matches_plain(dev, real, padded,
+                                                    nrules):
+    """The in-kernel score at a bucket-padded shape with the fill term's
+    p_real a 0-d tensor on the card (the real P) and the pad columns
+    invalid: all four outputs bitwise its plain version."""
+    p_real = torch.tensor(float(real[0]), device=dev)
+    price, si = _fused_inputs(dev, 5 + nrules, *padded, 1, 2, 2, nrules,
+                              total_p=p_real, n_real=real[1])
+    got = score_fused.fused_score_min2(price, si, 0, 0, nrules=nrules,
+                                       jitter_scale=1e-5)
+    _same(got, score_fused.fused_score_min2_reference(
+        price, si, 0, 0, nrules=nrules, jitter_scale=1e-5))
+
+
+@pytest.mark.parametrize("engine,mode,kernel,extra", [
+    ("matrix", "off", "priced_min2_argmin", {}),
+    ("fused", "on", "fused_score_min2", {}),
+    ("sparse", "auto", "sparse_priced_min2_cand", dict(sparse=True,
+                                                        sparse_k=6)),
+])
+def test_bucketed_plan_on_card_matches_cpu(dev, engine, mode, kernel, extra):
+    """A small off-bucket plan (2049 x 61, solved at 2304 x 64) with
+    shape_bucketing: the card's map and warnings equal the CPU's, through
+    the engine's kernel."""
+    import blance_tpu_torch as bt
+    from blance_tpu_torch.plan import tensor as T
+
+    rng = np.random.default_rng(23)
+    n, p = 61, 2049
+    nodes = [f"s{i:02d}" for i in range(n)]
+    hier = {nd: f"r{i // 8}" for i, nd in enumerate(nodes)}
+    hier.update({f"r{i}": "z0" for i in range((n + 7) // 8)})
+    prim = rng.integers(0, n, p)
+    repl = (prim + 1 + rng.integers(0, n - 1, p)) % n
+    prev = {str(i): bt.Partition(str(i), {"primary": [nodes[a]],
+                                          "replica": [nodes[b]]})
+            for i, (a, b) in enumerate(zip(prim.tolist(), repl.tolist()))}
+    rules = {"replica": [bt.HierarchyRule(2, 1)]}
+    opts = bt.PlanOptions(node_hierarchy=hier, shape_bucketing=True,
+                          hierarchy_rules=rules, **extra)
+    out = []
+    T.set_fused_score_default(mode)
+    try:
+        for device in ("cpu", dev):
+            reset_launch_counts()
+            timings = {}
+            m, w = bt.plan_next_map(prev, prev, nodes, nodes[:2], [],
+                                    bt.model(primary=(0, 1), replica=(1, 1)),
+                                    opts, device=device, timings=timings)
+            out.append((bt.partition_map_to_json(m), w, timings["engine"]))
+    finally:
+        T.set_fused_score_default("auto")
+    assert out[1] == out[0] and out[1][2] == engine
+    assert launch_counts()[kernel] > 0

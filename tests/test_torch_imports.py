@@ -88,31 +88,36 @@ def test_cuda_default_raises_without_gpu(monkeypatch):
     dict(shape_bucketing=True),
 ])
 def test_unported_options_raise(spec):
+    """The options that once raised NotImplementedError (hooks, a
+    non-cbgt booster, negative weights without it: the exact path;
+    shape_bucketing: the padded solve) now plan, on the CPU, exactly as
+    the reference's backend="tpu" does."""
     import blance_tpu_torch as bt
 
-    parts = {str(i): bt.Partition(str(i), {}) for i in range(8)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bt.plan_next_map(parts, parts, ["a", "b", "c"], [], [],
-                         bt.model(primary=(0, 1)), bt.PlanOptions(**spec),
-                         device="cpu")
+    pytest.importorskip("jax")  # the reference needs it
+    import blance_tpu
 
-
-# Exported by the reference and waiting for the exact backends (ROADMAP
-# A.11).
-_WAIT_FOR_A11 = {"NodeScoreContext", "count_state_nodes", "default_node_score",
-                 "plan_next_map_greedy", "plan_next_map_legacy"}
+    out = []
+    for lib, kw in ((bt, dict(device="cpu")),
+                    (blance_tpu, dict(backend="tpu"))):
+        parts = {str(i): lib.Partition(str(i), {}) for i in range(8)}
+        m, w = lib.plan_next_map(parts, parts, ["a", "b", "c"], [], [],
+                                 lib.model(primary=(0, 1)),
+                                 lib.PlanOptions(**spec), **kw)
+        out.append(({k: p.nodes_by_state for k, p in m.items()}, w))
+    assert out[0] == out[1]
 
 
 def test_port_exports_the_reference_surface():
-    """Every name the reference exports is exported by the port, except
-    those still waiting for their ROADMAP item; each export resolves."""
+    """Every name the reference exports is exported by the port; each
+    export resolves."""
     import blance_tpu_torch as bt
 
     jax = pytest.importorskip("jax")  # noqa: F841 (the reference needs it)
     import blance_tpu
 
     missing = set(blance_tpu.__all__) - set(bt.__all__)
-    assert missing <= _WAIT_FOR_A11, sorted(missing - _WAIT_FOR_A11)
+    assert not missing, sorted(missing)
     assert all(hasattr(bt, name) for name in bt.__all__)
 
 

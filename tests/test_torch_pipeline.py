@@ -14,8 +14,9 @@ The reference's donation test (``test_donated_buffers_invalidated_after_
 dispatch``) is not ported: torch has no buffer donation, and the port
 uses the uploaded ``prev`` tensor as the diff's beginning state without
 copying it.  Its sharded-pipeline and mesh tests wait for ROADMAP A.9,
-and its bucketed and exact-fallback tests for A.13 and A.11 (the port
-raises NotImplementedError naming them, checked here).
+and its bucketed and exact-fallback tests are held against the port's in
+tests/test_torch_bucketing.py and tests/test_torch_exact.py (and here,
+once each).
 """
 
 import asyncio
@@ -186,10 +187,19 @@ def test_plan_pipeline_empty_problem():
     (dict(shape_bucketing=True), "A.13"),
 ])
 def test_plan_pipeline_unported_options_raise(spec, item):
-    prev, nodes = _mk_map(bt, 24, 6, seed=9)
-    with pytest.raises(NotImplementedError, match=item):
-        ttensor.plan_pipeline(prev, prev, nodes, [], [], bt.model(**STATES),
-                              bt.PlanOptions(**spec), device="cpu")
+    """The options that raised until their ROADMAP item (A.11: a hook,
+    the exact path; A.13: shape_bucketing) now run the pipeline: map,
+    warnings and moves equal to the reference's."""
+    out = []
+    for pkg in (REF, PORT):
+        lib = pkg["lib"]
+        prev, nodes = _mk_map(lib, 24, 6, seed=9)
+        out.append(pkg["pipeline"](prev, prev, nodes, [nodes[4]], [],
+                                   lib.model(**STATES),
+                                   lib.PlanOptions(**spec), **pkg["kw"]))
+    assert _nbs(out[1][0]) == _nbs(out[0][0]), item
+    assert out[1][1] == out[0][1], item
+    assert _ops(out[1][2]) == _ops(out[0][2]), item
 
 
 def test_plan_pipeline_asks_for_the_card(monkeypatch):

@@ -221,6 +221,24 @@ def test_rebalance_asks_for_the_card(monkeypatch):
         bt.rebalance(m, cur, ["a", "b"], ["a"], [], lambda *a: None)
 
 
+@pytest.mark.parametrize("backend", ["auto", "cuda"])
+def test_rebalance_backends_ask_for_the_card(monkeypatch, backend):
+    """"auto" sends a problem this small to the host's native planner, as
+    the reference routes, yet a rebalance on the default device="cuda"
+    raises without a card on both backends that may use it; with
+    device="cpu" the same "auto" call plans on the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    m = bt.model(primary=(0, 1))
+    cur = {"p0": bt.Partition("p0", {"primary": ["a"]})}
+    with pytest.raises(RuntimeError, match="is_available"):
+        bt.rebalance(m, cur, ["a", "b"], ["a"], [], lambda *a: None,
+                     backend=backend)
+    if backend == "auto":
+        res = bt.rebalance(m, cur, ["a", "b"], ["a"], [], lambda *a: None,
+                           backend=backend, device="cpu")
+        assert res.next_map["p0"].nodes_by_state["primary"] == ["b"]
+
+
 def _controller(pkg, backend):
     """Start a controller on the rack-delta map, submit one delta (a
     graceful removal and a failure), quiesce, stop."""

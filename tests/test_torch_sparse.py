@@ -385,13 +385,18 @@ def test_sparse_requires_nesting_rules():
 
 
 def test_unported_sparse_options_raise():
-    """p_real (shape bucketing) is the one unported option left; the
-    warm ones (carry_used, return_carry) run (tests/test_torch_warm.py
-    holds them against the reference)."""
+    """p_real (shape bucketing), the last option refused until A.13,
+    solves as the reference's kernel route does; the warm ones
+    (carry_used, return_carry) run (tests/test_torch_warm.py holds them
+    against the reference)."""
     arrays, cons, rules = _dense_args(32, 8, 0)
     args = bt.problem_to_torch(*arrays, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-        ttensor.solve_sparse(*args, cons, rules, k=4, p_real=32)
+    want = jtensor.solve_sparse(*[jnp.asarray(a) for a in arrays], cons,
+                                rules, k=4, p_real=32, record=False,
+                                sparse_impl="interpret")
+    got = ttensor.solve_sparse(*args, cons, rules, k=4, p_real=32,
+                               record=False)
+    np.testing.assert_array_equal(got, want)
     out, carry = ttensor.solve_sparse(*args, cons, rules, k=4,
                                       return_carry=True)
     seeded = ttensor.solve_sparse(*args, cons, rules, k=4,

@@ -243,12 +243,18 @@ def test_dense_warm_accepts_a_contained_removal():
 
 
 def test_dense_warm_refuses_unported_and_unresolved_options():
+    """p_real (once refused until A.13) repairs as the reference's
+    does; an unresolved engine raises; donate= changes nothing."""
     arrays, cons, rules, carry, dirty = _reference_warm_state(
         None, {"remove": ["n3"]})
     tc = bt.carry_to_torch(carry, "cpu")
-    with pytest.raises(NotImplementedError, match="A.13"):
-        ttensor.solve_dense_warm(*_t(arrays), cons, rules, dirty=dirty,
-                                 carry=tc, p_real=64)
+    want, _ = jtensor.solve_dense_warm(*arrays, cons, rules, dirty=dirty,
+                                       carry=carry, p_real=64, record=False)
+    got, _ = ttensor.solve_dense_warm(*_t(arrays), cons, rules, dirty=dirty,
+                                      carry=tc, p_real=64, record=False)
+    assert (got is None) == (want is None)
+    if want is not None:
+        np.testing.assert_array_equal(got, want, _first_diff(got, want))
     with pytest.raises(ValueError, match="unresolved"):
         ttensor.solve_dense_warm(*_t(arrays), cons, rules, dirty=dirty,
                                  carry=tc, fused_score="auto")
@@ -374,12 +380,21 @@ def test_sparse_cold_carry_matches_jax(seed):
 
 
 def test_sparse_warm_refuses_p_real():
+    """p_real, refused until A.13: the sparse warm repair with it is the
+    reference's (kernel route), decision and assignment."""
     arrays, cons, rules, dirty = _sparse_warm_case(0, P=64, N=16)
     a = _t(arrays)
     carry = ttensor.carry_from_assignment(a[0], a[1], a[2])
-    with pytest.raises(NotImplementedError, match="A.13"):
-        ttensor.solve_sparse_warm(*a, cons, rules, dirty=dirty, carry=carry,
-                                  k=4, p_real=64)
+    jc = jtensor.carry_from_assignment(*[jnp.asarray(x) for x in arrays[:3]])
+    want, _ = jtensor.solve_sparse_warm(*arrays, cons, rules, dirty=dirty,
+                                        carry=jc, k=4, p_real=64,
+                                        record=False, sparse_impl="interpret")
+    got, _ = ttensor.solve_sparse_warm(*a, cons, rules, dirty=dirty,
+                                       carry=carry, k=4, p_real=64,
+                                       record=False)
+    assert (got is None) == (want is None)
+    if want is not None:
+        np.testing.assert_array_equal(got, want, _first_diff(got, want))
 
 
 # --- the carry cache (a copy of the reference's, on torch carries) --------------------
