@@ -1,8 +1,8 @@
 # Copied from blance_tpu/core/encode.py (DenseProblem, encode_problem,
 # decode_assignment with its native marshal branches and packed=/counts=,
-# pack_slot_rows, and the shape-bucketing helpers bucket_size, pad_to and
-# pad_problem_arrays); the fleet's stack_problem_arrays and
-# strip_prev_rows are left out.  The integer cores (pack_assignment_core,
+# pack_slot_rows, the shape-bucketing helpers bucket_size, pad_to and
+# pad_problem_arrays, and the fleet's stack_problem_arrays and
+# strip_prev_rows).  The integer cores (pack_assignment_core,
 # prev_from_entries_core) and their entry points are torch ports of the
 # reference's jnp functions.
 """Dense encoding: PartitionMap <-> int32/float32 arrays.
@@ -46,6 +46,7 @@ from .types import (
 __all__ = ["DenseProblem", "NPArray", "encode_problem", "decode_assignment",
            "pack_assignment_core", "pack_assignment",
            "prev_from_entries_core", "prev_from_entries", "pack_slot_rows",
+           "stack_problem_arrays", "strip_prev_rows",
            "bucket_size", "pad_to", "pad_problem_arrays"]
 
 NPArray = np.ndarray[Any, np.dtype[Any]]
@@ -122,6 +123,22 @@ def pad_problem_arrays(
     gid_valid = pad_to(gid_valid, 1, n_target, False)
     return (prev, partition_weights, node_weights, valid_node,
             stickiness, gids, gid_valid)
+
+def stack_problem_arrays(
+    padded: "list[tuple[np.ndarray, ...]]",
+) -> tuple[np.ndarray, ...]:
+    """Stack B same-shape padded array tuples into [B, ...] batch
+    tensors (one np.stack per operand, solver positional order
+    preserved).  The batch analog of pad_problem_arrays: pad first so
+    every element of a bucket class shares its static shape, then
+    stack — the [B, P, S, N] problem tensor the fleet solver runs."""
+    if not padded:
+        raise ValueError("stack_problem_arrays: empty batch")
+    width = len(padded[0])
+    return tuple(
+        np.stack([np.asarray(arrs[i]) for arrs in padded])
+        for i in range(width))
+
 
 # --- device integer cores ---------------------------------------------------
 #
@@ -237,6 +254,31 @@ class DenseProblem:
     @property
     def R(self) -> int:
         return self.prev.shape[2] if self.prev.size else 0
+
+
+def strip_prev_rows(prev: np.ndarray,
+                    node_ids: np.ndarray) -> tuple[np.ndarray,
+                                                   np.ndarray]:
+    """Remove every placement on ``node_ids`` from ``prev`` [P, S, R]
+    and re-pack the touched rows left; returns ``(patched prev — a new
+    array, dirty row mask [P])``.
+
+    The array twin of ``rebalance._strip_nodes`` + re-encode: a fresh
+    ``encode_problem`` of the stripped map fills each touched row with
+    the surviving entries in their original order, packed left — which
+    is exactly mask-to-(-1) + :func:`pack_slot_rows` on those rows.
+    Untouched rows are returned byte-identical (same values, new array
+    object: callers memoize on array identity, so an in-place patch
+    could serve stale memo hits)."""
+    hit = np.isin(prev, node_ids)
+    dirty = hit.any(axis=(1, 2))
+    out = prev.copy()
+    if dirty.any():
+        sub = out[dirty]
+        sub[hit[dirty]] = -1
+        packed, _counts = pack_slot_rows(sub)
+        out[dirty] = packed
+    return out, dirty
 
 
 def encode_problem(

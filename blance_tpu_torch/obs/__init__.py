@@ -13,22 +13,37 @@ rebalance and ``costmodel.CostModel`` the per-(node, op) move costs the
 critical-path scheduler prices moves with.
 
 Copies of the jax-free modules of blance_tpu/obs (recorder, sinks,
-costmodel, slo).  The reference's XLA compile observatory (``device``),
-Chrome-trace export (``chrome``), exposition server (``expo``) and
-request tracing (``tracectx``) are ROADMAP A.10.
+costmodel, slo, and ``tracectx``, the request tracing the plan service
+stamps each request with).  The reference's XLA compile observatory
+(``device``), Chrome-trace export (``chrome``) and exposition server
+(``expo``) are ROADMAP A.10.
 """
 
 from .costmodel import CostModel
 from .recorder import Recorder, get_recorder, set_recorder, use_recorder
 from .slo import MoveObserver, SloSummary, SloTracker
+from .tracectx import (
+    SEGMENTS,
+    RequestTimeline,
+    TraceContext,
+    TraceIdSource,
+    current_trace,
+    use_trace,
+)
 
 __all__ = [
     "CostModel",
     "MoveObserver",
     "Recorder",
+    "RequestTimeline",
+    "SEGMENTS",
     "SloSummary",
     "SloTracker",
+    "TraceContext",
+    "TraceIdSource",
+    "current_trace",
     "get_recorder",
     "set_recorder",
     "use_recorder",
+    "use_trace",
 ]

@@ -61,6 +61,10 @@
 // cores: the work is compares and adds.  (Measured on the H100 at the
 // main path's widths: 16 rows x 2 columns a chunk beat 8 x 2, 8 x 4,
 // 16 x 1, 16 x 4 and 32 x 2.)
+//
+// A batch of same-shaped problems (the fleet tier) is one launch of the
+// batched kernel, the problem on blockIdx.y (for_problem); the
+// one-problem launch is a separate kernel over the same tile code.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -237,8 +241,38 @@ __device__ void stage_row(const Args& a, int* w, int row, int nr, int rw,
   w[4] = (a.any_anchor[row] > 0.0f && np > 0) ? 1 : 0;
 }
 
+// A batch of problems (the fleet tier) stacks B same-shaped problems in
+// every array, and the launch puts the problem on blockIdx.y: problem b's
+// block reads its own [n] vectors and [p, ...] row terms and writes its
+// own [p] outputs, so a row tile never straddles two problems, and the
+// hash sees the problem's own row and column ids.  The one-problem launch
+// is its own kernel, which never offsets.
+__device__ __forceinline__ Args for_problem(Args a, long long b) {
+  const long long n = a.n, p = a.p;
+  const long long cand_rows = a.nrules > 0 ? 2LL * a.nrules : 1;
+  a.price += b * n;
+  a.base += b * n;
+  a.neg_boost += b * n;
+  a.validf += b * n;
+  a.cand_g += b * cand_rows * n;
+  a.stick += b * p;
+  a.prev_slot += b * p;
+  a.prev_state += b * p * a.r_width;
+  a.taken += b * p * a.t_width;
+  a.present += b * p * a.a_width;
+  a.a_inc_g += b * p * a.g_width;
+  a.a_exc_g += b * p * a.g_width;
+  a.any_anchor += b * p;
+  a.best += b * p;
+  a.idx += b * p;
+  a.second += b * p;
+  a.raw += b * p;
+  return a;
+}
+
+// One block's tile of rows of one problem.
 template <int kNR, int kR, int kT, int kA>
-__global__ void __launch_bounds__(kThreads) fused_score_min2_kernel(Args a) {
+__device__ __forceinline__ void fused_tile(const Args& a) {
   constexpr bool kFixed = kNR != kDyn;
   constexpr int kW = kFixed ? row_words(kNR, kR, kT, kA) : 4;
   const int nr = kFixed ? kNR : a.nrules;
@@ -323,7 +357,20 @@ __global__ void __launch_bounds__(kThreads) fused_score_min2_kernel(Args a) {
 }
 
 template <int kNR, int kR, int kT, int kA>
-int launch(const Args& a, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads)
+fused_score_min2_kernel(Args a) {
+  fused_tile<kNR, kR, kT, kA>(a);
+}
+
+template <int kNR, int kR, int kT, int kA>
+__global__ void __launch_bounds__(kThreads)
+fused_score_min2_batched_kernel(Args problems) {
+  fused_tile<kNR, kR, kT, kA>(for_problem(problems, blockIdx.y));
+}
+
+// batch < 0: one problem, the unbatched kernel; else a batch of ``batch``.
+template <int kNR, int kR, int kT, int kA>
+int launch(const Args& a, int batch, cudaStream_t stream) {
   if (kNR != kDyn && (a.nrules != kNR || a.r_width != kR ||
                       a.t_width != kT || (kNR > 0 && a.a_width != kA)))
     return (int)cudaErrorInvalidValue;  // widths of another instantiation
@@ -334,8 +381,13 @@ int launch(const Args& a, cudaStream_t stream) {
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const unsigned blocks =
       (unsigned)(((long long)a.p + kRowsPerTile - 1) / kRowsPerTile);
-  fused_score_min2_kernel<kNR, kR, kT, kA><<<blocks, kThreads, smem,
-                                             stream>>>(a);
+  if (batch < 0)
+    fused_score_min2_kernel<kNR, kR, kT, kA><<<blocks, kThreads, smem,
+                                               stream>>>(a);
+  else
+    fused_score_min2_batched_kernel<kNR, kR, kT, kA><<<dim3(blocks, batch),
+                                                       kThreads, smem,
+                                                       stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -345,6 +397,45 @@ int launch(const Args& a, cudaStream_t stream) {
 // instantiation, as score_fused.py's FUSED_VARIANTS lists them by
 // (nrules, R, T, A); -1 is the runtime-width one.  Returns
 // cudaGetLastError() after the launch (0 = launched).
+namespace {
+
+int launch_variant(const float* price, const float* base,
+                   const float* neg_boost, const float* validf,
+                   const int* cand_g, const float* stick,
+                   const int* prev_slot, const int* prev_state,
+                   const int* taken, const float* present,
+                   const int* a_inc_g, const int* a_exc_g,
+                   const float* any_anchor, float* best, int* idx,
+                   float* second, float* raw, float jitter_scale,
+                   long long p, long long n, int nrules, int r_width,
+                   int t_width, int a_width, int g_width, int pbase,
+                   int noff, int variant, long long batch, void* stream) {
+  if (p <= 0 || batch == 0) return 0;
+  long long widest = 1;
+  const int widths[] = {r_width, t_width, a_width, g_width};
+  for (int w : widths) widest = w > widest ? w : widest;
+  if (n <= 0 || n > INT_MAX || p > INT_MAX || nrules < 0 ||
+      p * widest > INT_MAX || (2LL * nrules + 1) * n > INT_MAX ||
+      batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  Args a{price, base, neg_boost, validf, cand_g, stick, prev_slot,
+         prev_state, taken, present, a_inc_g, a_exc_g, any_anchor,
+         best, idx, second, raw, jitter_scale, (int)p, (int)n, nrules,
+         r_width, t_width, a_width, g_width, pbase, noff};
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int b = (int)batch;
+  switch (variant) {
+    case 0: return launch<1, 1, 2, 2>(a, b, s);
+    case 1: return launch<0, 1, 1, 0>(a, b, s);
+    case 2: return launch<0, 2, 1, 0>(a, b, s);
+    case 3: return launch<1, 2, 3, 3>(a, b, s);
+    case -1: return launch<kDyn, kDyn, kDyn, kDyn>(a, b, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
 extern "C" int blance_fused_score_min2(
     const float* price, const float* base, const float* neg_boost,
     const float* validf, const int* cand_g, const float* stick,
@@ -354,24 +445,29 @@ extern "C" int blance_fused_score_min2(
     float* raw, float jitter_scale, long long p, long long n, int nrules,
     int r_width, int t_width, int a_width, int g_width, int pbase, int noff,
     int variant, void* stream) {
-  if (p <= 0) return 0;
-  long long widest = 1;
-  const int widths[] = {r_width, t_width, a_width, g_width};
-  for (int w : widths) widest = w > widest ? w : widest;
-  if (n <= 0 || n > INT_MAX || p > INT_MAX || nrules < 0 ||
-      p * widest > INT_MAX || (2LL * nrules + 1) * n > INT_MAX)
-    return (int)cudaErrorInvalidValue;
-  Args a{price, base, neg_boost, validf, cand_g, stick, prev_slot,
-         prev_state, taken, present, a_inc_g, a_exc_g, any_anchor,
-         best, idx, second, raw, jitter_scale, (int)p, (int)n, nrules,
-         r_width, t_width, a_width, g_width, pbase, noff};
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (variant) {
-    case 0: return launch<1, 1, 2, 2>(a, s);
-    case 1: return launch<0, 1, 1, 0>(a, s);
-    case 2: return launch<0, 2, 1, 0>(a, s);
-    case 3: return launch<1, 2, 3, 3>(a, s);
-    case -1: return launch<kDyn, kDyn, kDyn, kDyn>(a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch_variant(price, base, neg_boost, validf, cand_g, stick,
+                        prev_slot, prev_state, taken, present, a_inc_g,
+                        a_exc_g, any_anchor, best, idx, second, raw,
+                        jitter_scale, p, n, nrules, r_width, t_width,
+                        a_width, g_width, pbase, noff, variant, -1, stream);
+}
+
+// A batch of ``batch`` problems of p rows and n columns each, every array
+// with a leading [batch] axis; the problem rides blockIdx.y.
+extern "C" int blance_fused_score_min2_batched(
+    const float* price, const float* base, const float* neg_boost,
+    const float* validf, const int* cand_g, const float* stick,
+    const int* prev_slot, const int* prev_state, const int* taken,
+    const float* present, const int* a_inc_g, const int* a_exc_g,
+    const float* any_anchor, float* best, int* idx, float* second,
+    float* raw, float jitter_scale, long long p, long long n, int nrules,
+    int r_width, int t_width, int a_width, int g_width, int pbase, int noff,
+    int variant, long long batch, void* stream) {
+  if (batch < 0) return (int)cudaErrorInvalidValue;
+  return launch_variant(price, base, neg_boost, validf, cand_g, stick,
+                        prev_slot, prev_state, taken, present, a_inc_g,
+                        a_exc_g, any_anchor, best, idx, second, raw,
+                        jitter_scale, p, n, nrules, r_width, t_width,
+                        a_width, g_width, pbase, noff, variant, batch,
+                        stream);
 }

@@ -11,7 +11,8 @@ Port of blance_tpu/ops/reduce2.py.  Per row of ``eff = score + price``:
 (``min2_argmin_reference``) on a CPU tensor; on any other device it
 raises.  There is no fallback from the kernel to the plain version.
 ``priced_min2_argmin.launches`` counts kernel launches (``variants`` by
-instantiation: there is one, "block_per_row").
+instantiation: "block_per_row", and "batched" for a batch of problems,
+score [B, P, N] with price [B, N], the launch the fleet tier makes).
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ import ctypes
 
 import torch
 
-__all__ = ["min2_argmin", "min2_argmin_reference", "priced_min2_argmin"]
+__all__ = ["min2_argmin", "min2_argmin_reference", "priced_min2_argmin",
+           "batched_min2_reference"]
 
 
 def min2_argmin_reference(eff: torch.Tensor):
@@ -43,33 +45,57 @@ def _kernel():
     if _C_FN is None:
         from ._build import load
 
-        fn = load("min2").blance_priced_min2
+        lib = load("min2")
+        fn = lib.blance_priced_min2
         fn.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _C_FN = fn
+        fb = lib.blance_priced_min2_batched
+        fb.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [
+            ctypes.c_void_p]
+        fb.restype = ctypes.c_int
+        _C_FN = (fn, fb)
     return _C_FN
 
 
 def _launch(score: torch.Tensor, price: torch.Tensor):
-    p, n = score.shape
+    batched = score.dim() == 3
+    p, n = score.shape[-2:]
+    lead = score.shape[:-2]
     if score.dtype != torch.float32 or price.dtype != torch.float32:
         raise TypeError("priced_min2_argmin takes float32 score and price")
-    if price.shape != (n,) or price.device != score.device:
-        raise ValueError(f"price must be [{n}] on {score.device}")
+    if price.shape != lead + (n,) or price.device != score.device:
+        raise ValueError(f"price must be {list(lead) + [n]} on "
+                         f"{score.device}")
     score = score.contiguous()
     price = price.contiguous()
-    best = torch.empty(p, dtype=torch.float32, device=score.device)
-    choice = torch.empty(p, dtype=torch.int32, device=score.device)
-    second = torch.empty(p, dtype=torch.float32, device=score.device)
+    best = torch.empty(lead + (p,), dtype=torch.float32, device=score.device)
+    choice = torch.empty(lead + (p,), dtype=torch.int32, device=score.device)
+    second = torch.empty(lead + (p,), dtype=torch.float32,
+                         device=score.device)
     stream = torch.cuda.current_stream(score.device).cuda_stream
-    err = _kernel()(score.data_ptr(), price.data_ptr(), best.data_ptr(),
-                    choice.data_ptr(), second.data_ptr(), p, n, stream)
+    ptrs = (score.data_ptr(), price.data_ptr(), best.data_ptr(),
+            choice.data_ptr(), second.data_ptr())
+    if batched:
+        err = _kernel()[1](*ptrs, lead[0] * p, n, p, stream)
+    else:
+        err = _kernel()[0](*ptrs, p, n, stream)
     if err != 0:
         raise RuntimeError(f"min2 kernel launch failed: CUDA error {err}")
     priced_min2_argmin.launches += 1
-    priced_min2_argmin.variants["block_per_row"] += 1
+    priced_min2_argmin.variants["batched" if batched
+                                else "block_per_row"] += 1
     return best, choice, second
+
+
+def batched_min2_reference(score: torch.Tensor, price: torch.Tensor):
+    """Plain version of the batched launch: ``score`` [B, P, N] priced by
+    its element's ``price`` [B, N] row, reduced as one [B*P, N] matrix;
+    outputs [B, P]."""
+    b, p, n = score.shape
+    out = min2_argmin_reference((score + price[:, None, :])
+                                .reshape(b * p, n))
+    return tuple(t.reshape(b, p) for t in out)
 
 
 def priced_min2_argmin(score: torch.Tensor, price: torch.Tensor):
@@ -78,12 +104,16 @@ def priced_min2_argmin(score: torch.Tensor, price: torch.Tensor):
     ``price[N]`` is broadcast-added per element, so the priced matrix
     never exists on the card.  Returns ``(best[P] f32, choice[P] i32,
     second[P] f32)``, bitwise equal to
-    ``min2_argmin_reference(score + price[None, :])``."""
-    p, n = score.shape
+    ``min2_argmin_reference(score + price[None, :])``.  A batch of
+    problems, ``score`` [B, P, N] with ``price`` [B, N], gives [B, P]
+    outputs, bitwise ``batched_min2_reference``."""
+    p, n = score.shape[-2:]
     if n == 0:
         raise ValueError("min2_argmin requires N >= 1 (got shape %r)"
-                         % ((p, n),))
+                         % (tuple(score.shape),))
     if score.device.type == "cpu":
+        if score.dim() == 3:
+            return batched_min2_reference(score, price)
         return min2_argmin_reference(score + price[None, :])
     if score.device.type != "cuda":
         raise RuntimeError(

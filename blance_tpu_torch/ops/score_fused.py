@@ -27,7 +27,8 @@ On a CPU tensor ``fused_score_min2`` runs the plain PyTorch version
 (:func:`fused_score_min2_reference`); on a CUDA tensor it launches the
 kernel or raises.  ``fused_score_min2.launches`` counts launches, and
 ``fused_score_min2.variants`` counts them by kernel instantiation (the
-name :func:`fused_variant` gives).
+name :func:`fused_variant` gives, prefixed ``batched_`` for a launch over
+a batch of problems).
 """
 
 from __future__ import annotations
@@ -39,7 +40,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-__all__ = ["fused_score_min2", "fused_score_min2_reference", "ScoreInputs",
+__all__ = ["fused_score_min2", "fused_score_min2_reference",
+           "batched_fused_reference", "ScoreInputs",
            "pack_score_inputs", "score_at_columns", "jitter_hash",
            "jitter_add", "fill_scale", "fill_term", "FUSED_VARIANTS",
            "fused_variant"]
@@ -152,41 +154,54 @@ def pack_score_inputs(
 
     ``total_p`` is the partition count as a Python number (the
     reference's trace-time constant) or, under shape bucketing, the real
-    partition count as a 0-d float32 tensor (see :func:`fill_term`)."""
+    partition count as a 0-d float32 tensor (see :func:`fill_term`).
+    Every input may carry a leading batch axis (the fleet tier), with
+    ``total_p`` then a [B, 1] tensor; the fields then do too."""
     base = fill_term(total_l, total_p, w_div_l)
     validf = valid_l.to(torch.float32)
-    p = prev_slot.shape[0]
+    from ..plan.tensor import _take  # per-element gather
+
+    p = prev_slot.shape[-1]
+    lead = prev_slot.shape[:-1]
     dev = base.device
     nrules = len(rules)
     if nrules:
         cand_g = torch.cat(
-            [torch.stack([gids_l[inc] for (inc, _exc) in rules]),
-             torch.stack([gids_l[exc] for (_inc, exc) in rules])], dim=0)
-        a_width = anchors.shape[1]
-        aa = anchors.clamp(min=0).long()
+            [torch.stack([gids_l[..., inc, :] for (inc, _exc) in rules],
+                         dim=-2),
+             torch.stack([gids_l[..., exc, :] for (_inc, exc) in rules],
+                         dim=-2)], dim=-2)
+        a_width = anchors.shape[-1]
+        aa = anchors.clamp(min=0)
         inc_cols = []
         exc_cols = []
         for ai in range(a_width):
             for (inc, exc) in rules:
                 inc_cols.append(torch.where(
-                    gid_valid[inc][aa[:, ai]], gids[inc][aa[:, ai]], -3))
+                    _take(gid_valid[..., inc, :], aa[..., ai]),
+                    _take(gids[..., inc, :], aa[..., ai]), -3))
                 exc_cols.append(torch.where(
-                    gid_valid[exc][aa[:, ai]], gids[exc][aa[:, ai]], -3))
-        a_inc_g = torch.stack(inc_cols, dim=1).to(torch.int32)
-        a_exc_g = torch.stack(exc_cols, dim=1).to(torch.int32)
+                    _take(gid_valid[..., exc, :], aa[..., ai]),
+                    _take(gids[..., exc, :], aa[..., ai]), -3))
+        a_inc_g = torch.stack(inc_cols, dim=-1).to(torch.int32)
+        a_exc_g = torch.stack(exc_cols, dim=-1).to(torch.int32)
         present = (anchors >= 0).to(torch.float32)
-        any_anchor = (anchors >= 0).any(dim=1).to(torch.float32)
+        any_anchor = (anchors >= 0).any(dim=-1).to(torch.float32)
     else:
-        cand_g = torch.zeros((1, base.shape[0]), dtype=torch.int32,
+        cand_g = torch.zeros(lead + (1, base.shape[-1]), dtype=torch.int32,
                              device=dev)
-        a_inc_g = torch.full((p, 1), -3, dtype=torch.int32, device=dev)
-        a_exc_g = torch.full((p, 1), -3, dtype=torch.int32, device=dev)
-        present = torch.zeros((p, 1), dtype=torch.float32, device=dev)
-        any_anchor = torch.zeros(p, dtype=torch.float32, device=dev)
+        a_inc_g = torch.full(lead + (p, 1), -3, dtype=torch.int32,
+                             device=dev)
+        a_exc_g = torch.full(lead + (p, 1), -3, dtype=torch.int32,
+                             device=dev)
+        present = torch.zeros(lead + (p, 1), dtype=torch.float32,
+                              device=dev)
+        any_anchor = torch.zeros(lead + (p,), dtype=torch.float32,
+                                 device=dev)
     if taken_ids:
-        taken = torch.stack(list(taken_ids), dim=1)
+        taken = torch.stack(list(taken_ids), dim=-1)
     else:
-        taken = torch.full((p, 1), -1, dtype=torch.int32, device=dev)
+        taken = torch.full(lead + (p, 1), -1, dtype=torch.int32, device=dev)
     return ScoreInputs(
         base=base, neg_boost=neg_boost_l, validf=validf,
         cand_g=cand_g.to(torch.int32), stick=stickiness_si,
@@ -265,6 +280,20 @@ def fused_score_min2_reference(price: torch.Tensor, si: ScoreInputs,
     return tuple(torch.cat(t) for t in zip(*outs))
 
 
+def batched_fused_reference(price: torch.Tensor, si: ScoreInputs,
+                            pbase: int, noff: int, *, nrules: int,
+                            jitter_scale: float):
+    """Plain version of the batched launch: ``price`` [B, N] and every
+    ScoreInputs field with a leading [B] axis; each problem through
+    :func:`fused_score_min2_reference` on its own rows and columns.
+    Outputs [B, P] each."""
+    outs = [fused_score_min2_reference(
+        price[b], ScoreInputs(*(t[b] for t in si)), pbase, noff,
+        nrules=nrules, jitter_scale=jitter_scale)
+        for b in range(price.shape[0])]
+    return tuple(torch.stack(t) for t in zip(*outs))
+
+
 # The kernel's fixed-width instantiations, by (nrules, R, T, A), in the
 # order of their ids in csrc/score_fused.cu; A is 0 without rules.  The
 # main path's two slots (a rule-less primary; a replica with one rule,
@@ -295,12 +324,17 @@ def _kernel():
     if _C_FN is None:
         from ._build import load
 
-        fn = load("score_fused").blance_fused_score_min2
-        fn.argtypes = [ctypes.c_void_p] * 17 + [
+        lib = load("score_fused")
+        head = [ctypes.c_void_p] * 17 + [
             ctypes.c_float, ctypes.c_longlong, ctypes.c_longlong] + \
-            [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            [ctypes.c_int] * 8
+        fn = lib.blance_fused_score_min2
+        fn.argtypes = head + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _C_FN = fn
+        fb = lib.blance_fused_score_min2_batched
+        fb.argtypes = head + [ctypes.c_longlong, ctypes.c_void_p]
+        fb.restype = ctypes.c_int
+        _C_FN = (fn, fb)
     return _C_FN
 
 
@@ -309,8 +343,10 @@ _F32 = ("base", "neg_boost", "validf", "stick", "present", "any_anchor")
 
 def _launch(price, si: ScoreInputs, pbase: int, noff: int, nrules: int,
             jitter_scale: float):
-    p = si.stick.shape[0]
-    n = price.shape[0]
+    batched = price.dim() == 2
+    lead = price.shape[:-1]
+    p = si.stick.shape[-1]
+    n = price.shape[-1]
     dev = price.device
     fields = si._asdict()
     for name, t in [("price", price)] + list(fields.items()):
@@ -319,23 +355,26 @@ def _launch(price, si: ScoreInputs, pbase: int, noff: int, nrules: int,
         if t.dtype != want or t.device != dev:
             raise TypeError(f"fused_score_min2: {name} must be {want} on "
                             f"{dev}, got {t.dtype} on {t.device}")
+        if t.shape[:len(lead)] != lead:
+            raise ValueError(f"fused_score_min2: {name} has shape "
+                             f"{tuple(t.shape)}, not a batch of {lead}")
     si = ScoreInputs(*(t.contiguous() for t in si))
     price = price.contiguous()
-    r_width = si.prev_state.shape[1]
-    t_width = si.taken.shape[1]
-    a_width = si.present.shape[1]
-    g_width = si.a_inc_g.shape[1]
-    if nrules and (si.cand_g.shape != (2 * nrules, n)
+    r_width = si.prev_state.shape[-1]
+    t_width = si.taken.shape[-1]
+    a_width = si.present.shape[-1]
+    g_width = si.a_inc_g.shape[-1]
+    if nrules and (si.cand_g.shape[-2:] != (2 * nrules, n)
                    or g_width != a_width * nrules):
         raise ValueError("fused_score_min2: rule columns do not match "
                          f"nrules={nrules}")
     variant = fused_variant(nrules, r_width, t_width, a_width)
-    best = torch.empty(p, dtype=torch.float32, device=dev)
-    choice = torch.empty(p, dtype=torch.int32, device=dev)
-    second = torch.empty(p, dtype=torch.float32, device=dev)
-    raw = torch.empty(p, dtype=torch.float32, device=dev)
+    best = torch.empty(lead + (p,), dtype=torch.float32, device=dev)
+    choice = torch.empty(lead + (p,), dtype=torch.int32, device=dev)
+    second = torch.empty(lead + (p,), dtype=torch.float32, device=dev)
+    raw = torch.empty(lead + (p,), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _kernel()(
+    args = (
         price.data_ptr(), si.base.data_ptr(), si.neg_boost.data_ptr(),
         si.validf.data_ptr(), si.cand_g.data_ptr(), si.stick.data_ptr(),
         si.prev_slot.data_ptr(), si.prev_state.data_ptr(),
@@ -343,13 +382,17 @@ def _launch(price, si: ScoreInputs, pbase: int, noff: int, nrules: int,
         si.a_exc_g.data_ptr(), si.any_anchor.data_ptr(), best.data_ptr(),
         choice.data_ptr(), second.data_ptr(), raw.data_ptr(),
         float(jitter_scale), p, n, int(nrules), r_width, t_width, a_width,
-        g_width, int(pbase), int(noff), _VARIANT_IDS.get(variant, -1),
-        stream)
+        g_width, int(pbase), int(noff), _VARIANT_IDS.get(variant, -1))
+    if batched:
+        err = _kernel()[1](*args, lead[0], stream)
+    else:
+        err = _kernel()[0](*args, stream)
     if err != 0:
         raise RuntimeError(
             f"score_fused kernel launch failed: CUDA error {err}")
     fused_score_min2.launches += 1
-    fused_score_min2.variants[variant] += 1
+    fused_score_min2.variants[f"batched_{variant}" if batched
+                              else variant] += 1
     return best, choice, second, raw
 
 
@@ -357,10 +400,18 @@ def fused_score_min2(price: torch.Tensor, si: ScoreInputs, pbase: int,
                      noff: int, *, nrules: int, jitter_scale: float):
     """(best, choice_LOCAL, second, raw) per row; score built in-kernel.
 
-    The caller adds ``noff`` to the returned choice for global ids."""
-    if price.shape[0] == 0:
+    The caller adds ``noff`` to the returned choice for global ids.  A
+    batch of problems (``price`` [B, N], every ScoreInputs field with a
+    leading [B]) gives [B, P] outputs in one launch, counted under
+    ``variants["batched_<instantiation>"]``; its plain version is
+    :func:`batched_fused_reference`."""
+    if price.shape[-1] == 0:
         raise ValueError("fused_score_min2 requires N >= 1")
     if price.device.type == "cpu":
+        if price.dim() == 2:
+            return batched_fused_reference(
+                price, si, pbase, noff, nrules=nrules,
+                jitter_scale=jitter_scale)
         return fused_score_min2_reference(
             price, si, pbase, noff, nrules=nrules,
             jitter_scale=jitter_scale)
@@ -393,25 +444,27 @@ def score_at_columns(
     pbase: int,
 ) -> torch.Tensor:
     """The same score formula evaluated at single (row, col) pairs with
-    [K] ops — phase B's waterfall probe when no matrix exists."""
-    from ..plan.tensor import _hier_tier_at  # shared rule semantics
+    [K] ops — phase B's waterfall probe when no matrix exists.  Per
+    batch element for [B, K] rows and columns over batched inputs."""
+    from ..plan.tensor import _hier_tier_at, _take, _take_rows
 
     r = rows.long()
     c = cols_global.long()
-    s = base_full[c]
-    nb = neg_boost_full[c]
-    stick_r = stick[r]
+    s = _take(base_full, c)
+    nb = _take(neg_boost_full, c)
+    stick_r = _take(stick, r)
     s = s + torch.where(nb > 0, torch.maximum(nb, stick_r), 0.0)
-    s = s - 0.01 * (prev_slot[r] == c).to(torch.float32)
-    sticky = torch.zeros(rows.shape[0], dtype=torch.bool, device=s.device)
-    for k in range(prev_state.shape[1]):
-        sticky = sticky | (prev_state[r, k] == c)
+    s = s - 0.01 * (_take(prev_slot, r) == c).to(torch.float32)
+    sticky = torch.zeros(rows.shape, dtype=torch.bool, device=s.device)
+    for k in range(prev_state.shape[-1]):
+        sticky = sticky | (_take(prev_state[..., k], r) == c)
     s = s - stick_r * sticky.to(torch.float32)
     if rules:
-        s = s + _hier_tier_at(anchors[r], c, gids, gid_valid, rules)
-    tk = torch.zeros(rows.shape[0], dtype=torch.bool, device=s.device)
+        s = s + _hier_tier_at(_take_rows(anchors, r), c, gids, gid_valid,
+                              rules)
+    tk = torch.zeros(rows.shape, dtype=torch.bool, device=s.device)
     for tid in taken_ids:
-        tk = tk | (tid[r] == c)
-    s = s + _INF * (tk | ~valid_full[c]).to(torch.float32)
+        tk = tk | (_take(tid, r) == c)
+    s = s + _INF * (tk | ~_take(valid_full, c)).to(torch.float32)
     pi = (pbase + rows).to(torch.int32)
     return jitter_add(s, pi, cols_global.to(torch.int32), jitter_scale)

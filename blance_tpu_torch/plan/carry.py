@@ -1,5 +1,5 @@
-# Copied from blance_tpu/plan/carry.py (CarryCache and its helpers;
-# EncodeCache, which needs the resident encode, is ROADMAP A.7).  The
+# Copied from blance_tpu/plan/carry.py (CarryCache and its helpers, and
+# EncodeCache, the store of plan/resident.py's encode state).  The
 # carry's fields are torch tensors on the solve's device: node padding
 # concatenates on that device, byte accounting reads the tensors' sizes
 # and the capacity precheck copies ``used`` to the host.
@@ -9,7 +9,8 @@
 :class:`CarryCache`: the live carry and the pending carry of an
 un-adopted proposal, the dirty/dirty-post masks, node-growth padding,
 invalidation and the host-side capacity precheck.  A fleet of indexes
-keys one shared cache by tenant (the fleet tier is ROADMAP A.7).
+keys one shared cache by tenant (plan/service.py), and
+:class:`EncodeCache` keeps each tenant's resident encode state.
 
 The lifecycle invariants:
 
@@ -35,7 +36,7 @@ carry's eviction (a cold solve absorbs them on the next promote).
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import TYPE_CHECKING, Any, Optional
 
 import numpy as np
 import torch
@@ -43,7 +44,10 @@ import torch
 from ..core.encode import NPArray
 from .tensor import SolveCarry
 
-__all__ = ["CarryCache", "CarryEntry", "pad_carry_nodes",
+if TYPE_CHECKING:  # annotation-only
+    from .resident import EncodedState
+
+__all__ = ["CarryCache", "CarryEntry", "EncodeCache", "pad_carry_nodes",
            "effective_dirty", "capacity_shrank"]
 
 
@@ -488,3 +492,133 @@ class CarryCache:
         e.dirty[:] = False
         e.dirty_post[:] = False
         self._enforce_budget()
+
+
+class EncodeCache:
+    """Keyed LRU store of per-tenant resident encode state
+    (:class:`plan.resident.EncodedState`) — the encode-layer sibling of
+    :class:`CarryCache`, sharing its contracts:
+
+    - **eviction is always safe**: a dropped state just means the
+      tenant's next converge cycle runs a full ``encode_problem`` and
+      rebuilds it, bit-identically (cold is the single-problem encode
+      on current inputs).  ``max_entries`` bounds the key count,
+      ``max_bytes`` the summed resident array bytes; whole states are
+      dropped least-recently-used first.
+    - **evictions are never silent**: every drop counts
+      ``fleet.encode_evictions{reason=bytes|entries}``, and every
+      protocol demotion the planner requests
+      (:meth:`invalidate`) counts
+      ``fleet.encode_demotions{reason=...}`` — so a fleet's cold
+      re-encodes are exactly attributable: in steady state,
+      ``fleet.encode_cold == first encodes + demotions + evictions``
+      (the bench ``fleet_loop`` stage gates that identity).
+
+    Shared-state discipline (analysis/race_lint.py ``SHARED_STATE``):
+    the cache is shared by N tenant control-loop tasks, but every
+    method is synchronous (one no-await event-loop window) and each KEY
+    has a single writer — its own tenant's task.  A planner holds its
+    state object across its solve await, so a concurrent eviction of
+    that key only drops the cache's reference; the planner's ``put``
+    re-inserts it and re-enforces the budget.
+    """
+
+    def __init__(self, max_bytes: Optional[int] = None,
+                 max_entries: Optional[int] = None,
+                 recorder: "Optional[Any]" = None) -> None:
+        if max_bytes is not None and max_bytes < 0:
+            raise ValueError(f"max_bytes must be >= 0, got {max_bytes}")
+        if max_entries is not None and max_entries < 1:
+            raise ValueError(
+                f"max_entries must be >= 1, got {max_entries}")
+        self.max_bytes = max_bytes
+        self.max_entries = max_entries
+        self._rec = recorder
+        self._entries: "dict[str, EncodedState]" = {}
+        self._ticks: dict[str, int] = {}
+        self._clock = 0
+        self.evictions: dict[str, int] = {}
+        self.demotions: dict[str, int] = {}
+
+    def _count(self, name: str, book: dict[str, int],
+               reason: str) -> None:
+        book[reason] = book.get(reason, 0) + 1
+        rec = self._rec
+        if rec is None:
+            from ..obs import get_recorder
+
+            rec = get_recorder()
+        rec.count(f'{name}{{reason="{reason}"}}')
+
+    def _touch(self, key: str) -> None:
+        self._clock += 1
+        self._ticks[key] = self._clock
+
+    def get(self, key: str) -> "Optional[EncodedState]":
+        st = self._entries.get(key)
+        if st is not None:
+            self._touch(key)
+        return st
+
+    def put(self, key: str, state: "EncodedState") -> None:
+        self._entries[key] = state
+        self._touch(key)
+        self._enforce_budget()
+
+    def invalidate(self, key: str, reason: str) -> None:
+        """Drop one key's state on a protocol demotion (divergence /
+        statics swap / node-list drift / shape drift): the next cycle
+        re-encodes cold.  Counted once per live state dropped —
+        ``fleet.encode_demotions{reason=}`` — so every later cold
+        encode is attributable."""
+        if self._entries.pop(key, None) is not None:
+            self._ticks.pop(key, None)
+            self._count("fleet.encode_demotions", self.demotions,
+                        reason)
+
+    def drop(self, key: str) -> None:
+        """Forget a key silently (tenant teardown — not a demotion)."""
+        self._entries.pop(key, None)
+        self._ticks.pop(key, None)
+
+    def keys(self) -> list[str]:
+        return list(self._entries)
+
+    def nbytes(self) -> int:
+        return sum(st.nbytes() for st in self._entries.values())
+
+    def stats(self) -> dict[str, object]:
+        return {
+            "entries": len(self._entries),
+            "bytes": self.nbytes(),
+            "max_bytes": self.max_bytes,
+            "max_entries": self.max_entries,
+            "evictions": dict(self.evictions),
+            "demotions": dict(self.demotions),
+        }
+
+    def _enforce_budget(self) -> None:
+        if self.max_entries is not None and \
+                len(self._entries) > self.max_entries:
+            excess = len(self._entries) - self.max_entries
+            for key in sorted(self._entries,
+                              key=lambda k: self._ticks[k])[:excess]:
+                del self._entries[key]
+                self._ticks.pop(key, None)
+                self._count("fleet.encode_evictions", self.evictions,
+                            "entries")
+        if self.max_bytes is None:
+            return
+        total = self.nbytes()
+        if total <= self.max_bytes:
+            return
+        for key in sorted(self._entries,
+                          key=lambda k: self._ticks[k]):
+            freed = self._entries[key].nbytes()
+            del self._entries[key]
+            self._ticks.pop(key, None)
+            self._count("fleet.encode_evictions", self.evictions,
+                        "bytes")
+            total -= freed
+            if total <= self.max_bytes:
+                return

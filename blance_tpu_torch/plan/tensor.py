@@ -245,9 +245,10 @@ class SolveCarry(NamedTuple):
 def _used_by_state(assign: torch.Tensor, pweights: torch.Tensor, n: int,
                    s: int) -> torch.Tensor:
     """[S, N] per-state weighted fill: one ``_scatter_counts`` per state,
-    in state order, as the seed pass of ``_solve_assign`` runs them."""
-    return torch.stack([_scatter_counts(assign[:, si, :], pweights, n)
-                        for si in range(s)])
+    in state order, as the seed pass of ``_solve_assign`` runs them
+    ([B, S, N] for a batch of assignments [B, P, S, R])."""
+    return torch.stack([_scatter_counts(assign[..., si, :], pweights, n)
+                        for si in range(s)], dim=-2)
 
 
 def carry_from_assignment(assign, pweights: torch.Tensor,
@@ -263,6 +264,26 @@ def carry_from_assignment(assign, pweights: torch.Tensor,
 
 
 # --- helpers -----------------------------------------------------------------
+#
+# Every dense helper below takes one problem ([P]-, [N]-, [P, ...]-shaped
+# tensors) or a batch of same-shaped problems (the same tensors with a
+# leading [B] axis: the fleet tier).  Scans, sorts, reductions, gathers and
+# scatters run on the last axis, per batch element, so a batch element's
+# arithmetic is the single problem's.  Each helper reads the batch rank off
+# an argument whose unbatched rank it knows.
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` along the last axis, per batch element: ``x`` [*B, N] at
+    ``idx`` [*B, *rest] (any trailing shape) gives [*B, *rest]."""
+    flat = idx.reshape(*idx.shape[:x.dim() - 1], -1).long()
+    return torch.gather(x, -1, flat).reshape(idx.shape)
+
+
+def _take_rows(x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``x[rows]`` for [*B, P, W] rows at ``rows`` [*B, K]: [*B, K, W]."""
+    idx = rows.long()[..., None].expand(*rows.shape, x.shape[-1])
+    return torch.gather(x, -2, idx)
 
 
 def _drop_empty(ids: torch.Tensor, n: int) -> torch.Tensor:
@@ -271,22 +292,26 @@ def _drop_empty(ids: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(ids >= 0, ids, n)
 
 
-def _scatter_add(n: int, ids: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _scatter_add(n: int, ids: torch.Tensor, w: torch.Tensor,
+                 nb: int = 0) -> torch.Tensor:
     """``zeros(n).at[ids].add(w, mode="drop")`` with -1 (and n) dropped:
-    ``index_add_`` into an [n + 1] buffer, then sliced.  On CUDA the adds
+    a scatter-add into an [n + 1] buffer, then sliced.  On CUDA the adds
     are atomic and unordered; the weights are whole numbers, so float32
-    sums below 2**24 come out exact in any order."""
-    out = torch.zeros(n + 1, dtype=torch.float32, device=w.device)
-    out.index_add_(0, _drop_empty(ids, n).long().reshape(-1),
-                   w.to(torch.float32).reshape(-1))
-    return out[:n]
+    sums below 2**24 come out exact in any order.  With ``nb`` = 1 the
+    first axis of ``ids`` and ``w`` is a batch: one [n] histogram per
+    element, [B, n]."""
+    lead = ids.shape[:nb]
+    out = torch.zeros(*lead, n + 1, dtype=torch.float32, device=w.device)
+    out.scatter_add_(-1, _drop_empty(ids, n).long().reshape(*lead, -1),
+                     w.to(torch.float32).reshape(*lead, -1))
+    return out[..., :n]
 
 
 def _scatter_counts(ids: torch.Tensor, weights: torch.Tensor,
                     n: int) -> torch.Tensor:
     """Weighted histogram of node ids [P, R] -> [N]; -1 entries dropped."""
-    w = weights[:, None].expand(ids.shape)
-    return _scatter_add(n, ids, w)
+    w = weights[..., None].expand(ids.shape)
+    return _scatter_add(n, ids, w, weights.dim() - 1)
 
 
 def _anchor_rule_sat(
@@ -301,12 +326,12 @@ def _anchor_rule_sat(
     """Rule gate for ONE anchor column: the candidate shares the anchor's
     include-level ancestor and NOT its exclude-level ancestor; absent
     anchors satisfy everything; validity gates on the anchor side."""
-    aa = anchor.clamp(min=0).long()
-    sh = (anchor.shape[0],) + (1,) * (cand_inc.dim() - 1)
-    inc_same = (gids[inc][aa].reshape(sh) == cand_inc) & \
-        gid_valid[inc][aa].reshape(sh)
-    exc_same = (gids[exc][aa].reshape(sh) == cand_exc) & \
-        gid_valid[exc][aa].reshape(sh)
+    aa = anchor.clamp(min=0)
+    sh = anchor.shape + (1,) * (cand_inc.dim() - anchor.dim())
+    inc_same = (_take(gids[..., inc, :], aa).reshape(sh) == cand_inc) & \
+        _take(gid_valid[..., inc, :], aa).reshape(sh)
+    exc_same = (_take(gids[..., exc, :], aa).reshape(sh) == cand_exc) & \
+        _take(gid_valid[..., exc, :], aa).reshape(sh)
     return torch.where((anchor >= 0).reshape(sh), inc_same & ~exc_same, True)
 
 
@@ -322,19 +347,20 @@ def _hier_penalty(
     * 1e4); satisfying none costs _RULE_MISS; no anchor costs 0."""
     if gids_cand is None:
         gids_cand = gids
-    p, a_width = anchors.shape
-    n_l = gids_cand.shape[1]
+    p, a_width = anchors.shape[-2:]
+    shape = anchors.shape[:-2] + (p, gids_cand.shape[-1])
     dev = anchors.device
-    any_anchor = (anchors >= 0).any(dim=1)
-    pen = torch.full((p, n_l), _RULE_MISS, dtype=torch.float32, device=dev)
+    any_anchor = (anchors >= 0).any(dim=-1)
+    pen = torch.full(shape, _RULE_MISS, dtype=torch.float32, device=dev)
     for idx, (inc, exc) in enumerate(rules):
-        sat = torch.ones((p, n_l), dtype=torch.bool, device=dev)
+        sat = torch.ones(shape, dtype=torch.bool, device=dev)
         for ai in range(a_width):
             sat &= _anchor_rule_sat(
-                anchors[:, ai], gids_cand[inc][None, :],
-                gids_cand[exc][None, :], gids, gid_valid, inc, exc)
+                anchors[..., ai], gids_cand[..., inc, :].unsqueeze(-2),
+                gids_cand[..., exc, :].unsqueeze(-2), gids, gid_valid, inc,
+                exc)
         pen = torch.where(sat, pen.clamp(max=idx * _RULE_TIER), pen)
-    return torch.where(any_anchor[:, None], pen, 0.0)
+    return torch.where(any_anchor[..., None], pen, 0.0)
 
 
 def _hier_tier_at(
@@ -345,17 +371,17 @@ def _hier_tier_at(
     rules: StateRules,
 ) -> torch.Tensor:
     """_hier_penalty evaluated at gathered columns — O(rows * cols)."""
-    any_anchor = (anchors >= 0).any(dim=1)
-    sh = (node.shape[0],) + (1,) * (node.dim() - 1)
-    nd = node.clamp(0, gids.shape[1] - 1).long()
+    any_anchor = (anchors >= 0).any(dim=-1)
+    sh = any_anchor.shape + (1,) * (node.dim() - any_anchor.dim())
+    nd = node.clamp(0, gids.shape[-1] - 1)
     pen = torch.full(node.shape, _RULE_MISS, dtype=torch.float32,
                      device=node.device)
     for idx, (inc, exc) in enumerate(rules):
         sat = torch.ones(node.shape, dtype=torch.bool, device=node.device)
-        for ai in range(anchors.shape[1]):
+        for ai in range(anchors.shape[-1]):
             sat &= _anchor_rule_sat(
-                anchors[:, ai], gids[inc][nd], gids[exc][nd],
-                gids, gid_valid, inc, exc)
+                anchors[..., ai], _take(gids[..., inc, :], nd),
+                _take(gids[..., exc, :], nd), gids, gid_valid, inc, exc)
         pen = torch.where(sat, pen.clamp(max=idx * _RULE_TIER), pen)
     return torch.where(any_anchor.reshape(sh), pen, 0.0)
 
@@ -372,60 +398,66 @@ def _hier_floor_counts(
     (exclude groups nest inside include groups for rules with
     exclude < include): [N] histograms plus [P] gathers instead of a
     [P, N] row-min.  Returns the floor penalty [P], 0.0 with no anchor."""
-    p, a_width = anchors.shape
-    n = gids.shape[1]
+    p, a_width = anchors.shape[-2:]
+    lead = anchors.shape[:-2]
+    n = gids.shape[-1]
     dev = anchors.device
-    any_anchor = (anchors >= 0).any(dim=1)
-    floor = torch.full((p,), _RULE_MISS, dtype=torch.float32, device=dev)
-    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    any_anchor = (anchors >= 0).any(dim=-1)
+    floor = torch.full(lead + (p,), _RULE_MISS, dtype=torch.float32,
+                       device=dev)
+    ones = torch.ones(lead + (n,), dtype=torch.float32, device=dev)
     for idx, (inc, exc) in enumerate(rules):
-        gi = torch.where(valid, gids[inc], -1)
-        ge = torch.where(valid, gids[exc], -1)
-        cnt_inc = _scatter_add(n, gi, ones)
-        cnt_exc = _scatter_add(n, ge, ones)
+        g_inc, g_exc = gids[..., inc, :], gids[..., exc, :]
+        gi = torch.where(valid, g_inc, -1)
+        ge = torch.where(valid, g_exc, -1)
+        cnt_inc = _scatter_add(n, gi, ones, len(lead))
+        cnt_exc = _scatter_add(n, ge, ones, len(lead))
 
         # Shared include group across present anchors (else unsatisfiable).
-        g = torch.full((p,), -1, dtype=torch.int32, device=dev)
-        ok = torch.ones(p, dtype=torch.bool, device=dev)
+        g = torch.full(lead + (p,), -1, dtype=torch.int32, device=dev)
+        ok = torch.ones(lead + (p,), dtype=torch.bool, device=dev)
         for ai in range(a_width):
-            a = anchors[:, ai]
-            aa = a.clamp(min=0).long()
-            a_g = torch.where(gid_valid[inc][aa], gids[inc][aa], -2)
+            a = anchors[..., ai]
+            aa = a.clamp(min=0)
+            a_g = torch.where(_take(gid_valid[..., inc, :], aa),
+                              _take(g_inc, aa), -2)
             present = a >= 0
             ok &= torch.where(present & (g >= 0), a_g == g, True)
             ok &= torch.where(present & (g < 0), a_g >= 0, True)
             g = torch.where(present & (g < 0), a_g, g)
 
         # Exclusion mass: distinct exclude groups among present anchors.
-        excl = torch.zeros(p, dtype=torch.float32, device=dev)
+        excl = torch.zeros(lead + (p,), dtype=torch.float32, device=dev)
         e_seen: list[torch.Tensor] = []
         for ai in range(a_width):
-            a = anchors[:, ai]
-            aa = a.clamp(min=0).long()
-            e = torch.where((a >= 0) & gid_valid[exc][aa], gids[exc][aa], -1)
-            dup = torch.zeros(p, dtype=torch.bool, device=dev)
+            a = anchors[..., ai]
+            aa = a.clamp(min=0)
+            e = torch.where((a >= 0) & _take(gid_valid[..., exc, :], aa),
+                            _take(g_exc, aa), -1)
+            dup = torch.zeros(lead + (p,), dtype=torch.bool, device=dev)
             for prev_e in e_seen:
                 dup |= (e == prev_e) & (e >= 0)
             excl += torch.where((e >= 0) & ~dup,
-                                cnt_exc[e.clamp(0, n - 1).long()], 0.0)
+                                _take(cnt_exc, e.clamp(0, n - 1)), 0.0)
             e_seen.append(e)
 
         count = torch.where(ok & (g >= 0),
-                            cnt_inc[g.clamp(0, n - 1).long()] - excl, 0.0)
+                            _take(cnt_inc, g.clamp(0, n - 1)) - excl, 0.0)
 
         # Taken-aware: the row's own occupied nodes in the include group
         # but outside every counted exclude group are not attainable.
         if taken_stack is not None:
             t_seen: list[torch.Tensor] = []
-            for ti in range(taken_stack.shape[1]):
-                u = taken_stack[:, ti]
-                uu = u.clamp(0, n - 1).long()
-                ok_u = (u >= 0) & valid[uu]
-                in_g = ok_u & (gids[inc][uu] == g) & (g >= 0)
-                in_excl = torch.zeros(p, dtype=torch.bool, device=dev)
+            for ti in range(taken_stack.shape[-1]):
+                u = taken_stack[..., ti]
+                uu = u.clamp(0, n - 1)
+                ok_u = (u >= 0) & _take(valid, uu)
+                in_g = ok_u & (_take(g_inc, uu) == g) & (g >= 0)
+                in_excl = torch.zeros(lead + (p,), dtype=torch.bool,
+                                      device=dev)
                 for e in e_seen:
-                    in_excl |= (e >= 0) & (gids[exc][uu] == e)
-                dup = torch.zeros(p, dtype=torch.bool, device=dev)
+                    in_excl |= (e >= 0) & (_take(g_exc, uu) == e)
+                dup = torch.zeros(lead + (p,), dtype=torch.bool, device=dev)
                 for prev_u in t_seen:
                     dup |= (u == prev_u) & (u >= 0)
                 count = count - torch.where(in_g & ~in_excl & ~dup, 1.0, 0.0)
@@ -440,11 +472,11 @@ def _member_ids(ids: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
     """[P, K] GLOBAL node ids x [N] column ids -> [P, N] membership, as K
     broadcast compares ORed together; -1 ids never match."""
     out = None
-    for k in range(ids.shape[1]):
-        m = ids[:, k][:, None] == cols[None, :]
+    for k in range(ids.shape[-1]):
+        m = ids[..., k, None] == cols
         out = m if out is None else (out | m)
     if out is None:  # K == 0
-        return torch.zeros((ids.shape[0], cols.shape[0]), dtype=torch.bool,
+        return torch.zeros(ids.shape[:-1] + cols.shape, dtype=torch.bool,
                            device=ids.device)
     return out
 
@@ -452,7 +484,7 @@ def _member_ids(ids: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
 def _in_id_list(node: torch.Tensor,
                 id_list: list[torch.Tensor]) -> torch.Tensor:
     """[P] node id -> [P] bool: held by any of the [P] id columns."""
-    out = torch.zeros(node.shape[0], dtype=torch.bool, device=node.device)
+    out = torch.zeros(node.shape, dtype=torch.bool, device=node.device)
     for ids in id_list:
         out = out | ((node == ids) & (node >= 0))
     return out
@@ -461,8 +493,9 @@ def _in_id_list(node: torch.Tensor,
 def _gather_cols(mat: torch.Tensor, rows: torch.Tensor,
                  cols_global: torch.Tensor) -> torch.Tensor:
     """mat[rows, cols] (one device: global column ids are local)."""
-    n_l = mat.shape[1]
-    return mat[rows.long(), cols_global.clamp(0, n_l - 1).long()]
+    n_l = mat.shape[-1]
+    return _take(mat.flatten(-2),
+                 rows.long() * n_l + cols_global.clamp(0, n_l - 1).long())
 
 
 def _segment_accept(
@@ -473,14 +506,17 @@ def _segment_accept(
 ) -> torch.Tensor:
     """Per-node prefix acceptance: keep entries while the running weight
     on their node fits ``cap_here``; the first entry per node always fits
-    if the node has any capacity (the auction's progress rule)."""
-    csum = torch.cumsum(w_s, dim=0)
+    if the node has any capacity (the auction's progress rule).  The
+    scans run per batch element, so no element's weight enters another's
+    prefix."""
+    csum = torch.cumsum(w_s, dim=-1)
     ecs = csum - w_s  # exclusive prefix over ALL entries
     seg_start = torch.cat(
-        [torch.ones(1, dtype=torch.bool, device=node_s.device),
-         node_s[1:] != node_s[:-1]])
+        [torch.ones(node_s.shape[:-1] + (1,), dtype=torch.bool,
+                    device=node_s.device),
+         node_s[..., 1:] != node_s[..., :-1]], dim=-1)
     seg_base = torch.cummax(
-        torch.where(seg_start, ecs, -float("inf")), dim=0).values
+        torch.where(seg_start, ecs, -float("inf")), dim=-1).values
     before_me = ecs - seg_base  # weight of earlier entries on my node
     return ok_s & (
         (before_me + w_s <= cap_here) | (before_me == 0.0) & (cap_here > 0))
@@ -488,10 +524,10 @@ def _segment_accept(
 
 def _scatter_set(p: int, perm: torch.Tensor, vals: torch.Tensor,
                  fill=False) -> torch.Tensor:
-    """``full(p, fill).at[perm].set(vals)`` for a permutation ``perm``."""
-    out = torch.full((p,), fill, dtype=vals.dtype, device=vals.device)
-    out[perm] = vals
-    return out
+    """``full(p, fill).at[perm].set(vals)`` for a permutation ``perm``
+    (per batch element for [B, P])."""
+    out = torch.full(perm.shape, fill, dtype=vals.dtype, device=vals.device)
+    return out.scatter_(-1, perm.long(), vals)
 
 
 def _pin_prev_holders(
@@ -509,38 +545,45 @@ def _pin_prev_holders(
     node's load + stickiness) * node_weight); holders barred from the
     emptiest node by exclusivity keep their place first, then partition
     order; the first holder per node always stays.  ``lax.cond`` became an
-    ``if`` on one host-read flag."""
-    p = prev_slot.shape[0]
-    n = cap.shape[0]
+    ``if`` on one host-read flag; over a batch, the trim runs when any
+    element needs it and is selected back per element (vmap's rule)."""
+    p = prev_slot.shape[-1]
+    n = cap.shape[-1]
+    nb = cap.dim() - 1
     dev = prev_slot.device
     pin_w = torch.where(pin_ok, pweights, 0.0)
-    node_w = _scatter_add(n, prev_slot, pin_w)
+    node_w = _scatter_add(n, prev_slot, pin_w, nb)
     div = load_div if load_div is not None else \
         torch.ones(n, dtype=torch.float32, device=dev)
     load = node_w / div
     inf = torch.tensor(float("inf"), device=dev)
-    lmin = torch.where(cap > 0, load, inf).min() if n else inf
+    lmin = torch.where(cap > 0, load, inf).amin(dim=-1, keepdim=True) \
+        if n else inf
 
-    if not bool((node_w > cap).any()):
+    need = (node_w > cap).any(dim=-1)
+    if not bool(need.any()):
         # Common case (caps only grew): every eligible holder fits.
         return pin_ok
     if taken_stack is not None:
-        deficit_node = torch.argmin(torch.where(cap > 0, load, inf))
-        blocked = (taken_stack == deficit_node).any(dim=1)
-        perm1 = torch.argsort((~blocked).to(torch.int32), stable=True)
+        deficit_node = torch.argmin(torch.where(cap > 0, load, inf), dim=-1)
+        blocked = (taken_stack == deficit_node[..., None, None]).any(dim=-1)
+        perm1 = torch.argsort((~blocked).to(torch.int32), dim=-1,
+                              stable=True)
     else:
-        perm1 = torch.arange(p, device=dev)
+        perm1 = torch.arange(p, device=dev).expand(prev_slot.shape)
     sort_node = torch.where(pin_ok, prev_slot, n)
-    perm2 = torch.argsort(sort_node[perm1], stable=True)  # groups by node
-    perm = perm1[perm2]
-    node_s = sort_node[perm]
-    ok_s = pin_ok[perm]
-    w_s = torch.where(ok_s, pweights[perm], 0.0)
-    nclip = node_s.clamp(0, n - 1).long()
-    band = (lmin + slack[perm]) * div[nclip]
-    cap_here = torch.maximum(cap[nclip], band)
+    perm2 = torch.argsort(_take(sort_node, perm1), dim=-1,
+                          stable=True)  # groups by node
+    perm = _take(perm1, perm2)
+    node_s = _take(sort_node, perm)
+    ok_s = _take(pin_ok, perm)
+    w_s = torch.where(ok_s, _take(pweights, perm), 0.0)
+    nclip = node_s.clamp(0, n - 1)
+    band = (lmin + _take(slack, perm)) * _take(div, nclip)
+    cap_here = torch.maximum(_take(cap, nclip), band)
     keep_s = _segment_accept(node_s, ok_s, w_s, cap_here)
-    return _scatter_set(p, perm, keep_s)
+    keep = _scatter_set(p, perm, keep_s)
+    return torch.where(need[..., None], keep, pin_ok)
 
 
 def _sparse_score_cols(
@@ -614,10 +657,18 @@ def _assign_slot(
     (phase B), raise the rail by ``topup_share`` when a round stalls with
     feasible bidders left; then force whatever is left onto its best
     feasible node.  The JAX ``while_loop`` is a Python loop that reads its
-    exit flag back to the host once per round."""
-    n = cap.shape[0]
+    exit flag back to the host once per round.
+
+    Over a batch ([B, P] / [B, N]) the loop runs while any element runs,
+    and an element whose own exit test failed keeps its carry (the rule
+    ``vmap`` gives a ``while_loop`` with a batched predicate); the force
+    step runs when any element has an unassigned row and adds 0.0 to the
+    others' fill, which leaves it bitwise unchanged.  Rounds run are
+    counted in ``_assign_slot.rounds``."""
+    n = cap.shape[-1]
+    nb = cap.dim() - 1
     dev = pweights.device
-    zeros_n = torch.zeros(n, dtype=torch.float32, device=dev)
+    zeros_n = torch.zeros_like(cap)
 
     if has_rules:
         raw_best_all, _, _, _ = min2_fn(zeros_n)
@@ -629,18 +680,22 @@ def _assign_slot(
         hard_feasible = hard_feasible & allow
 
     if init_assign is None:
-        init_assign = torch.full((p,), -1, dtype=torch.int32, device=dev)
+        init_assign = torch.full(pweights.shape, -1, dtype=torch.int32,
+                                 device=dev)
     if init_used is None:
         init_used = zeros_n
     slot_assign = init_assign
     unassigned = init_assign < 0
     rem_cap = cap - init_used
     used = init_used
-    progress = torch.tensor(True, device=dev)
+    progress = torch.ones(cap.shape[:-1], dtype=torch.bool, device=dev)
     it = 0
 
-    while it < _MAX_AUCTION_ROUNDS and \
-            bool((unassigned.any() & progress).item()):
+    while it < _MAX_AUCTION_ROUNDS:
+        run = unassigned.any(dim=-1) & progress
+        if not bool(run.any().item()):
+            break
+        carry0 = (slot_assign, unassigned, rem_cap, used, progress)
         price_vec = used * price_scale + torch.where(rem_cap > 0, 0.0, _INF)
         best, choice, second, raw_choice = min2_fn(price_vec)
         margin = torch.clamp(
@@ -659,48 +714,48 @@ def _assign_slot(
         # inactive bidders sort to the end.
         inv_margin = torch.where(active, -margin, float("inf"))
         sort_choice = torch.where(active, choice, n)
-        perm1 = torch.argsort(inv_margin, stable=True)
-        perm2 = torch.argsort(sort_choice[perm1], stable=True)
-        perm = perm1[perm2]
+        perm1 = torch.argsort(inv_margin, dim=-1, stable=True)
+        perm2 = torch.argsort(_take(sort_choice, perm1), dim=-1, stable=True)
+        perm = _take(perm1, perm2)
 
-        choice_l = choice.long()
-        choice_s = choice_l[perm]
-        w_s = pweights[perm]
-        active_s = active[perm]
+        choice_s = _take(choice, perm)
+        w_s = _take(pweights, perm)
+        active_s = _take(active, perm)
         accept_s = _segment_accept(
             choice_s, active_s, torch.where(active_s, w_s, 0.0),
-            rem_cap[choice_s])
+            _take(rem_cap, choice_s))
 
         accept = _scatter_set(p, perm, accept_s)
         slot_assign = torch.where(accept, choice, slot_assign)
         unassigned = unassigned & ~accept
 
         used_round = _scatter_add(n, choice, torch.where(accept, pweights,
-                                                         0.0))
+                                                         0.0), nb)
         rem_cap = rem_cap - used_round
         used = used + used_round
 
         # Phase B — waterfall into the remaining capacity by price.
         price = used * price_scale
-        node_order = torch.argsort(price, stable=True)
-        rem_sorted = rem_cap.clamp(min=0.0)[node_order]
-        cum_rem = torch.cumsum(rem_sorted, dim=0)
+        node_order = torch.argsort(price, dim=-1, stable=True)
+        rem_sorted = _take(rem_cap.clamp(min=0.0), node_order)
+        cum_rem = torch.cumsum(rem_sorted, dim=-1)
 
         straggler = active & ~accept
         skey = torch.where(straggler, -margin, float("inf"))
-        sperm = torch.argsort(skey, stable=True)
-        s_mask = straggler[sperm]
-        s_w = torch.where(s_mask, pweights[sperm], 0.0)
-        s_excl = torch.cumsum(s_w, dim=0) - s_w
+        sperm = torch.argsort(skey, dim=-1, stable=True)
+        s_mask = _take(straggler, sperm)
+        s_w = torch.where(s_mask, _take(pweights, sperm), 0.0)
+        s_excl = torch.cumsum(s_w, dim=-1) - s_w
         pos = torch.searchsorted(cum_rem, s_excl + 0.5 * s_w, right=True)
         in_range = pos < n
-        choice2 = node_order[pos.clamp(0, n - 1)].to(torch.int32)
+        choice2 = _take(node_order, pos.clamp(0, n - 1)).to(torch.int32)
 
         raw2 = score_at_fn(sperm, choice2)
         hard_ok = raw2 < _INF / 2
         if has_rules:
-            soft_ok = (raw2 < raw_best_all[sperm] + _RULE_TIER * 0.5) | \
-                (raw_best_all[sperm] >= _RULE_MISS / 2)
+            best_s = _take(raw_best_all, sperm)
+            soft_ok = (raw2 < best_s + _RULE_TIER * 0.5) | \
+                (best_s >= _RULE_MISS / 2)
             accept2_s = s_mask & in_range & hard_ok & soft_ok
         else:
             accept2_s = s_mask & in_range & hard_ok
@@ -711,19 +766,27 @@ def _assign_slot(
         unassigned = unassigned & ~accept2
 
         used2 = _scatter_add(n, choice2_un, torch.where(accept2, pweights,
-                                                        0.0))
+                                                        0.0), nb)
         rem_cap = rem_cap - used2
         used = used + used2
 
-        progress = (accept | accept2).any()
+        progress = (accept | accept2).any(dim=-1)
         if topup_share is not None:
             rem_w = torch.where(unassigned & hard_feasible, pweights,
-                                0.0).sum()
-            stalled = ~progress & (rem_w > 0)
+                                0.0).sum(dim=-1, keepdim=True)
+            stalled = ~progress[..., None] & (rem_w > 0)
             topup = torch.ceil(rem_w * topup_share)
             rem_cap = torch.where(stalled, rem_cap + topup, rem_cap)
-            progress = progress | (stalled & (topup > 0).any())
+            progress = progress | (stalled[..., 0] & (topup > 0).any(dim=-1))
+        # Elements whose exit test failed keep their carry.
+        slot_assign, unassigned, rem_cap, used, progress = (
+            torch.where(run.reshape(run.shape + (1,) * (new.dim()
+                                                       - run.dim())),
+                        new, old)
+            for new, old in zip((slot_assign, unassigned, rem_cap, used,
+                                 progress), carry0))
         it += 1
+        _assign_slot.rounds += 1
 
     # Force step: remaining partitions take their best feasible node,
     # ignoring capacity; skipped when the rounds assigned everyone.
@@ -734,42 +797,51 @@ def _assign_slot(
             forced = forced & allow
         slot_assign = torch.where(forced, choice, slot_assign)
         used = used + _scatter_add(n, choice, torch.where(forced, pweights,
-                                                          0.0))
+                                                          0.0), nb)
     return slot_assign, used
+
+
+_assign_slot.rounds = 0
 
 
 def _matrix_score(total, total_p, w_div, neg_boost, valid, stick_si,
                   prev_slot, prev_state_ids, anchors, gids, gid_valid,
                   state_rules: StateRules, taken_ids) -> torch.Tensor:
-    """The matrix engine's score[P, N], term order as the reference's
-    build (tensor.py:1526-1560), in row chunks so that temporaries stay
-    bounded at any P.  The fill term is ``fill_term`` (XLA's fold of
-    ``0.001 * total / P``, or its one division under a traced ``p_real``)
-    and the jitter add rounds once (``jitter_add``, XLA's fused
-    multiply-add)."""
-    p = prev_slot.shape[0]
-    n = total.shape[0]
+    """The matrix engine's score[P, N] ([B, P, N] for a batch), term
+    order as the reference's build (tensor.py:1526-1560), in row chunks
+    so that temporaries stay bounded at any P.  The fill term is
+    ``fill_term`` (XLA's fold of ``0.001 * total / P``, or its one
+    division under a traced ``p_real``) and the jitter add rounds once
+    (``jitter_add``, XLA's fused multiply-add).  The jitter hashes each
+    element's own row and column ids."""
+    p = prev_slot.shape[-1]
+    n = total.shape[-1]
+    lead = total.shape[:-1]
     dev = total.device
     cols = torch.arange(n, dtype=torch.int32, device=dev)
-    score_row = fill_term(total[None, :], total_p, w_div[None, :])
-    nb = neg_boost[None, :]
-    taken = torch.stack(list(taken_ids), dim=1) if taken_ids else None
-    out = torch.empty((p, n), dtype=torch.float32, device=dev)
-    step = max(1, _ROW_CELLS // max(n, 1))
+    score_row = fill_term(total, total_p, w_div).unsqueeze(-2)
+    nb = neg_boost.unsqueeze(-2)
+    bad = ~valid.unsqueeze(-2)
+    taken = torch.stack(list(taken_ids), dim=-1) if taken_ids else None
+    out = torch.empty(lead + (p, n), dtype=torch.float32, device=dev)
+    step = max(1, _ROW_CELLS // max(n * int(np.prod(lead, dtype=np.int64)),
+                                    1))
     for lo in range(0, p, step):
         hi = min(p, lo + step)
-        st = stick_si[lo:hi, None]
-        score = score_row - 0.01 * _member_ids(prev_slot[lo:hi, None], cols)
+        st = stick_si[..., lo:hi, None]
+        score = score_row - 0.01 * _member_ids(prev_slot[..., lo:hi, None],
+                                               cols)
         score = score + torch.maximum(nb, torch.where(nb > 0, st, 0.0))
-        score = score - st * _member_ids(prev_state_ids[lo:hi], cols)
+        score = score - st * _member_ids(prev_state_ids[..., lo:hi, :], cols)
         if state_rules:
-            score = score + _hier_penalty(anchors[lo:hi], gids, gid_valid,
-                                          state_rules)
-        tk = _member_ids(taken[lo:hi], cols) if taken is not None else \
-            torch.zeros((hi - lo, n), dtype=torch.bool, device=dev)
-        score = score + _INF * (tk | ~valid[None, :])
+            score = score + _hier_penalty(anchors[..., lo:hi, :], gids,
+                                          gid_valid, state_rules)
+        tk = _member_ids(taken[..., lo:hi, :], cols) \
+            if taken is not None else \
+            torch.zeros(lead + (hi - lo, n), dtype=torch.bool, device=dev)
+        score = score + _INF * (tk | bad)
         pi = torch.arange(lo, hi, dtype=torch.int32, device=dev)[:, None]
-        out[lo:hi] = jitter_add(score, pi, cols[None, :], _JITTER)
+        out[..., lo:hi, :] = jitter_add(score, pi, cols[None, :], _JITTER)
     return out
 
 
@@ -799,9 +871,14 @@ def _solve_assign(
     some slot, for the per-row dense fallback.  ``carry_used`` must equal
     the per-state scatter of ``prev``; the seed then reads it instead of
     re-scattering, bitwise the same.  The single-device branches of the
-    reference's _solve_assign."""
-    p, s, r_max = prev.shape
-    n = nweights.shape[0]
+    reference's _solve_assign.
+
+    The dense engines also take a batch of same-shaped problems: every
+    array with a leading [B] axis and ``p_real`` a [B] tensor (the fleet
+    tier); each element's result is its single solve's."""
+    p, s, r_max = prev.shape[-3:]
+    lead = prev.shape[:-3]
+    n = nweights.shape[-1]
     dev = prev.device
     if fused_score not in ("off", "on"):
         raise ValueError(f"unresolved fused-score mode: {fused_score!r}")
@@ -810,108 +887,117 @@ def _solve_assign(
             "sparse solve requires nesting hierarchy rules "
             "(exclude_level < include_level for every rule); use the "
             "dense engines for exotic rule shapes")
+    if shortlist is not None and lead:
+        raise ValueError("the sparse engine solves one problem at a time")
     if constraints and max(constraints) > r_max:
         raise ValueError(
             f"prev slot depth R={r_max} < max constraints {max(constraints)}")
 
-    total_p = p if p_real is None else \
-        torch.as_tensor(p_real, dtype=torch.float32, device=dev)
-    total_w = pweights.sum()
+    total_p = p if p_real is None else torch.as_tensor(
+        p_real, dtype=torch.float32, device=dev).reshape(lead + (1,))
+    total_w = pweights.sum(dim=-1, keepdim=True)
     w_div = torch.where(nweights > 0, nweights, 1.0)
     neg_boost = torch.where(nweights < 0, -nweights, 0.0)
     cap_w = torch.where(valid & (nweights >= 0), nweights.clamp(min=1.0), 0.0)
-    cap_share = cap_w / cap_w.sum().clamp(min=1.0)
+    cap_share = cap_w / cap_w.sum(dim=-1, keepdim=True).clamp(min=1.0)
 
     # Seed the total-fill factor from prev (plan.go:94), or off the carry.
     if carry_used is not None:
-        total = carry_used.sum(dim=0)
+        total = carry_used.sum(dim=-2)
     else:
-        total = _used_by_state(prev, pweights, n, s).sum(dim=0)
+        total = _used_by_state(prev, pweights, n, s).sum(dim=-2)
 
-    assign = torch.full((p, s, r_max), -1, dtype=torch.int32, device=dev)
-    exhausted = torch.zeros(p, dtype=torch.bool, device=dev)
+    assign = torch.full(lead + (p, s, r_max), -1, dtype=torch.int32,
+                        device=dev)
+    exhausted = torch.zeros(lead + (p,), dtype=torch.bool, device=dev)
     taken_ids: list[torch.Tensor] = []
-    top_anchor = prev[:, 0, 0]
-    arange_p = torch.arange(p, device=dev)
+    top_anchor = prev[..., 0, 0]
+    arange_p = torch.arange(p, device=dev).expand(lead + (p,))
+    no_id = torch.full(lead + (p,), -1, dtype=torch.int32, device=dev)
 
     for si in range(s):
         k = constraints[si]
         if k <= 0:
             continue
-        total = total - (carry_used[si] if carry_used is not None else
-                         _scatter_counts(prev[:, si, :], pweights, n))
-        prev_state_ids = prev[:, si, :]
-        anchor = torch.where(assign[:, 0, 0] >= 0, assign[:, 0, 0],
+        total = total - (carry_used[..., si, :] if carry_used is not None
+                         else _scatter_counts(prev[..., si, :], pweights, n))
+        prev_state_ids = prev[..., si, :]
+        anchor = torch.where(assign[..., 0, 0] >= 0, assign[..., 0, 0],
                              top_anchor) if si > 0 else top_anchor
 
         # Warm start, decided per STATE across all k ordinals.
         kk = min(k, r_max)
-        prev_k = prev[:, si, :kk]
-        safe_k = prev_k.clamp(0, n - 1).long()
+        prev_k = prev[..., si, :kk]
+        safe_k = prev_k.clamp(0, n - 1)
         taken_prev = torch.stack(
-            [_in_id_list(prev_k[:, j], taken_ids) for j in range(kk)], dim=1)
-        pin_ok_k = (prev_k >= 0) & valid[safe_k] & ~taken_prev & \
-            (neg_boost[safe_k] <= stickiness[:, si][:, None])
+            [_in_id_list(prev_k[..., j], taken_ids) for j in range(kk)],
+            dim=-1)
+        pin_ok_k = (prev_k >= 0) & _take(valid, safe_k) & ~taken_prev & \
+            (_take(neg_boost, safe_k) <= stickiness[..., si][..., None])
         for j in range(1, kk):
-            dup = torch.zeros(p, dtype=torch.bool, device=dev)
+            dup = torch.zeros(lead + (p,), dtype=torch.bool, device=dev)
             for i in range(j):
-                dup |= (prev_k[:, j] == prev_k[:, i]) & (prev_k[:, j] >= 0)
-            pin_ok_k[:, j] = pin_ok_k[:, j] & ~dup
+                dup |= (prev_k[..., j] == prev_k[..., i]) & \
+                    (prev_k[..., j] >= 0)
+            pin_ok_k[..., j] = pin_ok_k[..., j] & ~dup
         anchors = None
         if rules[si]:
-            anchors = torch.full((p, 1 + k), -1, dtype=torch.int32,
+            anchors = torch.full(lead + (p, 1 + k), -1, dtype=torch.int32,
                                  device=dev)
-            anchors[:, 0] = anchor
+            anchors[..., 0] = anchor
             counts_ok = all(exc < inc for (inc, exc) in rules[si])
             for j in range(kk):
                 if counts_ok:
                     floor_j = _hier_floor_counts(
-                        anchors[:, :1 + j], gids, gid_valid, valid, rules[si])
-                    hier_at_prev = _hier_tier_at(
-                        anchors[:, :1 + j], safe_k[:, j], gids, gid_valid,
+                        anchors[..., :1 + j], gids, gid_valid, valid,
                         rules[si])
+                    hier_at_prev = _hier_tier_at(
+                        anchors[..., :1 + j], safe_k[..., j], gids,
+                        gid_valid, rules[si])
                 else:
-                    hier_j = _hier_penalty(anchors[:, :1 + j], gids,
+                    hier_j = _hier_penalty(anchors[..., :1 + j], gids,
                                            gid_valid, rules[si])
-                    floor_j = torch.where(valid[None, :], hier_j,
-                                          _INF).amin(dim=1)
+                    floor_j = torch.where(valid.unsqueeze(-2), hier_j,
+                                          _INF).amin(dim=-1)
                     hier_at_prev = _gather_cols(hier_j, arange_p,
-                                                safe_k[:, j])
-                ok_j = pin_ok_k[:, j] & (
+                                                safe_k[..., j])
+                ok_j = pin_ok_k[..., j] & (
                     hier_at_prev < floor_j + _RULE_TIER * 0.5)
-                pin_ok_k[:, j] = ok_j
-                anchors[:, 1 + j] = torch.where(ok_j, prev_k[:, j], -1)
+                pin_ok_k[..., j] = ok_j
+                anchors[..., 1 + j] = torch.where(ok_j, prev_k[..., j], -1)
         state_cap = torch.ceil(k * total_w * cap_share)
         pins = _pin_prev_holders(
-            prev_k.reshape(-1),
-            pin_ok_k.reshape(-1),
-            torch.repeat_interleave(pweights, kk),
+            prev_k.reshape(lead + (-1,)),
+            pin_ok_k.reshape(lead + (-1,)),
+            torch.repeat_interleave(pweights, kk, dim=-1),
             state_cap,
-            torch.repeat_interleave(stickiness[:, si], kk),
+            torch.repeat_interleave(stickiness[..., si], kk, dim=-1),
             load_div=w_div,
             taken_stack=(torch.repeat_interleave(
-                torch.stack(taken_ids, dim=1), kk, dim=0)
+                torch.stack(taken_ids, dim=-1), kk, dim=-2)
                 if taken_ids else None),
-        ).reshape(p, kk)
+        ).reshape(lead + (p, kk))
         pin_base = len(taken_ids)
         for j in range(kk):
-            taken_ids.append(torch.where(pins[:, j], prev_k[:, j], -1))
+            taken_ids.append(torch.where(pins[..., j], prev_k[..., j], -1))
         if rules[si]:
             # Re-seed anchors from the capacity-trimmed pins.
-            anchors = torch.full((p, 1 + k), -1, dtype=torch.int32,
+            anchors = torch.full(lead + (p, 1 + k), -1, dtype=torch.int32,
                                  device=dev)
-            anchors[:, 0] = anchor
+            anchors[..., 0] = anchor
             for j in range(kk):
-                anchors[:, 1 + j] = torch.where(pins[:, j], prev_k[:, j], -1)
+                anchors[..., 1 + j] = torch.where(pins[..., j],
+                                                  prev_k[..., j], -1)
 
         for ri in range(k):
             if ri < kk:
-                init_assign = torch.where(pins[:, ri], prev[:, si, ri], -1)
+                init_assign = torch.where(pins[..., ri], prev[..., si, ri],
+                                          -1)
             else:
-                init_assign = torch.full((p,), -1, dtype=torch.int32,
-                                         device=dev)
+                init_assign = no_id
             pin_used = _scatter_add(
-                n, init_assign, torch.where(init_assign >= 0, pweights, 0.0))
+                n, init_assign, torch.where(init_assign >= 0, pweights, 0.0),
+                len(lead))
 
             if bool((init_assign >= 0).all()):
                 # Every copy pinned (the confirming sweep's common case):
@@ -920,22 +1006,21 @@ def _solve_assign(
             else:
                 slot_assign, used, exh_slot = _run_auction(
                     fused_score, p, n, total, w_div, neg_boost, valid,
-                    stickiness[:, si],
-                    prev[:, si, ri] if ri < r_max else
-                    torch.full((p,), -1, dtype=torch.int32, device=dev),
+                    stickiness[..., si],
+                    prev[..., si, ri] if ri < r_max else no_id,
                     prev_state_ids, anchors, gids, gid_valid, rules[si],
                     tuple(taken_ids), pweights, total_w, cap_share,
                     init_assign, pin_used, shortlist, total_p)
                 exhausted = exhausted | exh_slot
 
-            assign[:, si, ri] = slot_assign
+            assign[..., si, ri] = slot_assign
             total = total + used
             if ri < kk:
                 taken_ids[pin_base + ri] = slot_assign  # supersedes the pin
             else:
                 taken_ids.append(slot_assign)
             if rules[si]:
-                anchors[:, 1 + ri] = slot_assign
+                anchors[..., 1 + ri] = slot_assign
     return assign, exhausted
 
 
@@ -948,8 +1033,9 @@ def _run_auction(fused_score, p, n, total, w_div, neg_boost, valid,
     the sparse engine's [P, K] table (None on the dense engines);
     ``total_p`` the fill term's partition count (see fill_term)."""
     dev = total.device
+    lead = total.shape[:-1]
     anchors_k = anchors if state_rules else \
-        torch.full((p, 1), -1, dtype=torch.int32, device=dev)
+        torch.full(lead + (p, 1), -1, dtype=torch.int32, device=dev)
     if shortlist is not None:
         # Sparse engine: the matrix formula at the [P, K] shortlist
         # columns only; phase B's probes outside a row's shortlist score
@@ -1006,7 +1092,7 @@ def _run_auction(fused_score, p, n, total, w_div, neg_boost, valid,
 
         def min2_fn(price_vec):
             b, c, s2 = priced_min2_argmin(score, price_vec)
-            raw = score.gather(1, c.long()[:, None])[:, 0]
+            raw = score.gather(-1, c.long()[..., None])[..., 0]
             return b, c, s2, raw
 
         def score_at_fn(rows, cols_global):
@@ -1017,14 +1103,14 @@ def _run_auction(fused_score, p, n, total, w_div, neg_boost, valid,
     else:
         # Rule-less hard feasibility without a [P, N] row-min: an allowed
         # node exists iff the taken VALID nodes are fewer than all valid.
-        n_valid_total = valid.to(torch.int32).sum()
-        tkn = torch.zeros(p, dtype=torch.int32, device=dev)
+        n_valid_total = valid.to(torch.int32).sum(dim=-1, keepdim=True)
+        tkn = torch.zeros(lead + (p,), dtype=torch.int32, device=dev)
         for tid in taken_ids:
-            tkn += ((tid >= 0) & valid[tid.clamp(0, n - 1).long()]) \
+            tkn += ((tid >= 0) & _take(valid, tid.clamp(0, n - 1))) \
                 .to(torch.int32)
         feasible_hint = tkn < n_valid_total
     allow = None
-    exh_slot = torch.zeros(p, dtype=torch.bool, device=dev)
+    exh_slot = torch.zeros(lead + (p,), dtype=torch.bool, device=dev)
     if shortlist is not None:
         # Shortlist adequacy against GLOBAL state: a row takes this slot
         # only when its shortlist best reaches the globally attainable
@@ -1077,16 +1163,47 @@ def _solve_dense_converged_impl(prev, pweights, nweights, valid, stickiness,
     read of the changed flag per sweep.  ``carry_used`` seeds the FIRST
     sweep only: later sweeps re-derive their seed from their own input;
     ``p_real`` is the real partition count under padding (see
-    _solve_assign)."""
+    _solve_assign).
+
+    Over a batch ([B, P, S, R] and the other arrays with a leading [B],
+    ``p_real`` [B]) each element iterates until its own map stops
+    changing, as ``vmap`` runs a ``while_loop`` with a batched
+    predicate: a converged element is frozen, and later sweeps solve
+    only the elements still changing (a subset, which changes no
+    element's result).  Returns (assign[B, P, S, R], sweeps[B] int)."""
     def solve(x, cu=None):
         return solve_dense(x, pweights, nweights, valid, stickiness, gids,
                            gid_valid, constraints, rules, fused_score,
                            carry_used=cu, p_real=p_real)
 
-    out, prev_i, it = solve(prev, carry_used), prev, 1
-    while it < max_iterations and bool((out != prev_i).any()):
-        out, prev_i, it = solve(out), out, it + 1
-    return out, it
+    if prev.dim() == 3:
+        out, prev_i, it = solve(prev, carry_used), prev, 1
+        while it < max_iterations and bool((out != prev_i).any()):
+            out, prev_i, it = solve(out), out, it + 1
+        return out, it
+
+    out = solve(prev, carry_used)
+    last_in = prev
+    sweeps = torch.ones(prev.shape[0], dtype=torch.int64)
+    live = torch.arange(prev.shape[0], device=prev.device)
+    pr = None if p_real is None else \
+        torch.as_tensor(p_real, dtype=torch.float32, device=prev.device)
+    for _ in range(1, max_iterations):
+        changed = (out[live] != last_in[live]).flatten(1).any(dim=1)
+        live = live[changed]
+        if live.numel() == 0:
+            break
+        x = out[live]
+        y = solve_dense(x, pweights[live], nweights[live], valid[live],
+                        stickiness[live], gids[live], gid_valid[live],
+                        constraints, rules, fused_score,
+                        p_real=None if pr is None else pr[live])
+        last_in = last_in.clone()
+        last_in[live] = x
+        out = out.clone()
+        out[live] = y
+        sweeps[live.cpu()] += 1
+    return out, sweeps
 
 
 def _record_sweeps(sweeps: int) -> None:
@@ -1254,7 +1371,7 @@ def _warm_repair(prev, pweights, nweights, valid, stickiness, gids,
                  rules: Rules, fused_score: str = "off", p_real=None):
     """ONE carry-seeded repair sweep and its acceptance flag; returns
     (assign, new_used[S, N], ok) with ``ok`` a 0-d bool tensor on the
-    device.
+    device (over a batch: [B, S, N] and ``ok`` [B], one flag each).
 
     The sweep is ``solve_dense`` itself with the totals seeded from the
     carry, so it equals a cold solve's first sweep exactly; what a warm
@@ -1263,8 +1380,8 @@ def _warm_repair(prev, pweights, nweights, valid, stickiness, gids,
     out = solve_dense(prev, pweights, nweights, valid, stickiness, gids,
                       gid_valid, constraints, rules, fused_score,
                       carry_used=carry_used, p_real=p_real)
-    new_used = _used_by_state(out, pweights, nweights.shape[0],
-                              prev.shape[1])
+    new_used = _used_by_state(out, pweights, nweights.shape[-1],
+                              prev.shape[-2])
     ok = _repair_ok(prev, out, new_used, carry_used, dirty, pweights,
                     nweights, valid, constraints)
     return out, new_used, ok
@@ -1279,22 +1396,28 @@ def _repair_ok(prev, out, new_used, carry_used, dirty, pweights, nweights,
     - fresh over-capacity: a node's new fill exceeds its state rail by
       more than one max-weight partition (the auction's first-bidder
       overshoot, which replans unchanged) AND exceeds its previous fill.
+
+    Every reduction runs per batch element ([B] flags for a batch).
     """
-    p = prev.shape[0]
+    p = prev.shape[-3]
+    lead = prev.shape[:-3]
     dev = prev.device
-    rippled = ((out != prev) & ~dirty[:, None, None]).any()
-    total_w = pweights.sum()
+    rippled = ((out != prev) & ~dirty[..., None, None]) \
+        .flatten(-3).any(dim=-1)
+    total_w = pweights.sum(dim=-1, keepdim=True)
     cap_w = torch.where(valid & (nweights >= 0), nweights.clamp(min=1.0),
                         0.0)
-    cap_share = cap_w / cap_w.sum().clamp(min=1.0)
-    allowance = pweights.max() if p else torch.zeros((), device=dev)
-    overcap = torch.zeros((), dtype=torch.bool, device=dev)
+    cap_share = cap_w / cap_w.sum(dim=-1, keepdim=True).clamp(min=1.0)
+    allowance = pweights.amax(dim=-1, keepdim=True) if p else \
+        torch.zeros(lead + (1,), device=dev)
+    overcap = torch.zeros(lead, dtype=torch.bool, device=dev)
     for si, k in enumerate(constraints):
         if k <= 0:
             continue
         rail = torch.ceil(k * total_w * cap_share)
-        overcap = overcap | ((new_used[si] > rail + allowance)
-                             & (new_used[si] > carry_used[si])).any()
+        overcap = overcap | ((new_used[..., si, :] > rail + allowance)
+                             & (new_used[..., si, :]
+                                > carry_used[..., si, :])).any(dim=-1)
     return ~rippled & ~overcap
 
 

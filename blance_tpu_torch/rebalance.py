@@ -6,8 +6,8 @@
 # reference's defaults to "greedy": auto routes as the reference's does,
 # to the exact native planner below the cell threshold and to the card
 # above it, where "greedy" would keep every plan on the host.  Its
-# journal= stays the reference's duck-typed feed (the journal itself is
-# ROADMAP A.7).
+# journal= takes the port's durability.Journal (or any object with its
+# feed methods), as the reference's does.
 """App-level rebalance facade: plan -> diff -> orchestrate in one call.
 
 The reference leaves this composition to the application (SURVEY.md §3.4:

@@ -92,7 +92,22 @@ nothing of jax or of the JAX package.  In order:
    the bucketed runs gave its first call, bitwise its plain version at
    the padded shape (added to the ``kernels`` line with
    ``path="bucketed"``);
-12. prints one JSON line of kernel measurements, the card's name and
+12. runs the fleet tier (the ``fleet`` line): bench.py's fleet stage
+   (64 tenants, P 17-20 x N 8, two classes) through ``solve_fleet`` on
+   the card, each tenant bitwise its single bucketed solve on the card
+   and the port's CPU ``solve_fleet``, batched against the sequential
+   loop (the median of 3 after a warm-up); a wave of 240 tenant indexes
+   of up to 1024 partitions on 64 nodes (P 960-1024, two classes), cold
+   and then warm after one held node per tenant goes, each tenant
+   bitwise its single ``solve_dense_converged`` / ``solve_dense_warm``;
+   ``PlanService`` over the wave's 240 concurrent requests (results equal
+   the batched wave, p50/p99 latency); ``fused_score="on"`` on the bench
+   tenants (each its single fused solve, the batched launch counted);
+   and a ``FleetController`` of 8 tenants through one zone outage on the
+   card and the CPU (maps and op logs equal).  The batched min2 at the
+   wave's [240, 1024, 64] and the batched in-kernel score at the bench
+   tenants' class join the ``kernels`` line with ``path="fleet"``;
+13. prints one JSON line of kernel measurements, the card's name and
    power limit, the script's wall time, and last
    ``{"ok": true, "device": {...}}``.  A kernel's ``ms`` is its device
    time per call, from back-to-back calls in a CUDA graph
@@ -111,6 +126,7 @@ before printing any result.
 from __future__ import annotations
 
 import asyncio
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -135,7 +151,10 @@ from blance_tpu_torch.moves import batch as moves_batch
 from blance_tpu_torch.obs import Recorder, use_recorder
 from blance_tpu_torch.obs.sinks import InMemorySink
 from blance_tpu_torch.ops import reduce2, score_fused, sparse2
+from blance_tpu_torch import fleetloop
+from blance_tpu_torch.plan import fleet
 from blance_tpu_torch.plan import native as native_planner
+from blance_tpu_torch.plan import service as plan_service
 from blance_tpu_torch.plan import tensor as T
 from blance_tpu_torch.utils.trace import PhaseTimer
 
@@ -1804,6 +1823,402 @@ def bucketed_phase(dev, prev, nodes, removed, model, ns_opts, plain, sp_map,
     return res, entries
 
 
+# --- the fleet tier (the ``fleet`` line) --------------------------------------
+
+FLEET_BENCH = 64  # bench.py bench_fleet's tenants (P 17-20 x N 8)
+FLEET_WAVE = 240  # docs/FLEET.md's fleet-week tenant count
+FLEET_WAVE_N = 64  # nodes per tenant index in the wave
+FLEET_REPEATS = 3
+
+
+def fleet_tenant(key: str, p: int, n: int, seed: int):
+    """One tenant as bench.py bench_fleet builds it: primary + 1 replica,
+    the replica on another rack of 4 nodes, unit weights, stickiness
+    1.5."""
+    rng = np.random.default_rng(seed)
+    prev = np.full((p, 2, 1), -1, np.int32)
+    prev[:, 0, 0] = rng.integers(0, n, p)
+    prev[:, 1, 0] = (prev[:, 0, 0] + 1 + rng.integers(0, n - 1, p)) % n
+    return fleet.TenantProblem(
+        key=key, prev=prev, partition_weights=np.ones(p, np.float32),
+        node_weights=np.ones(n, np.float32), valid_node=np.ones(n, bool),
+        stickiness=np.full((p, 2), 1.5, np.float32),
+        gids=np.stack([np.arange(n, dtype=np.int32),
+                       np.arange(n, dtype=np.int32) // 4,
+                       np.zeros(n, np.int32)]),
+        gid_valid=np.ones((3, n), bool), constraints=(1, 1),
+        rules=((), ((2, 1),)))
+
+
+def bench_fleet_tenants() -> list:
+    """bench.py:728-751: 64 tenants, P 17-20 x N 8, two classes."""
+    return [fleet_tenant(f"tenant-{i:03d}", 17 + (i % 4), 8, 1000 + i)
+            for i in range(FLEET_BENCH)]
+
+
+def wave_tenants() -> list:
+    """240 tenant indexes of up to 1024 partitions (Couchbase's vBuckets)
+    on 64 nodes: P 960-1024, so the classes are 960 and 1024."""
+    return [fleet_tenant(f"index-{i:03d}", 960 + (i * 7) % 65, FLEET_WAVE_N,
+                         5000 + i) for i in range(FLEET_WAVE)]
+
+
+def delta_tenant(t, result):
+    """The next round of a tenant (tests/test_fleet.py:95 delta_tenant):
+    its lowest held node removed, the holders dirty, the carry of
+    ``result``."""
+    v = int(np.unique(result.assign[result.assign >= 0])[0])
+    valid = t.valid_node.copy()
+    valid[v] = False
+    return dataclasses.replace(
+        t, prev=result.assign, valid_node=valid, carry=result.carry,
+        dirty=(result.assign == v).any(axis=(1, 2)))
+
+
+def _padded(t):
+    k = fleet.batch_class_of(t)
+    return k, pad_problem_arrays(
+        t.prev, t.partition_weights, t.node_weights, t.valid_node,
+        t.stickiness, t.gids, t.gid_valid, k.p, k.n)
+
+
+def single_cold(t, dev, engine: str):
+    """The tenant's single bucketed solve: solve_dense_converged on its
+    class-padded arrays with p_real; (real-row assign, sweeps)."""
+    _k, arrs = _padded(t)
+    stats: dict = {}
+    out = T.solve_dense_converged(
+        *bt.problem_to_torch(*arrs, device=dev), t.constraints, t.rules,
+        fused_score=engine, record=False, stats=stats,
+        p_real=torch.tensor(float(t.prev.shape[0]), device=dev))
+    return out[:t.prev.shape[0]].cpu().numpy(), stats["sweeps"]
+
+
+def single_warm(t, dev, engine: str):
+    """The tenant's single warm replan, as solve_fleet gates it: the
+    host precheck, then solve_dense_warm on the class-padded arrays, and
+    the cold solve where it demotes or declines; (assign, warm)."""
+    eligible = fleet._warm_eligible(t, None, False)
+    if eligible is None:
+        return single_cold(t, dev, engine)[0], False
+    dirty, used = eligible
+    k, arrs = _padded(t)
+    cu = torch.from_numpy(np.pad(used, ((0, 0), (0, k.n - used.shape[1])))
+                          ).to(dev)
+    out, _carry = T.solve_dense_warm(
+        *bt.problem_to_torch(*arrs, device=dev), t.constraints, t.rules,
+        dirty=np.pad(dirty, (0, k.p - dirty.shape[0]),
+                     constant_values=True),
+        carry=T.SolveCarry(prices=cu.sum(0),
+                           assign=torch.from_numpy(arrs[0]).to(dev), used=cu),
+        fused_score=engine, record=False,
+        p_real=torch.tensor(float(t.prev.shape[0]), device=dev))
+    if out is None:
+        return single_cold(t, dev, engine)[0], False
+    return out[:t.prev.shape[0]], True
+
+
+def _sync_wall(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _fleet_run(tenants, dev, engine=None):
+    """solve_fleet with the kernels' batched launches and the auction
+    rounds counted: (results, wall s, info)."""
+    reset_launch_counts()
+    rounds0 = T._assign_slot.rounds
+    rec = Recorder()
+    res, wall = _sync_wall(lambda: fleet.solve_fleet(
+        tenants, fused_score=engine, recorder=rec, device=dev))
+    info = dict(wall_s=wall, batches=int(rec.counters["fleet.batches"]),
+                launches=launch_counts(), variants=launch_variants(),
+                rounds=T._assign_slot.rounds - rounds0,
+                max_sweeps=max(r.sweeps for r in res),
+                warm=sum(r.warm for r in res))
+    return res, info
+
+
+def _same_results(got, want) -> dict:
+    """Tenant-by-tenant bitwise equality; the first differing tenant and
+    [p, s, r] where one differs."""
+    for g, (w_assign, w_sweeps) in zip(got, want):
+        if not np.array_equal(g.assign, w_assign) or \
+                (w_sweeps is not None and g.sweeps != w_sweeps):
+            bad = np.argwhere(g.assign != w_assign)
+            return dict(equal=False, tenant=g.key,
+                        first_diff=bad[:1].tolist(), sweeps=g.sweeps,
+                        single_sweeps=w_sweeps)
+    return dict(equal=True)
+
+
+def fleet_bench_stage(dev) -> tuple:
+    """(a) bench.py's fleet stage: 64 tenants batched on the card, each
+    bitwise its single bucketed solve on the card and the port's CPU
+    solve_fleet; the median of 3 calls after a warm-up both ways."""
+    tenants = bench_fleet_tenants()
+    engine = T.resolve_default_fused_score(18, 8, dev)
+    res, info = _fleet_run(tenants, dev)
+    cpu = fleet.solve_fleet(tenants, device="cpu")
+    singles = [single_cold(t, dev, engine) for t in tenants]
+    checks = dict(
+        card_equals_single=_same_results(res, singles),
+        card_equals_cpu=_same_results(res, [(c.assign, c.sweeps)
+                                            for c in cpu]))
+    batched, sequential = [], []
+    for _ in range(1 + FLEET_REPEATS):
+        batched.append(_fleet_run(tenants, dev)[1]["wall_s"])
+        sequential.append(_sync_wall(
+            lambda: [single_cold(t, dev, engine) for t in tenants])[1])
+    b_s = statistics.median(batched[1:])
+    s_s = statistics.median(sequential[1:])
+    out = dict(tenants=len(tenants), classes=sorted(
+        {f"{k.p}x{k.n}" for k in map(fleet.batch_class_of, tenants)}),
+        engine=_ENGINES[engine], first_call=info, batched_s=b_s,
+        sequential_s=s_s, batched_walls_s=batched,
+        sequential_walls_s=sequential, batched_over_sequential=b_s / s_s,
+        solves_per_s=dict(batched=len(tenants) / b_s,
+                          sequential=len(tenants) / s_s),
+        checks={k: v["equal"] for k, v in checks.items()},
+        diffs={k: v for k, v in checks.items() if not v["equal"]})
+    return out, res
+
+
+def fleet_wave(dev) -> tuple:
+    """(b) the 240-tenant wave at deployment width: cold, then a warm
+    round with one held node per tenant removed; each tenant bitwise
+    its single solve (cold: solve_dense_converged; warm:
+    solve_dense_warm, accepted or declined alike); batched and
+    sequential timed once each."""
+    tenants = wave_tenants()
+    engine = T.resolve_default_fused_score(1024, FLEET_WAVE_N, dev)
+    # The kernel entry takes the large class's first batched call.
+    with first_call("priced_min2_argmin",
+                    lambda args, kw: args[0].dim() == 3
+                    and args[0].shape[1] == 1024) as seen:
+        cold, cold_info = _fleet_run(tenants, dev)
+        round2 = [delta_tenant(t, r) for t, r in zip(tenants, cold)]
+        warm, warm_info = _fleet_run(round2, dev)
+    launches = sum(i["variants"]["priced_min2_argmin"].get("batched", 0)
+                   for i in (cold_info, warm_info))
+    cold_single, cold_seq_s = _sync_wall(
+        lambda: [single_cold(t, dev, engine) for t in tenants])
+    warm_single, warm_seq_s = _sync_wall(
+        lambda: [single_warm(t, dev, engine) for t in round2])
+    checks = dict(
+        cold_equals_single=_same_results(cold, cold_single),
+        warm_equals_single=_same_results(
+            warm, [(a, None) for a, _w in warm_single]))
+    warm_flags = [w for _a, w in warm_single]
+    checks["warm_flags_equal"] = dict(equal=warm_flags == [
+        r.warm for r in warm])
+    k_cells = sum(fleet.batch_class_of(t).p for t in tenants) * FLEET_WAVE_N
+    out = dict(
+        tenants=len(tenants), nodes=FLEET_WAVE_N, engine=_ENGINES[engine],
+        classes={f"{k.p}x{k.n}": n for k, n in collections.Counter(
+            map(fleet.batch_class_of, tenants)).items()},
+        matrix_working_set_bytes=k_cells * T._MATRIX_BYTES_PER_CELL,
+        cold=dict(cold_info, sequential_s=cold_seq_s,
+                  batched_over_sequential=cold_info["wall_s"] / cold_seq_s),
+        warm=dict(warm_info, accepted=sum(warm_flags),
+                  sequential_s=warm_seq_s,
+                  batched_over_sequential=warm_info["wall_s"] / warm_seq_s),
+        checks={k: v["equal"] for k, v in checks.items()},
+        diffs={k: v for k, v in checks.items() if not v["equal"]})
+    return out, cold, seen, launches
+
+
+def fleet_service(dev, cold) -> dict:
+    """(c) PlanService on the card: the wave's 240 tenants submitted at
+    once, coalesced into per-class batches; results equal the batched
+    cold wave; p50/p99 admission-to-result latency."""
+    tenants = wave_tenants()
+    rec = Recorder()
+
+    async def drive():
+        svc = plan_service.PlanService(recorder=rec, device=dev)
+        await svc.start()
+        t0 = time.perf_counter()
+        done = {}
+
+        async def one(t):
+            r = await svc.submit(t)
+            done[t.key] = time.perf_counter() - t0
+            return r
+
+        results = await asyncio.gather(*[one(t) for t in tenants])
+        await svc.stop()
+        return results, [done[t.key] for t in tenants]
+
+    (results, lat), wall = _sync_wall(lambda: asyncio.run(drive()))
+    equal = all(np.array_equal(r.assign, c.assign)
+                for r, c in zip(results, cold))
+    return dict(tenants=len(tenants), wall_s=wall,
+                batches=int(rec.counters["fleet.batches"]),
+                requests=int(rec.counters["fleet.requests"]),
+                latency_p50_s=float(np.percentile(lat, 50)),
+                latency_p99_s=float(np.percentile(lat, 99)),
+                checks=dict(equals_batched_wave=equal))
+
+
+def fleet_fused(dev) -> tuple:
+    """(d) fused_score="on" on the bench tenants: each equal to its
+    single fused solve, the batched fused launch counted."""
+    tenants = bench_fleet_tenants()
+    with first_call("fused_score_min2",
+                    lambda args, kw: args[0].dim() == 2) as seen:
+        res, info = _fleet_run(tenants, dev, "on")
+    singles = [single_cold(t, dev, "on") for t in tenants]
+    batched = {k: v for k, v in info["variants"]["fused_score_min2"].items()
+               if k.startswith("batched_")}
+    check = _same_results(res, singles)
+    return dict(info, batched_variants=batched,
+                checks=dict(equals_single=check["equal"],
+                            batched_launched=sum(batched.values()) > 0),
+                diff=None if check["equal"] else check), seen, \
+        sum(batched.values())
+
+
+def _controller_run(device) -> tuple:
+    """(e) 8 tenants under one FleetController, one zone-outage delta
+    for all: final maps and each tenant's op log (sorted: the loop's
+    interleaving across nodes is not part of the contract)."""
+    nodes = [f"n{i:02d}" for i in range(16)]
+    zone = tuple(nodes[:4])
+    model = bt.model(primary=(0, 1), replica=(1, 1))
+    logs: dict = {}
+
+    def tenant_map(k):
+        return {f"t{k}p{i:02d}": bt.Partition(f"t{k}p{i:02d}", {
+            "primary": [nodes[(i + k) % 16]],
+            "replica": [nodes[(i + k + 1 + i % 5) % 16]]})
+            for i in range(12 + (k * 3) % 9)}
+
+    async def drive():
+        fc = fleetloop.FleetController(nodes, device=device,
+                                       admission_window_s=0.02,
+                                       debounce_s=0.02)
+        await fc.start()
+        for k in range(8):
+            log = logs.setdefault(f"tenant{k}", [])
+
+            async def assign(stop_ch, node, partitions, states, ops,
+                             log=log):
+                log.extend((node, p, s, o) for p, s, o in
+                           zip(partitions, states, ops))
+                await asyncio.sleep(0)
+
+            fc.add_tenant(f"tenant{k}", model, tenant_map(k), assign)
+        fc.submit_all(bt.ClusterDelta(fail=zone))
+        maps = await fc.quiesce_all()
+        await fc.stop()
+        return {k: {p: dict(v.nodes_by_state) for p, v in m.items()}
+                for k, m in maps.items()}, fc.service.host_solve_s
+
+    (maps, solve_s), wall = _sync_wall(lambda: asyncio.run(drive())) \
+        if device != "cpu" else (asyncio.run(drive()), 0.0)
+    on_zone = sum(n in zone for m in maps.values() for nbs in m.values()
+                  for ns in nbs.values() for n in ns)
+    return maps, {k: sorted(v) for k, v in logs.items()}, on_zone, wall
+
+
+def fleet_controller(dev) -> dict:
+    card_maps, card_logs, on_zone, wall = _controller_run(dev)
+    cpu_maps, cpu_logs, _z, _w = _controller_run("cpu")
+    return dict(tenants=len(card_maps), wall_s=wall,
+                ops=sum(map(len, card_logs.values())),
+                checks=dict(maps_equal_cpu=card_maps == cpu_maps,
+                            op_logs_equal_cpu=card_logs == cpu_logs,
+                            nothing_on_failed_zone=on_zone == 0))
+
+
+def fleet_kernel_entry(kind: str, seen: dict, launches: int) -> dict:
+    """A batched launch against its plain version on the inputs of its
+    first fleet call, bitwise; timed as the kernels phase times, with
+    its bound from these inputs."""
+    args, kw = seen["args"], seen["kw"]
+    if kind == "min2":
+        score, price = args
+        b, p, n = score.shape
+        kernel = lambda: reduce2.priced_min2_argmin(score, price)  # noqa: E731
+        plain = lambda: reduce2.batched_min2_reference(  # noqa: E731
+            score, price)
+        library = lambda: torch.topk(  # noqa: E731
+            (score + price[:, None, :]).reshape(b * p, n), 2, dim=1,
+            largest=False)
+        bound = _bound(b * p * n * 4 + b * n * 4 + b * p * 12,
+                       b * p * n * 3)
+    else:
+        price, si = args[:2]
+        b, n = price.shape
+        p = si.stick.shape[-1]
+        call = dict(nrules=kw["nrules"], jitter_scale=kw["jitter_scale"])
+        kernel = lambda: score_fused.fused_score_min2(  # noqa: E731
+            price, si, *args[2:4], **call)
+        plain = lambda: score_fused.batched_fused_reference(  # noqa: E731
+            price, si, *args[2:4], **call)
+        library = None
+        widths = (si.prev_state.shape[-1], si.taken.shape[-1],
+                  si.present.shape[-1])
+        ops = b * p * n * fused_ops_per_cell(*widths, kw["nrules"])
+        in_bytes = sum(x.numel() * x.element_size() for x in si) + b * n * 4
+        bound = _bound(in_bytes + b * p * 16, ops)
+    err = compare(kernel(), plain(),
+                  f"batched {kind} kernel at [{b}, {p}, {n}]")
+    log(f"batched {kind} kernel == plain at [{b}, {p}, {n}] (bitwise)")
+    return dict(shape=[b, p, n], launches=launches, max_abs_err=err,
+                ms=graph_ms(kernel), ms_events=time_ms(kernel),
+                plain_ms=time_ms(plain, reps=3, warmup=1),
+                library_ms=None if library is None else time_ms(library,
+                                                                reps=3),
+                **bound)
+
+
+def fleet_phase(dev) -> tuple:
+    """The fleet tier on the card (the ``fleet`` line): (a) bench.py's
+    fleet stage, (b) the 240-tenant wave cold and warm, (c) PlanService
+    over the wave, (d) the in-kernel score engine on the bench tenants,
+    (e) a FleetController on the card and the CPU; returns the line and
+    the batched kernels' entries."""
+    T.set_fused_score_default("auto")
+    res: dict = {}
+    parts: dict = {}
+    t0 = time.perf_counter()
+    res["bench_fleet"], _r = fleet_bench_stage(dev)
+    parts["bench_fleet"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["wave"], cold, seen_min2, min2_launches = fleet_wave(dev)
+    parts["wave"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["service"] = fleet_service(dev, cold)
+    del cold
+    parts["service"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["fused"], seen_fused, fused_launches = fleet_fused(dev)
+    parts["fused"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["controller"] = fleet_controller(dev)
+    parts["controller"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    entries = {"min2": fleet_kernel_entry("min2", seen_min2, min2_launches),
+               "fused": fleet_kernel_entry("fused", seen_fused,
+                                           fused_launches)}
+    parts["kernels"] = time.perf_counter() - t0
+    res["parts_s"] = parts
+    checks = {f"{part}.{k}": v for part in ("bench_fleet", "wave", "service",
+                                            "fused", "controller")
+              for k, v in res[part]["checks"].items()}
+    checks["min2_batched_launched"] = min2_launches > 0
+    res["checks"] = checks
+    log(f"fleet: {json.dumps(res)}")
+    if not all(checks.values()):
+        raise AssertionError(f"fleet: {checks}")
+    return res, entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is False; needs one GPU")
@@ -1949,6 +2364,9 @@ def main() -> int:
         dev, prev, nodes, removed, model, ns_opts,
         {"matrix": auto, "fused": on}, sp_map, fused["timed_instantiation"])
     bucketed["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fleet_line, fleet_kernels = fleet_phase(dev)
+    fleet_line["phase_s"] = time.perf_counter() - t0
 
     kernels = [
         dict(name="priced_min2_argmin", route="cuda",
@@ -1977,6 +2395,13 @@ def main() -> int:
             name=entry["name"], route="cuda", source=entry["source"],
             replaces=entry["replaces"], path="bucketed", bitwise=True,
             **padded[key]))
+    # The batched launches of the fleet tier, on the inputs of their first
+    # fleet calls.
+    for entry, key in zip(kernels[:2], ("min2", "fused")):
+        kernels.append(dict(
+            name=entry["name"], route="cuda", source=entry["source"],
+            replaces=entry["replaces"], path="fleet", bitwise=True,
+            **fleet_kernels[key]))
     prof = [profile_main_path(m, prev, nodes, removed, model, opts)
             for m in ("off", "on")]
     prof.append(profile_main_path("auto", *sp_map))
@@ -1989,6 +2414,7 @@ def main() -> int:
     print(json.dumps({"pipeline": pipeline}))
     print(json.dumps({"exact": exact}))
     print(json.dumps({"bucketed": bucketed}))
+    print(json.dumps({"fleet": fleet_line}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

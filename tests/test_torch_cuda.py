@@ -510,3 +510,115 @@ def test_bucketed_plan_on_card_matches_cpu(dev, engine, mode, kernel, extra):
         T.set_fused_score_default("auto")
     assert out[1] == out[0] and out[1][2] == engine
     assert launch_counts()[kernel] > 0
+
+
+# -- the fleet tier: batched launches ------------------------------------------
+
+
+@pytest.mark.parametrize("b,p,n", [(3, 17, 8), (5, 130, 33), (1, 7, 300),
+                                   (16, 20, 64)])
+def test_batched_min2_kernel_matches_plain(dev, b, p, n):
+    """A batch of [P, N] problems in one launch, each row priced by its
+    own problem's price row; every element equals its unbatched launch."""
+    g = torch.Generator().manual_seed(b * 1000 + n)
+    x = torch.floor(torch.randn((b, p, n), generator=g) * 3) * 0.125
+    x[:, ::5] = float("inf")
+    price = torch.floor(torch.rand((b, n), generator=g) * 8) * 0.25
+    x, price = x.to(dev), price.to(dev)
+    reset_launch_counts()
+    got = reduce2.priced_min2_argmin(x, price)
+    assert reduce2.priced_min2_argmin.variants == {"batched": 1}
+    _same(got, reduce2.batched_min2_reference(x, price))
+    for e in range(b):
+        _same([t[e] for t in got],
+              reduce2.priced_min2_argmin(x[e], price[e]))
+
+
+def _stack_fused(dev, b, p, n, widths, nrules, p_real=False):
+    """``b`` problems' in-kernel score inputs, stacked on a batch axis."""
+    r, t, a = widths
+    per = [_fused_inputs(dev, 50 + e, p, n, r, t, a, nrules,
+                         total_p=torch.tensor(float(p - e), device=dev)
+                         if p_real else None)
+           for e in range(b)]
+    price = torch.stack([pr for pr, _si in per])
+    si = score_fused.ScoreInputs(*(torch.stack(f) for f in
+                                   zip(*[s for _pr, s in per])))
+    return price, si, per
+
+
+@pytest.mark.parametrize("nrules,widths", [(1, (1, 2, 2)), (0, (1, 1, 1)),
+                                           (2, (2, 2, 2))])
+@pytest.mark.parametrize("b,p,n", [(3, 18, 8), (4, 37, 65), (1, 300, 257)])
+def test_batched_fused_kernel_matches_plain(dev, nrules, widths, b, p, n):
+    """The in-kernel score over a batch (the problem on blockIdx.y):
+    bitwise the per-problem plain version and each problem's unbatched
+    launch, ragged row tiles included; the jitter hashes each problem's
+    own row and column ids."""
+    price, si, per = _stack_fused(dev, b, p, n, widths, nrules,
+                                  p_real=nrules == 1)
+    reset_launch_counts()
+    got = score_fused.fused_score_min2(price, si, 0, 0, nrules=nrules,
+                                       jitter_scale=1e-5)
+    name = score_fused.fused_variant(nrules, *widths)
+    assert score_fused.fused_score_min2.variants == {f"batched_{name}": 1}
+    _same(got, score_fused.batched_fused_reference(
+        price, si, 0, 0, nrules=nrules, jitter_scale=1e-5))
+    for e, (pr, s) in enumerate(per):
+        _same([t[e] for t in got], score_fused.fused_score_min2(
+            pr, s, 0, 0, nrules=nrules, jitter_scale=1e-5))
+
+
+def _fleet_tenant(p, n, seed, key):
+    """A fleet tenant as the reference's test_fleet.make_tenant builds
+    one: primary + replica on another rack of 4."""
+    from blance_tpu_torch.plan.fleet import TenantProblem
+
+    rng = np.random.default_rng(seed)
+    prev = np.full((p, 2, 1), -1, np.int32)
+    prev[:, 0, 0] = rng.integers(0, n, p)
+    prev[:, 1, 0] = (prev[:, 0, 0] + 1 + rng.integers(0, n - 1, p)) % n
+    return TenantProblem(
+        key=key, prev=prev,
+        partition_weights=rng.integers(1, 3, p).astype(np.float32),
+        node_weights=np.ones(n, np.float32), valid_node=np.ones(n, bool),
+        stickiness=np.full((p, 2), 1.5, np.float32),
+        gids=np.stack([np.arange(n, dtype=np.int32),
+                       np.arange(n, dtype=np.int32) // 4,
+                       np.zeros(n, np.int32)]),
+        gid_valid=np.ones((3, n), bool), constraints=(1, 1),
+        rules=((), ((2, 1),)))
+
+
+@pytest.mark.parametrize("engine,kernel,variant", [
+    ("off", "priced_min2_argmin", "batched"),
+    ("on", "fused_score_min2", "batched_n1r1t2a2")])
+def test_fleet_on_card_matches_cpu(dev, engine, kernel, variant):
+    """solve_fleet cold, then warm after one held node per tenant goes:
+    the card's assignments, sweeps and warm flags equal the CPU's, and
+    the batched launch ran."""
+    import dataclasses
+
+    from blance_tpu_torch.plan.fleet import solve_fleet
+
+    tenants = [_fleet_tenant(17 + (i % 4), 8, i, f"t{i}") for i in range(6)]
+    out = {}
+    for device in ("cpu", dev):
+        reset_launch_counts()
+        r1 = solve_fleet(tenants, fused_score=engine, device=device)
+        round2 = []
+        for t, r in zip(tenants, r1):
+            v = int(np.unique(r.assign[r.assign >= 0])[0])
+            valid = t.valid_node.copy()
+            valid[v] = False
+            round2.append(dataclasses.replace(
+                t, prev=r.assign, valid_node=valid, carry=r.carry,
+                dirty=(r.assign == v).any(axis=(1, 2))))
+        r2 = solve_fleet(round2, fused_score=engine, device=device)
+        out[str(device)] = [(r.assign.tolist(), r.sweeps, r.warm)
+                            for r in r1 + r2]
+        if device != "cpu":
+            from blance_tpu_torch.ops import launch_variants
+
+            assert launch_variants()[kernel].get(variant, 0) > 0
+    assert out[str(dev)] == out["cpu"]

@@ -135,3 +135,23 @@ def test_cbgt_booster_and_sparse_none_plan_on_cpu():
                                  backend="auto", device="cpu")
     assert not warn
     assert all(len(p.nodes_by_state["primary"]) == 1 for p in out.values())
+
+
+FLEET_MODULES = ["plan.fleet", "plan.service", "plan.resident", "plan.carry",
+                 "fleetloop", "durability", "durability.journal",
+                 "durability.recover", "obs.tracectx", "core.encode"]
+
+
+@pytest.mark.parametrize("mod", FLEET_MODULES)
+def test_fleet_tier_modules_export_the_reference_surface(mod):
+    """The fleet tier's modules are in the port, import without jax (the
+    subprocess check above walks them), and export every name their
+    reference module exports."""
+    import importlib
+
+    assert f"blance_tpu_torch.{mod}" in _port_modules()
+    port = importlib.import_module(f"blance_tpu_torch.{mod}")
+    pytest.importorskip("jax")  # the reference needs it
+    ref = importlib.import_module(f"blance_tpu.{mod}")
+    missing = set(getattr(ref, "__all__", ())) - set(port.__all__)
+    assert not missing, sorted(missing)
