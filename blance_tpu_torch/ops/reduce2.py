@@ -10,9 +10,12 @@ Port of blance_tpu/ops/reduce2.py.  Per row of ``eff = score + price``:
 (``csrc/min2.cu``) on a CUDA tensor and runs the plain PyTorch version
 (``min2_argmin_reference``) on a CPU tensor; on any other device it
 raises.  There is no fallback from the kernel to the plain version.
-``priced_min2_argmin.launches`` counts kernel launches (``variants`` by
-instantiation: "block_per_row", and "batched" for a batch of problems,
-score [B, P, N] with price [B, N], the launch the fleet tier makes).
+``priced_min2_argmin.launches`` counts kernel launches, and ``variants``
+counts them by layout: "block_per_row" (a 256-thread block a row, for
+wide rows) or "rows_per_warp" (a group of lanes a row, for narrow rows,
+:func:`min2_layout`), each prefixed "batched_" for a batch of problems,
+score [B, P, N] with price [B, N] (the launch the fleet tier makes; its
+wide form keeps the name "batched").
 """
 
 from __future__ import annotations
@@ -23,7 +26,43 @@ import ctypes
 import torch
 
 __all__ = ["min2_argmin", "min2_argmin_reference", "priced_min2_argmin",
-           "batched_min2_reference"]
+           "batched_min2_reference", "min2_lanes", "min2_vec", "min2_layout",
+           "LANES_BY_N", "LANES_BY_N_SCALAR"]
+
+# Lanes per row of the rows-per-warp layout, by the widest N each count
+# serves (the first entry whose bound is >= N): for rows that take
+# float4 loads (:func:`min2_vec`) and for rows of 4-byte loads, where a
+# block a row wins sooner.  Wider rows than a table's last bound take a
+# 256-thread block a row (lanes 0).  Measured on the H100 by
+# chip_smoke.py's narrow sweep (PERF.md).
+LANES_BY_N = ((8, 1), (16, 2), (64, 4), (256, 8), (1024, 16), (2048, 32))
+LANES_BY_N_SCALAR = ((8, 1), (16, 2), (128, 4), (256, 8), (777, 32))
+
+
+def min2_vec(score: torch.Tensor, price: torch.Tensor) -> bool:
+    """Whether the rows can take float4 loads: ``n % 4 == 0`` and both
+    operands start 16-byte aligned."""
+    return score.shape[-1] % 4 == 0 and score.data_ptr() % 16 == 0 and \
+        price.data_ptr() % 16 == 0
+
+
+def min2_lanes(n: int, vec: bool) -> int:
+    """Lanes per row for rows of ``n`` columns, from the table of rows
+    that take float4 loads (``vec``) or of rows that do not: a power of
+    two up to 32 (rows per warp), or 0 for a block per row."""
+    for bound, lanes in LANES_BY_N if vec else LANES_BY_N_SCALAR:
+        if n <= bound:
+            return lanes
+    return 0
+
+
+def min2_layout(score: torch.Tensor, price: torch.Tensor) -> tuple:
+    """(lanes, vec) of the launch on these operands: float4 loads decided
+    first, the lane count from that decision's table; float4 only in the
+    rows-per-warp layout."""
+    vec = min2_vec(score, price)
+    lanes = min2_lanes(score.shape[-1], vec)
+    return lanes, vec and lanes > 0
 
 
 def min2_argmin_reference(eff: torch.Tensor):
@@ -48,17 +87,21 @@ def _kernel():
         lib = load("min2")
         fn = lib.blance_priced_min2
         fn.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fb = lib.blance_priced_min2_batched
         fb.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [
-            ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fb.restype = ctypes.c_int
         _C_FN = (fn, fb)
     return _C_FN
 
 
-def _launch(score: torch.Tensor, price: torch.Tensor):
+def _launch(score: torch.Tensor, price: torch.Tensor, lanes=None):
+    """Launch the kernel in the layout :func:`min2_layout` picks, or with
+    ``lanes`` lanes a row (0: a block a row), as a measurement that
+    compares layouts asks; a refused launch raises."""
     batched = score.dim() == 3
     p, n = score.shape[-2:]
     lead = score.shape[:-2]
@@ -76,15 +119,22 @@ def _launch(score: torch.Tensor, price: torch.Tensor):
     stream = torch.cuda.current_stream(score.device).cuda_stream
     ptrs = (score.data_ptr(), price.data_ptr(), best.data_ptr(),
             choice.data_ptr(), second.data_ptr())
-    if batched:
-        err = _kernel()[1](*ptrs, lead[0] * p, n, p, stream)
+    if lanes is None:
+        lanes, vec = min2_layout(score, price)
     else:
-        err = _kernel()[0](*ptrs, p, n, stream)
+        vec = bool(lanes) and min2_vec(score, price)
+    if batched:
+        err = _kernel()[1](*ptrs, lead[0] * p, n, p, lanes, vec, stream)
+    else:
+        err = _kernel()[0](*ptrs, p, n, lanes, vec, stream)
     if err != 0:
-        raise RuntimeError(f"min2 kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"min2 kernel launch failed: CUDA error {err} "
+                           f"(lanes {lanes}, vec {vec})")
     priced_min2_argmin.launches += 1
-    priced_min2_argmin.variants["batched" if batched
-                                else "block_per_row"] += 1
+    name = "rows_per_warp" if lanes else "block_per_row"
+    if batched:
+        name = "batched_rows_per_warp" if lanes else "batched"
+    priced_min2_argmin.variants[name] += 1
     return best, choice, second
 
 

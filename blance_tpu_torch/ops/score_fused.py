@@ -28,7 +28,8 @@ On a CPU tensor ``fused_score_min2`` runs the plain PyTorch version
 kernel or raises.  ``fused_score_min2.launches`` counts launches, and
 ``fused_score_min2.variants`` counts them by kernel instantiation (the
 name :func:`fused_variant` gives, prefixed ``batched_`` for a launch over
-a batch of problems).
+a batch of problems, and suffixed ``_rows_per_warp`` where the narrow-row
+layout that :func:`fused_lanes` picks for narrow rows ran it).
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ __all__ = ["fused_score_min2", "fused_score_min2_reference",
            "batched_fused_reference", "ScoreInputs",
            "pack_score_inputs", "score_at_columns", "jitter_hash",
            "jitter_add", "fill_scale", "fill_term", "FUSED_VARIANTS",
-           "fused_variant"]
+           "fused_variant", "fused_lanes", "FUSED_LANES_BY_N"]
 
 _INF = 1.0e9
 _RULE_MISS = 1.0e6
@@ -315,6 +316,39 @@ def fused_variant(nrules: int, r_width: int, t_width: int,
 # Instantiation name -> its id in the kernel's launcher ("generic": -1).
 _VARIANT_IDS = {fused_variant(*v): i for i, v in enumerate(FUSED_VARIANTS)}
 
+# Lanes per row of the narrow-row layout, by the widest N each count
+# serves (the first entry whose bound is >= N); wider rows than the last
+# bound take the wide tile of 16 rows x 2 columns a thread (lanes 0).
+# Measured on the H100 by chip_smoke.py's narrow sweep (PERF.md).
+FUSED_LANES_BY_N = ((64, 1), (128, 2), (256, 4), (512, 8), (1024, 16))
+_SMEM_BYTES = 48 * 1024  # the launcher's limit on a block's staged rows
+_THREADS = 256
+
+
+def _row_words(nrules: int, r_width: int, t_width: int,
+               a_width: int) -> int:
+    """A staged row's 32-bit words, as csrc/score_fused.cu row_words."""
+    a = a_width if nrules else 0
+    return (5 + r_width + t_width + 2 * nrules * a + 3) // 4 * 4
+
+
+def fused_lanes(n: int, nrules: int, r_width: int, t_width: int,
+                a_width: int) -> int:
+    """Lanes per row for rows of ``n`` columns: a power of two up to 32
+    (the narrow-row layout, ``256 / lanes`` rows a block), or 0 for the
+    wide tile.  Where a block's staged rows would pass the launcher's
+    48 KB, more lanes a row (fewer rows a block) make them fit."""
+    lanes = 0
+    for bound, count in FUSED_LANES_BY_N:
+        if n <= bound:
+            lanes = count
+            break
+    if lanes:
+        words = _row_words(nrules, r_width, t_width, a_width)
+        while lanes < 32 and (_THREADS // lanes) * words * 4 > _SMEM_BYTES:
+            lanes *= 2
+    return lanes
+
 
 _C_FN = None
 
@@ -329,10 +363,11 @@ def _kernel():
             ctypes.c_float, ctypes.c_longlong, ctypes.c_longlong] + \
             [ctypes.c_int] * 8
         fn = lib.blance_fused_score_min2
-        fn.argtypes = head + [ctypes.c_void_p]
+        fn.argtypes = head + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fb = lib.blance_fused_score_min2_batched
-        fb.argtypes = head + [ctypes.c_longlong, ctypes.c_void_p]
+        fb.argtypes = head + [ctypes.c_longlong, ctypes.c_int,
+                              ctypes.c_void_p]
         fb.restype = ctypes.c_int
         _C_FN = (fn, fb)
     return _C_FN
@@ -342,7 +377,10 @@ _F32 = ("base", "neg_boost", "validf", "stick", "present", "any_anchor")
 
 
 def _launch(price, si: ScoreInputs, pbase: int, noff: int, nrules: int,
-            jitter_scale: float):
+            jitter_scale: float, lanes=None):
+    """Launch the kernel in the layout :func:`fused_lanes` picks (or
+    ``lanes``, for a measurement that compares layouts); a refused launch
+    raises."""
     batched = price.dim() == 2
     lead = price.shape[:-1]
     p = si.stick.shape[-1]
@@ -383,16 +421,18 @@ def _launch(price, si: ScoreInputs, pbase: int, noff: int, nrules: int,
         choice.data_ptr(), second.data_ptr(), raw.data_ptr(),
         float(jitter_scale), p, n, int(nrules), r_width, t_width, a_width,
         g_width, int(pbase), int(noff), _VARIANT_IDS.get(variant, -1))
+    if lanes is None:
+        lanes = fused_lanes(n, nrules, r_width, t_width, a_width)
     if batched:
-        err = _kernel()[1](*args, lead[0], stream)
+        err = _kernel()[1](*args, lead[0], lanes, stream)
     else:
-        err = _kernel()[0](*args, stream)
+        err = _kernel()[0](*args, lanes, stream)
     if err != 0:
-        raise RuntimeError(
-            f"score_fused kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"score_fused kernel launch failed: CUDA error "
+                           f"{err} (lanes {lanes})")
     fused_score_min2.launches += 1
-    fused_score_min2.variants[f"batched_{variant}" if batched
-                              else variant] += 1
+    name = f"{variant}_rows_per_warp" if lanes else variant
+    fused_score_min2.variants[f"batched_{name}" if batched else name] += 1
     return best, choice, second, raw
 
 

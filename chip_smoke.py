@@ -18,6 +18,19 @@ nothing of jax or of the JAX package.  In order:
    and [7, 1] in both instantiations: the [P, K]-price one on all four
    outputs, and the gathered one the sparse engine calls (candidate ids
    with -1 pads, ids >= N and repeats, an [N] price row) on all five;
+   then the narrow sweep (the ``narrow`` line): both the min2 and the
+   in-kernel score at every N from 8 to 4096 (2^24 cells each),
+   unbatched and batched, and min2 at N = 1024 on views off 16-byte
+   alignment, in the layout each wrapper picks (rows per warp below its
+   table's last bound) and in the wide one (past the table: its last
+   narrow layout), each bitwise the plain version and timed
+   (quantized scores, whole +inf rows, rows finite only in their last
+   column, N = 777 with its 4-byte loads, problems priced all +inf or
+   +inf but in the last column); then the small plan path, 2048 x 64
+   through plan_next_map on the matrix and the fused engine, which must
+   take the unbatched narrow layouts; each kernel, on the inputs of its
+   first call there, joins the ``kernels`` line with ``path="small"``,
+   its wide layout timed beside it;
 3. small plans on the card equal the plain CPU path's map for map (both
    dense engines, and the sparse engine with K < N), and a saturating
    K = N sparse plan equals the dense matrix engine's;
@@ -103,10 +116,14 @@ nothing of jax or of the JAX package.  In order:
    ``PlanService`` over the wave's 240 concurrent requests (results equal
    the batched wave, p50/p99 latency); ``fused_score="on"`` on the bench
    tenants (each its single fused solve, the batched launch counted);
-   and a ``FleetController`` of 8 tenants through one zone outage on the
-   card and the CPU (maps and op logs equal).  The batched min2 at the
-   wave's [240, 1024, 64] and the batched in-kernel score at the bench
-   tenants' class join the ``kernels`` line with ``path="fleet"``;
+   the wave's cold batch with ``fused_score="on"`` (each tenant its
+   single fused solve); and a ``FleetController`` of 8 tenants through
+   one zone outage on the card and the CPU (maps and op logs equal).
+   The batched launches take the narrow-row layouts (checked).  The
+   batched min2 at the wave's [240, 1024, 64] and the batched in-kernel
+   score at the bench tenants' class and at the wave's [240, 1024, 64]
+   join the ``kernels`` line with ``path="fleet"``, each with its wide
+   layout (the batched launch before the narrow rows) timed beside it;
 13. prints one JSON line of kernel measurements, the card's name and
    power limit, the script's wall time, and last
    ``{"ok": true, "device": {...}}``.  A kernel's ``ms`` is its device
@@ -129,6 +146,7 @@ import asyncio
 import collections
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import statistics
@@ -285,13 +303,13 @@ def fused_ops_per_cell(r: int, t: int, a: int, nrules: int) -> int:
 
 
 def fused_inputs(dev: torch.device, p: int = P_MAIN, n: int = N_MAIN,
-                 state: str = "replica"):
+                 state: str = "replica", seed: int = 11):
     """The in-kernel score's inputs in the main path's instantiations:
     the replica slot (one rack rule; anchors the primary and, on half the
     rows, a pinned replica; taken the primary and that pin, T = 2;
     R = 1) or the rule-less primary slot (taken the primary's pin).
     Returns (price, ScoreInputs, nrules)."""
-    rng = np.random.default_rng(11)
+    rng = np.random.default_rng(seed)
     t = lambda x: torch.from_numpy(np.asarray(x)).to(dev)  # noqa: E731
     nodes = np.arange(n, dtype=np.int32)
     gids = t(np.stack([nodes, nodes // 25, np.zeros(n, np.int32)]))
@@ -1567,6 +1585,186 @@ def exact_phase() -> dict:
     return res
 
 
+# --- narrow rows (the ``narrow`` line) ------------------------------------------
+
+# The sweep's widths: the fleet's (8-64), small plans' and bucketed
+# classes' (to 2048), and 4096, past every table.
+NARROW_N = (8, 16, 32, 64, 128, 256, 512, 777, 1024, 2048, 4096)
+# Cells at each N: 64 MB of score, past the card's 50 MB L2, so graph
+# replays read it from HBM.  Unbatched [2^24 / N, N]; batched
+# [NARROW_B, 2^24 / (NARROW_B N), N].
+NARROW_CELLS = 1 << 24
+NARROW_B = 16
+
+
+def narrow_min2_inputs(dev, lead: tuple, n: int):
+    """Quantized scores (duplicate minima), whole +inf rows, and rows
+    whose only finite value is in the last column; score ``lead + (n,)``,
+    price ``lead[:-1] + (n,)``."""
+    gen = torch.Generator(device=dev).manual_seed(n)
+    score = torch.randint(0, 50, lead + (n,), generator=gen, device=dev) \
+        .to(torch.float32) * 0.125
+    score[..., ::97, :] = float("inf")
+    score[..., 5::89, :] = float("inf")
+    score[..., 5::89, -1] = 0.5
+    price = torch.randint(0, 8, lead[:-1] + (n,), generator=gen,
+                          device=dev).to(torch.float32) * 0.25
+    return score, price
+
+
+def narrow_fused_inputs(dev, b: int, p: int, n: int):
+    """The fleet's instantiation (``n1r1t2a2``) at [p, n]; ``b`` > 0
+    stacks b problems of their own seeds, the first priced all +inf and
+    the second +inf but in its last column."""
+    if not b:
+        return fused_inputs(dev, p, n, seed=n)
+    per = [fused_inputs(dev, p, n, seed=n + e) for e in range(b)]
+    price = torch.stack([pr for pr, _si, _r in per])
+    price[0] = float("inf")
+    price[1, :-1] = float("inf")
+    si = score_fused.ScoreInputs(*(torch.stack(f) for f in
+                                   zip(*[s for _pr, s, _r in per])))
+    return price, si, per[0][2]
+
+
+def _wide_launch(kind: str, args: tuple, kw: dict, lanes: int = 0):
+    """The wrapper's launch on its own arguments with ``lanes`` lanes a
+    row: 0 is the wide layout (min2: a block a row; the in-kernel score:
+    the 16-row tile)."""
+    if kind == "min2":
+        return reduce2._launch(*args, lanes=lanes)
+    return score_fused._launch(*args[:4], kw["nrules"], kw["jitter_scale"],
+                               lanes=lanes)
+
+
+def narrow_sweep_row(kind: str, dev, n: int, batched: bool,
+                     aligned: bool = True) -> dict:
+    """One kernel at N = n, 2^24 cells: the layout its wrapper picks and
+    the wide one, both bitwise the plain version, each timed; past the
+    table (the wrapper picks the wide one), its last narrow layout
+    instead, timed beside it.  ``aligned`` False: min2 on views one float
+    off 16-byte alignment (4-byte loads)."""
+    rows = NARROW_CELLS // n
+    b = NARROW_B if batched else 0
+    p = max(1, rows // NARROW_B) if batched else rows
+    cells = max(b, 1) * p * n
+    if kind == "min2":
+        score, price = narrow_min2_inputs(dev, ((b,) if b else ()) + (p,), n)
+        if not aligned:
+            score, price = _offset_view(score), _offset_view(price)
+        args, kw = (score, price), {}
+        kernel = lambda: reduce2.priced_min2_argmin(score, price)  # noqa: E731
+        if batched:
+            plain = lambda: reduce2.batched_min2_reference(  # noqa: E731
+                score, price)
+        else:
+            plain = lambda: reduce2.min2_argmin_reference(  # noqa: E731
+                score + price[None, :])
+        bound = _bound(cells * 4 + price.numel() * 4 + max(b, 1) * p * 12,
+                       cells * 3)
+        name = "priced_min2_argmin"
+        vec = reduce2.min2_vec(score, price)
+        lanes = reduce2.min2_lanes(n, vec)
+        table = reduce2.LANES_BY_N if vec else reduce2.LANES_BY_N_SCALAR
+    else:
+        price, si, nrules = narrow_fused_inputs(dev, b, p, n)
+        args, kw = (price, si, 0, 0), dict(nrules=nrules,
+                                           jitter_scale=T._JITTER)
+        kernel = lambda: score_fused.fused_score_min2(*args, **kw)  # noqa: E731
+        plain = functools.partial(
+            score_fused.batched_fused_reference if batched else
+            score_fused.fused_score_min2_reference, *args, **kw)
+        widths = (si.prev_state.shape[-1], si.taken.shape[-1],
+                  si.present.shape[-1])
+        in_bytes = sum(x.numel() * x.element_size() for x in si) + \
+            price.numel() * 4
+        bound = _bound(in_bytes + max(b, 1) * p * 16,
+                       cells * fused_ops_per_cell(*widths, nrules))
+        name = "fused_score_min2"
+        lanes = score_fused.fused_lanes(n, nrules, *widths)
+        table = score_fused.FUSED_LANES_BY_N
+    shape = ([b] if b else []) + [p, n]
+    want = plain()
+    reset_launch_counts()
+    err = compare(kernel(), want, f"{kind} at {shape}")
+    variant, = launch_variants()[name]
+    other = table[-1][1] if lanes == 0 else 0
+    err = max(err, compare(_wide_launch(kind, args, kw, other), want,
+                           f"{kind} at {shape}, {other} lanes a row"))
+    del want
+    row = dict(kernel=name, shape=shape, aligned=aligned, variant=variant,
+               lanes=lanes, max_abs_err=err,
+               ms=graph_ms(kernel, calls=10, replays=3), **bound)
+    key = "wide_ms" if other == 0 else f"lanes_{other}_ms"
+    row[key] = graph_ms(lambda: _wide_launch(kind, args, kw, other),
+                        calls=10, replays=3)
+    return row
+
+
+def _offset_view(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values in a view one float past a 16-byte boundary."""
+    buf = t.new_empty(t.numel() + 1)
+    buf[1:] = t.flatten()
+    return buf[1:].view(t.shape)
+
+
+def small_plan_path(dev) -> tuple:
+    """The small rebalance fixture's plan (2048 x 64, racks of 8, 3 nodes
+    removed) through plan_next_map on the card, on the matrix engine and
+    the in-kernel score engine: the unbatched narrow layouts on a user's
+    path, counted from 0 over each run.  Returns each run's summary and
+    each kernel's entry, on the inputs of its first call (the in-kernel
+    score's: the replica slot's, ``n1r1t2a2``)."""
+    prev, nodes, removed, model, opts = small_map()
+    out, entries = {}, {}
+    replica = lambda args, kw: kw.get("nrules") == 1  # noqa: E731
+    for key, mode, name, want in (
+            ("min2", "off", "priced_min2_argmin", lambda args, kw: True),
+            ("fused", "on", "fused_score_min2", replica)):
+        T.set_fused_score_default(mode)
+        try:
+            with first_call(name, want) as seen:
+                info, _map = run_main_path(f"small plan, {key}", prev,
+                                           nodes, removed, model, opts)
+        finally:
+            T.set_fused_score_default("auto")
+        variants = info["variants"][name]
+        out[key] = dict(engine=info["engine"], wall_s=info["wall_s"],
+                        launches=info["launches"][name], variants=variants,
+                        narrow_taken=bool(variants) and all(
+                            v.endswith("rows_per_warp") for v in variants))
+        entries[key] = path_kernel_entry(key, seen, out[key]["launches"],
+                                         "the small plan's", wide=True)
+    return out, entries
+
+
+def narrow_phase(dev) -> tuple:
+    """The narrow layouts (the ``narrow`` line): both kernels at every N
+    of the sweep, unbatched and batched, and min2 at N = 1024 off
+    alignment, each layout bitwise the plain version and timed beside
+    the wide one; then the small plan path, whose entries join the
+    ``kernels`` line."""
+    sweep = [narrow_sweep_row(kind, dev, n, batched)
+             for kind in ("min2", "fused") for n in NARROW_N
+             for batched in (False, True)]
+    sweep += [narrow_sweep_row("min2", dev, 1024, batched, aligned=False)
+              for batched in (False, True)]
+    torch.cuda.empty_cache()
+    for r in sweep:
+        log(f"narrow: {r['kernel']} {r['variant']} at {r['shape']} == plain"
+            f" (bitwise), {r['ms']:.5f} ms, bound {r['bound_ms']:.5f}")
+    small, entries = small_plan_path(dev)
+    line = dict(tables=dict(min2=reduce2.LANES_BY_N,
+                            min2_4byte=reduce2.LANES_BY_N_SCALAR,
+                            fused=score_fused.FUSED_LANES_BY_N),
+                sweep=sweep, small_plan=small,
+                checks=dict(small_narrow_taken=all(
+                    v["narrow_taken"] for v in small.values())))
+    if not all(line["checks"].values()):
+        raise AssertionError(f"narrow: {line['checks']}, {small}")
+    return line, entries
+
+
 # --- shape bucketing (the ``bucketed`` line) ----------------------------------
 
 
@@ -1608,10 +1806,12 @@ def bucketed_plan(label, prev, nodes, removed, model, opts, kernel,
     return info, out, seen
 
 
-def padded_kernel_entry(kind: str, seen: dict, launches: int) -> dict:
-    """One kernel against its plain version on the inputs the bucketed
-    main path gave its first call, at the padded shape, bitwise; timed
-    like the kernels phase, with its bound from these inputs."""
+def path_kernel_entry(kind: str, seen: dict, launches: int,
+                      where: str = "the padded", wide: bool = False) -> dict:
+    """One kernel against its plain version on the inputs a path (the
+    bucketed main path: at the padded shape) gave its first call,
+    bitwise; timed like the kernels phase, with its bound from these
+    inputs; ``wide``: its wide layout timed beside it (``wide_ms``)."""
     args, kw = seen["args"], seen["kw"]
     if kind == "min2":
         score, price = args
@@ -1647,9 +1847,17 @@ def padded_kernel_entry(kind: str, seen: dict, launches: int) -> dict:
             score + price_n[cand.clamp(0, price_n.shape[0] - 1).long()], 2,
             dim=1, largest=False)
         bound = _bound(p * n * 8 + price_n.shape[0] * 4 + p * 20, p * n * 3)
-    err = compare(kernel(), plain(), f"{kind} kernel at the padded [{p}, {n}]")
-    log(f"{kind} kernel == plain at the padded [{p}, {n}] (bitwise)")
-    return dict(shape=[p, n], launches=launches, max_abs_err=err,
+    before = launch_variants()
+    err = compare(kernel(), plain(), f"{kind} kernel at {where} [{p}, {n}]")
+    variant, = _variants_since(before)[{"min2": "priced_min2_argmin",
+                                        "fused": "fused_score_min2"}.get(
+        kind, "sparse_priced_min2_cand")]
+    log(f"{kind} kernel == plain at {where} [{p}, {n}] (bitwise)")
+    extra = {}
+    if wide:
+        extra["wide_ms"] = graph_ms(lambda: _wide_launch(kind, args, kw))
+    return dict(shape=[p, n], launches=launches, variant=variant,
+                max_abs_err=err, **extra,
                 ms=graph_ms(kernel, calls=5 if kind == "fused" else 20),
                 ms_events=time_ms(kernel),
                 plain_ms=time_ms(plain, reps=2 if kind == "fused" else 3,
@@ -1720,7 +1928,7 @@ def bucketed_phase(dev, prev, nodes, removed, model, ns_opts, plain, sp_map,
     res["matrix"] = info
     checks["matrix_engine"] = info["engine"] == "matrix" and \
         info["launches"]["priced_min2_argmin"] >= 1
-    entries["min2"] = padded_kernel_entry(
+    entries["min2"] = path_kernel_entry(
         "min2", seen, info["launches"]["priced_min2_argmin"])
     del seen
     torch.cuda.empty_cache()
@@ -1742,7 +1950,7 @@ def bucketed_phase(dev, prev, nodes, removed, model, ns_opts, plain, sp_map,
     res["fused"] = info_f
     checks["fused_engine"] = info_f["engine"] == "fused" and \
         info_f["launches"]["fused_score_min2"] >= 1
-    entries["fused"] = padded_kernel_entry(
+    entries["fused"] = path_kernel_entry(
         "fused", seen, info_f["launches"]["fused_score_min2"])
     del seen, f_map
     padded_ns = [bucket_size(len(prev)), bucket_size(len(nodes))]
@@ -1812,7 +2020,7 @@ def bucketed_phase(dev, prev, nodes, removed, model, ns_opts, plain, sp_map,
         sparse_padded_shape=info_s["bucketed_shape"] == [
             bucket_size(len(sp_prev)), bucket_size(len(sp_nodes))],
         sparse_no_pad_node=info_s["pad_or_unknown_nodes"] == 0)
-    entries["sparse"] = padded_kernel_entry(
+    entries["sparse"] = path_kernel_entry(
         "sparse", seen, info_s["launches"]["sparse_priced_min2_cand"])
     del seen
     res["kernels"] = entries
@@ -1926,16 +2134,27 @@ def _sync_wall(fn):
     return out, time.perf_counter() - t0
 
 
+def _variants_since(before: dict) -> dict:
+    """Each wrapper's launches by variant since ``before`` (a
+    launch_variants() snapshot)."""
+    now = launch_variants()
+    return {k: {v: c - before[k].get(v, 0) for v, c in now[k].items()
+                if c > before[k].get(v, 0)} for k in now}
+
+
 def _fleet_run(tenants, dev, engine=None):
     """solve_fleet with the kernels' batched launches and the auction
-    rounds counted: (results, wall s, info)."""
-    reset_launch_counts()
+    rounds counted: (results, wall s, info).  The counts are this run's,
+    read as a difference: the fleet phase's own totals keep running."""
+    before = launch_variants()
     rounds0 = T._assign_slot.rounds
     rec = Recorder()
     res, wall = _sync_wall(lambda: fleet.solve_fleet(
         tenants, fused_score=engine, recorder=rec, device=dev))
+    variants = _variants_since(before)
     info = dict(wall_s=wall, batches=int(rec.counters["fleet.batches"]),
-                launches=launch_counts(), variants=launch_variants(),
+                launches={k: sum(v.values()) for k, v in variants.items()},
+                variants=variants,
                 rounds=T._assign_slot.rounds - rounds0,
                 max_sweeps=max(r.sweeps for r in res),
                 warm=sum(r.warm for r in res))
@@ -2002,8 +2221,9 @@ def fleet_wave(dev) -> tuple:
         cold, cold_info = _fleet_run(tenants, dev)
         round2 = [delta_tenant(t, r) for t, r in zip(tenants, cold)]
         warm, warm_info = _fleet_run(round2, dev)
-    launches = sum(i["variants"]["priced_min2_argmin"].get("batched", 0)
-                   for i in (cold_info, warm_info))
+    launches = sum(c for i in (cold_info, warm_info)
+                   for v, c in i["variants"]["priced_min2_argmin"].items()
+                   if v.startswith("batched"))
     cold_single, cold_seq_s = _sync_wall(
         lambda: [single_cold(t, dev, engine) for t in tenants])
     warm_single, warm_seq_s = _sync_wall(
@@ -2015,6 +2235,9 @@ def fleet_wave(dev) -> tuple:
     warm_flags = [w for _a, w in warm_single]
     checks["warm_flags_equal"] = dict(equal=warm_flags == [
         r.warm for r in warm])
+    checks["narrow_min2_taken"] = dict(equal=all(
+        "batched_rows_per_warp" in i["variants"]["priced_min2_argmin"]
+        for i in (cold_info, warm_info)))
     k_cells = sum(fleet.batch_class_of(t).p for t in tenants) * FLEET_WAVE_N
     out = dict(
         tenants=len(tenants), nodes=FLEET_WAVE_N, engine=_ENGINES[engine],
@@ -2064,12 +2287,19 @@ def fleet_service(dev, cold) -> dict:
                 checks=dict(equals_batched_wave=equal))
 
 
+def _replica_batch(p: int):
+    """A first_call filter: a batched in-kernel score launch of the
+    replica slot (one rack rule: ``n1r1t2a2``, most of the fleet's
+    launches) over P = p rows."""
+    return lambda args, kw: args[0].dim() == 2 and kw["nrules"] == 1 \
+        and args[1].stick.shape[-1] == p
+
+
 def fleet_fused(dev) -> tuple:
     """(d) fused_score="on" on the bench tenants: each equal to its
     single fused solve, the batched fused launch counted."""
     tenants = bench_fleet_tenants()
-    with first_call("fused_score_min2",
-                    lambda args, kw: args[0].dim() == 2) as seen:
+    with first_call("fused_score_min2", _replica_batch(18)) as seen:
         res, info = _fleet_run(tenants, dev, "on")
     singles = [single_cold(t, dev, "on") for t in tenants]
     batched = {k: v for k, v in info["variants"]["fused_score_min2"].items()
@@ -2077,7 +2307,28 @@ def fleet_fused(dev) -> tuple:
     check = _same_results(res, singles)
     return dict(info, batched_variants=batched,
                 checks=dict(equals_single=check["equal"],
-                            batched_launched=sum(batched.values()) > 0),
+                            batched_launched=sum(batched.values()) > 0,
+                            narrow_taken=any(k.endswith("_rows_per_warp")
+                                             for k in batched)),
+                diff=None if check["equal"] else check), seen, \
+        sum(batched.values())
+
+
+def fleet_wave_fused(dev) -> tuple:
+    """(f) the wave's cold batch with fused_score="on": each tenant
+    bitwise its single fused solve, the narrow layout taken; the large
+    class's first batched call kept for the kernels line."""
+    tenants = wave_tenants()
+    with first_call("fused_score_min2", _replica_batch(1024)) as seen:
+        res, info = _fleet_run(tenants, dev, "on")
+    singles = [single_cold(t, dev, "on") for t in tenants]
+    batched = {k: v for k, v in info["variants"]["fused_score_min2"].items()
+               if k.startswith("batched_")}
+    check = _same_results(res, singles)
+    return dict(info, batched_variants=batched,
+                checks=dict(equals_single=check["equal"],
+                            narrow_taken=any(k.endswith("_rows_per_warp")
+                                             for k in batched)),
                 diff=None if check["equal"] else check), seen, \
         sum(batched.values())
 
@@ -2135,10 +2386,12 @@ def fleet_controller(dev) -> dict:
                             nothing_on_failed_zone=on_zone == 0))
 
 
-def fleet_kernel_entry(kind: str, seen: dict, launches: int) -> dict:
+def fleet_kernel_entry(kind: str, seen: dict, launches: int,
+                       plain_reps: int = 3) -> dict:
     """A batched launch against its plain version on the inputs of its
     first fleet call, bitwise; timed as the kernels phase times, with
-    its bound from these inputs."""
+    its bound from these inputs, and its wide layout (the batched launch
+    before the narrow rows) timed beside it."""
     args, kw = seen["args"], seen["kw"]
     if kind == "min2":
         score, price = args
@@ -2151,6 +2404,7 @@ def fleet_kernel_entry(kind: str, seen: dict, launches: int) -> dict:
             largest=False)
         bound = _bound(b * p * n * 4 + b * n * 4 + b * p * 12,
                        b * p * n * 3)
+        name = "priced_min2_argmin"
     else:
         price, si = args[:2]
         b, n = price.shape
@@ -2166,12 +2420,18 @@ def fleet_kernel_entry(kind: str, seen: dict, launches: int) -> dict:
         ops = b * p * n * fused_ops_per_cell(*widths, kw["nrules"])
         in_bytes = sum(x.numel() * x.element_size() for x in si) + b * n * 4
         bound = _bound(in_bytes + b * p * 16, ops)
-    err = compare(kernel(), plain(),
-                  f"batched {kind} kernel at [{b}, {p}, {n}]")
+        name = "fused_score_min2"
+    reset_launch_counts()
+    got = kernel()
+    variant, = launch_variants()[name]
+    err = compare(got, plain(), f"batched {kind} kernel at [{b}, {p}, {n}]")
     log(f"batched {kind} kernel == plain at [{b}, {p}, {n}] (bitwise)")
-    return dict(shape=[b, p, n], launches=launches, max_abs_err=err,
-                ms=graph_ms(kernel), ms_events=time_ms(kernel),
-                plain_ms=time_ms(plain, reps=3, warmup=1),
+    # The plain version's compare call above is its warm-up.
+    return dict(shape=[b, p, n], launches=launches, variant=variant,
+                max_abs_err=err, ms=graph_ms(kernel),
+                wide_ms=graph_ms(lambda: _wide_launch(kind, args, kw)),
+                ms_events=time_ms(kernel),
+                plain_ms=time_ms(plain, reps=plain_reps, warmup=0),
                 library_ms=None if library is None else time_ms(library,
                                                                 reps=3),
                 **bound)
@@ -2184,6 +2444,7 @@ def fleet_phase(dev) -> tuple:
     (e) a FleetController on the card and the CPU; returns the line and
     the batched kernels' entries."""
     T.set_fused_score_default("auto")
+    reset_launch_counts()
     res: dict = {}
     parts: dict = {}
     t0 = time.perf_counter()
@@ -2200,16 +2461,27 @@ def fleet_phase(dev) -> tuple:
     res["fused"], seen_fused, fused_launches = fleet_fused(dev)
     parts["fused"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    res["wave_fused"], seen_wave_fused, wave_fused_launches = \
+        fleet_wave_fused(dev)
+    parts["wave_fused"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     res["controller"] = fleet_controller(dev)
     parts["controller"] = time.perf_counter() - t0
+    # Every launch of the phase's runs, by variant, before the kernel
+    # entries' comparison launches.
+    res["variants"] = launch_variants()
     t0 = time.perf_counter()
     entries = {"min2": fleet_kernel_entry("min2", seen_min2, min2_launches),
                "fused": fleet_kernel_entry("fused", seen_fused,
-                                           fused_launches)}
+                                           fused_launches),
+               "fused_wave": fleet_kernel_entry(
+                   "fused", seen_wave_fused, wave_fused_launches,
+                   plain_reps=1)}
     parts["kernels"] = time.perf_counter() - t0
     res["parts_s"] = parts
     checks = {f"{part}.{k}": v for part in ("bench_fleet", "wave", "service",
-                                            "fused", "controller")
+                                            "fused", "wave_fused",
+                                            "controller")
               for k, v in res[part]["checks"].items()}
     checks["min2_batched_launched"] = min2_launches > 0
     res["checks"] = checks
@@ -2248,6 +2520,9 @@ def main() -> int:
     min2 = check_min2(dev)
     fused = check_fused(dev)
     sparse = check_sparse_min2(dev)
+    t0 = time.perf_counter()
+    narrow, narrow_kernels = narrow_phase(dev)
+    narrow["phase_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
     warnings.simplefilter("error")  # an engine fallback must not hide
@@ -2396,12 +2671,21 @@ def main() -> int:
             replaces=entry["replaces"], path="bucketed", bitwise=True,
             **padded[key]))
     # The batched launches of the fleet tier, on the inputs of their first
-    # fleet calls.
-    for entry, key in zip(kernels[:2], ("min2", "fused")):
+    # fleet calls (the in-kernel score's at the bench tenants' class and
+    # at the wave's).
+    for entry, key in zip([kernels[0], kernels[1], kernels[1]],
+                          ("min2", "fused", "fused_wave")):
         kernels.append(dict(
             name=entry["name"], route="cuda", source=entry["source"],
             replaces=entry["replaces"], path="fleet", bitwise=True,
             **fleet_kernels[key]))
+    # The unbatched narrow layouts on the small plan's path, on the inputs
+    # of its first calls; launches: that path's own runs.
+    for entry, key in zip(kernels[:2], ("min2", "fused")):
+        kernels.append(dict(
+            name=entry["name"], route="cuda", source=entry["source"],
+            replaces=entry["replaces"], path="small", bitwise=True,
+            **narrow_kernels[key]))
     prof = [profile_main_path(m, prev, nodes, removed, model, opts)
             for m in ("off", "on")]
     prof.append(profile_main_path("auto", *sp_map))
@@ -2415,6 +2699,7 @@ def main() -> int:
     print(json.dumps({"exact": exact}))
     print(json.dumps({"bucketed": bucketed}))
     print(json.dumps({"fleet": fleet_line}))
+    print(json.dumps({"narrow": narrow}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -36,9 +36,38 @@ def _same(got, want):
     assert len(got) == len(want)
 
 
+@pytest.fixture(params=["picked", "wide"])
+def layout(request, monkeypatch):
+    """Runs a test in the layouts the wrappers pick and, with the lane
+    tables emptied, in the wide ones that rows past the tables take (a
+    block a row; the 16-row tile)."""
+    if request.param == "wide":
+        monkeypatch.setattr(reduce2, "LANES_BY_N", ())
+        monkeypatch.setattr(reduce2, "LANES_BY_N_SCALAR", ())
+        monkeypatch.setattr(score_fused, "FUSED_LANES_BY_N", ())
+    return request.param
+
+
+def _min2_name(n, batched, vec=None):
+    """The ``variants`` name of the min2 layout taken at N = n, on
+    operands that take float4 loads where ``n % 4 == 0`` (or as ``vec``
+    says)."""
+    if reduce2.min2_lanes(n, n % 4 == 0 if vec is None else vec):
+        return "batched_rows_per_warp" if batched else "rows_per_warp"
+    return "batched" if batched else "block_per_row"
+
+
+def _fused_name(n, nrules, r, t, a, batched=False):
+    """The ``variants`` name of the in-kernel score launch at N = n."""
+    name = score_fused.fused_variant(nrules, r, t, a)
+    if score_fused.fused_lanes(n, nrules, r, t, a):
+        name += "_rows_per_warp"
+    return "batched_" + name if batched else name
+
+
 @pytest.mark.parametrize("shape,quant", [((130, 300), False),
                                          ((67, 513), True), ((5, 1), False)])
-def test_min2_kernel_matches_plain(dev, shape, quant):
+def test_min2_kernel_matches_plain(dev, shape, quant, layout):
     g = torch.Generator().manual_seed(1)
     x = torch.randn(shape, generator=g)
     if quant:
@@ -46,9 +75,10 @@ def test_min2_kernel_matches_plain(dev, shape, quant):
     x[::4] = float("inf")
     x = x.to(dev)
     price = torch.linspace(0, 2, shape[1], device=dev)
-    before = reduce2.priced_min2_argmin.launches
+    reset_launch_counts()
     got = reduce2.priced_min2_argmin(x, price)
-    assert reduce2.priced_min2_argmin.launches == before + 1
+    assert reduce2.priced_min2_argmin.variants == {
+        _min2_name(shape[1], False): 1}
     _same(got, reduce2.min2_argmin_reference(x + price[None, :]))
 
 
@@ -84,10 +114,13 @@ def _fused_inputs(dev, seed, P, N, R, T, A, nrules, total_p=None,
 
 
 @pytest.mark.parametrize("nrules", [0, 1, 2])
-def test_fused_kernel_matches_plain(dev, nrules):
+def test_fused_kernel_matches_plain(dev, nrules, layout):
     price, si = _fused_inputs(dev, nrules, 300, 257, 2, 3, 2, nrules)
+    reset_launch_counts()
     got = score_fused.fused_score_min2(price, si, 7, 0, nrules=nrules,
                                        jitter_scale=1e-5)
+    assert score_fused.fused_score_min2.variants == {
+        _fused_name(257, nrules, 2, 3, 2): 1}
     _same(got, score_fused.fused_score_min2_reference(
         price, si, 7, 0, nrules=nrules, jitter_scale=1e-5))
 
@@ -95,7 +128,7 @@ def test_fused_kernel_matches_plain(dev, nrules):
 @pytest.mark.parametrize("widths", list(score_fused.FUSED_VARIANTS)
                          + [(2, 2, 2, 2)])
 @pytest.mark.parametrize("P", [300, 5])
-def test_fused_kernel_every_instantiation(dev, widths, P):
+def test_fused_kernel_every_instantiation(dev, widths, P, layout):
     """Each fixed-width instantiation and the runtime-width one (nrules =
     2, R = 2, T = 2), with a ragged last row tile (P % 16 != 0) and a
     tile shorter than a tile's rows; a row base and a column offset as a
@@ -109,14 +142,15 @@ def test_fused_kernel_every_instantiation(dev, widths, P):
     reset_launch_counts()
     got = score_fused.fused_score_min2(price, si, 11, 40, nrules=nrules,
                                        jitter_scale=1e-5)
-    assert score_fused.fused_score_min2.variants == {name: 1}
+    assert score_fused.fused_score_min2.variants == {
+        _fused_name(1003, nrules, R, T, max(A, 1)): 1}
     _same(got, score_fused.fused_score_min2_reference(
         price, si, 11, 40, nrules=nrules, jitter_scale=1e-5))
 
 
 @pytest.mark.parametrize("variant", ["n1r1t2a2", "generic"])
 @pytest.mark.parametrize("where", ["all", "head"])
-def test_fused_kernel_inf_prices(dev, variant, where):
+def test_fused_kernel_inf_prices(dev, variant, where, layout):
     """+inf prices: every row all +inf (idx 0, raw NaN), and the first
     columns +inf, so some threads see only +inf."""
     widths = (1, 1, 2, 2) if variant != "generic" else (1, 2, 2, 2)
@@ -128,7 +162,9 @@ def test_fused_kernel_inf_prices(dev, variant, where):
     reset_launch_counts()
     got = score_fused.fused_score_min2(price, si, 0, 0, nrules=1,
                                        jitter_scale=1e-5)
-    assert score_fused.fused_score_min2.variants == {variant: 1}
+    assert score_fused.fused_score_min2.variants == {
+        _fused_name(603, *widths): 1}
+    assert score_fused.fused_variant(*widths) == variant
     _same(got, score_fused.fused_score_min2_reference(
         price, si, 0, 0, nrules=1, jitter_scale=1e-5))
 
@@ -442,7 +478,8 @@ PADDED = [((2049, 61), (2304, 64)), ((4099, 777), (4608, 832))]
 
 
 @pytest.mark.parametrize("real,padded", PADDED)
-def test_min2_kernel_at_padded_shape_matches_plain(dev, real, padded):
+def test_min2_kernel_at_padded_shape_matches_plain(dev, real, padded,
+                                                   layout):
     """The priced min2 at a bucket-padded, ragged shape: pad columns score
     +1e9 like invalid nodes, pad rows keep scores (weight-0 bidders)."""
     g = torch.Generator().manual_seed(3)
@@ -450,22 +487,28 @@ def test_min2_kernel_at_padded_shape_matches_plain(dev, real, padded):
     x[:, real[1]:] += 1e9
     x = x.to(dev)
     price = (torch.arange(padded[1], dtype=torch.float32) % 5 * 0.25).to(dev)
+    reset_launch_counts()
     got = reduce2.priced_min2_argmin(x, price)
+    assert reduce2.priced_min2_argmin.variants == {
+        _min2_name(padded[1], False): 1}
     _same(got, reduce2.min2_argmin_reference(x + price[None, :]))
 
 
 @pytest.mark.parametrize("nrules", [0, 1])
 @pytest.mark.parametrize("real,padded", PADDED)
 def test_fused_kernel_at_padded_shape_matches_plain(dev, real, padded,
-                                                    nrules):
+                                                    nrules, layout):
     """The in-kernel score at a bucket-padded shape with the fill term's
     p_real a 0-d tensor on the card (the real P) and the pad columns
     invalid: all four outputs bitwise its plain version."""
     p_real = torch.tensor(float(real[0]), device=dev)
     price, si = _fused_inputs(dev, 5 + nrules, *padded, 1, 2, 2, nrules,
                               total_p=p_real, n_real=real[1])
+    reset_launch_counts()
     got = score_fused.fused_score_min2(price, si, 0, 0, nrules=nrules,
                                        jitter_scale=1e-5)
+    assert score_fused.fused_score_min2.variants == {
+        _fused_name(padded[1], nrules, 1, 2, 2): 1}
     _same(got, score_fused.fused_score_min2_reference(
         price, si, 0, 0, nrules=nrules, jitter_scale=1e-5))
 
@@ -517,7 +560,7 @@ def test_bucketed_plan_on_card_matches_cpu(dev, engine, mode, kernel, extra):
 
 @pytest.mark.parametrize("b,p,n", [(3, 17, 8), (5, 130, 33), (1, 7, 300),
                                    (16, 20, 64)])
-def test_batched_min2_kernel_matches_plain(dev, b, p, n):
+def test_batched_min2_kernel_matches_plain(dev, b, p, n, layout):
     """A batch of [P, N] problems in one launch, each row priced by its
     own problem's price row; every element equals its unbatched launch."""
     g = torch.Generator().manual_seed(b * 1000 + n)
@@ -527,7 +570,7 @@ def test_batched_min2_kernel_matches_plain(dev, b, p, n):
     x, price = x.to(dev), price.to(dev)
     reset_launch_counts()
     got = reduce2.priced_min2_argmin(x, price)
-    assert reduce2.priced_min2_argmin.variants == {"batched": 1}
+    assert reduce2.priced_min2_argmin.variants == {_min2_name(n, True): 1}
     _same(got, reduce2.batched_min2_reference(x, price))
     for e in range(b):
         _same([t[e] for t in got],
@@ -550,7 +593,8 @@ def _stack_fused(dev, b, p, n, widths, nrules, p_real=False):
 @pytest.mark.parametrize("nrules,widths", [(1, (1, 2, 2)), (0, (1, 1, 1)),
                                            (2, (2, 2, 2))])
 @pytest.mark.parametrize("b,p,n", [(3, 18, 8), (4, 37, 65), (1, 300, 257)])
-def test_batched_fused_kernel_matches_plain(dev, nrules, widths, b, p, n):
+def test_batched_fused_kernel_matches_plain(dev, nrules, widths, b, p, n,
+                                            layout):
     """The in-kernel score over a batch (the problem on blockIdx.y):
     bitwise the per-problem plain version and each problem's unbatched
     launch, ragged row tiles included; the jitter hashes each problem's
@@ -560,13 +604,149 @@ def test_batched_fused_kernel_matches_plain(dev, nrules, widths, b, p, n):
     reset_launch_counts()
     got = score_fused.fused_score_min2(price, si, 0, 0, nrules=nrules,
                                        jitter_scale=1e-5)
-    name = score_fused.fused_variant(nrules, *widths)
-    assert score_fused.fused_score_min2.variants == {f"batched_{name}": 1}
+    assert score_fused.fused_score_min2.variants == {
+        _fused_name(n, nrules, *widths, batched=True): 1}
     _same(got, score_fused.batched_fused_reference(
         price, si, 0, 0, nrules=nrules, jitter_scale=1e-5))
     for e, (pr, s) in enumerate(per):
         _same([t[e] for t in got], score_fused.fused_score_min2(
             pr, s, 0, 0, nrules=nrules, jitter_scale=1e-5))
+
+
+# -- narrow rows: several rows a block, a group of lanes a row ------------------
+
+# The widest rows that still take the narrow layouts (min2: float4 rows
+# and rows of 4-byte loads).
+_MIN2_EDGES = [reduce2.LANES_BY_N[-1][0], reduce2.LANES_BY_N_SCALAR[-1][0]]
+_FUSED_EDGE = score_fused.FUSED_LANES_BY_N[-1][0]
+_NARROW_N = [1, 3, 4, 7, 8, 31, 33, 64, 65, 128, 255, 256, 257]
+
+
+def _narrow_rows(lead, n, seed):
+    """Quantized scores (duplicate minima), whole +inf rows and rows
+    whose only finite value is in the last column, score ``lead + (n,)``
+    and price ``lead[:-1] + (n,)``."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.floor(torch.randn(lead + (n,), generator=g) * 3) * 0.125
+    x[..., ::5, :] = float("inf")
+    x[..., 2::7, :] = float("inf")
+    x[..., 2::7, -1] = 1.5
+    price = torch.floor(torch.rand(lead[:-1] + (n,), generator=g) * 8) * 0.25
+    return x, price
+
+
+def _offset(t):
+    """``t``'s values in a view one float past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.flatten()
+    return buf[1:].view(t.shape)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("b,p", [(1, 5), (3, 300), (7, 129)])
+@pytest.mark.parametrize("n", sorted(set(
+    _NARROW_N + [1024] + [e + d for e in _MIN2_EDGES for d in (-1, 0, 1, 4)])))
+def test_min2_narrow_layouts_match_plain(dev, n, b, p, aligned):
+    """Rows per warp at every width around its lane counts and its
+    thresholds: bitwise the plain version, each problem of the batch equal
+    to its unbatched launch; fewer rows than a block holds and ragged
+    last blocks; float4 loads on aligned rows with N % 4 == 0, 4-byte
+    loads otherwise, their lane count from the 4-byte table (N = 1024
+    off alignment: a block a row)."""
+    x, price = _narrow_rows((b, p), n, seed=n * 1000 + p)
+    x, price = x.to(dev), price.to(dev)
+    if not aligned:
+        x, price = _offset(x), _offset(price)
+    vec = aligned and n % 4 == 0
+    lanes = reduce2.min2_lanes(n, vec)
+    assert reduce2.min2_layout(x, price) == (lanes, vec and lanes > 0)
+    reset_launch_counts()
+    got = reduce2.priced_min2_argmin(x, price)
+    _same(got, reduce2.batched_min2_reference(x, price))
+    for e in range(b):
+        assert reduce2.min2_layout(x[e], price[e])[0] == lanes
+        _same([t[e] for t in got], reduce2.priced_min2_argmin(x[e],
+                                                              price[e]))
+    want = {_min2_name(n, True, vec): 1}
+    want[_min2_name(n, False, vec)] = b
+    assert reduce2.priced_min2_argmin.variants == want
+
+
+@pytest.mark.parametrize("nrules,widths", [(1, (1, 2, 2)), (0, (1, 1, 1)),
+                                           (2, (2, 2, 2))])
+@pytest.mark.parametrize("b,p", [(1, 5), (3, 300)])
+@pytest.mark.parametrize("n", sorted(set(
+    _NARROW_N + [_FUSED_EDGE - 1, _FUSED_EDGE, _FUSED_EDGE + 1])))
+def test_fused_narrow_layouts_match_plain(dev, n, b, p, nrules, widths):
+    """The in-kernel score's narrow rows at every width around its lane
+    counts and its threshold, in a fixed-width and the runtime-width
+    instantiation: bitwise the plain version, each problem equal to its
+    unbatched launch, fewer rows than a block holds and ragged blocks."""
+    price, si, per = _stack_fused(dev, b, p, n, widths, nrules,
+                                  p_real=nrules == 1)
+    reset_launch_counts()
+    got = score_fused.fused_score_min2(price, si, 0, 0, nrules=nrules,
+                                       jitter_scale=1e-5)
+    _same(got, score_fused.batched_fused_reference(
+        price, si, 0, 0, nrules=nrules, jitter_scale=1e-5))
+    for e, (pr, s) in enumerate(per):
+        _same([t[e] for t in got], score_fused.fused_score_min2(
+            pr, s, 0, 0, nrules=nrules, jitter_scale=1e-5))
+    want = {_fused_name(n, nrules, *widths, batched=True): 1}
+    want[_fused_name(n, nrules, *widths)] = b
+    assert score_fused.fused_score_min2.variants == want
+
+
+@pytest.mark.parametrize("n", [1, 8, 33, 64])
+@pytest.mark.parametrize("where", ["all", "last"])
+def test_fused_narrow_inf_prices(dev, n, where):
+    """+inf prices in the narrow layout: every row all +inf (idx 0, raw
+    NaN), or every column but the last +inf, so most lanes see only
+    +inf."""
+    price, si = _fused_inputs(dev, 9, 70, n, 1, 2, 2, 1)
+    if where == "all":
+        price[:] = float("inf")
+    else:
+        price[:-1] = float("inf")
+    reset_launch_counts()
+    got = score_fused.fused_score_min2(price, si, 0, 0, nrules=1,
+                                       jitter_scale=1e-5)
+    assert score_fused.fused_score_min2.variants == {
+        _fused_name(n, 1, 1, 2, 2): 1}
+    _same(got, score_fused.fused_score_min2_reference(
+        price, si, 0, 0, nrules=1, jitter_scale=1e-5))
+
+
+@pytest.mark.parametrize("lanes", [3, 64, -2])
+def test_narrow_launch_error_raises(dev, lanes):
+    """A lane count the launchers refuse raises RuntimeError and runs
+    nothing else: no layout is taken instead and nothing is counted; the
+    extern functions return the CUDA error, as they do for float4 loads
+    asked of a ragged row."""
+    x = torch.zeros((40, 12), device=dev)
+    price = torch.zeros(12, device=dev)
+    reset_launch_counts()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        reduce2._launch(x, price, lanes=lanes)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        reduce2._launch(x[None], price[None], lanes=lanes)
+    fprice, si = _fused_inputs(dev, 1, 40, 12, 1, 2, 2, 1)
+    for pr, s in ((fprice, si), (fprice[None], score_fused.ScoreInputs(
+            *(t[None] for t in si)))):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            score_fused._launch(pr, s, 0, 0, 1, 1e-5, lanes=lanes)
+    assert launch_counts() == {k: 0 for k in launch_counts()}
+    out = torch.empty(40, device=dev)
+    idx = torch.empty(40, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    fn, fb = reduce2._kernel()
+    ptrs = (x.data_ptr(), price.data_ptr(), out.data_ptr(), idx.data_ptr(),
+            out.data_ptr())
+    assert fn(*ptrs, 40, 12, lanes, 0, stream) != 0
+    assert fb(*ptrs, 40, 12, 40, lanes, 0, stream) != 0
+    assert fn(*ptrs, 40, 11, 8, 1, stream) != 0  # float4 on N % 4 != 0
+    assert fn(*ptrs, 40, 12, 0, 1, stream) != 0  # float4, block per row
+    torch.cuda.synchronize()
 
 
 def _fleet_tenant(p, n, seed, key):
@@ -591,8 +771,8 @@ def _fleet_tenant(p, n, seed, key):
 
 
 @pytest.mark.parametrize("engine,kernel,variant", [
-    ("off", "priced_min2_argmin", "batched"),
-    ("on", "fused_score_min2", "batched_n1r1t2a2")])
+    ("off", "priced_min2_argmin", _min2_name(8, True)),
+    ("on", "fused_score_min2", _fused_name(8, 1, 1, 2, 2, batched=True))])
 def test_fleet_on_card_matches_cpu(dev, engine, kernel, variant):
     """solve_fleet cold, then warm after one held node per tenant goes:
     the card's assignments, sweeps and warm flags equal the CPU's, and
