@@ -17,6 +17,11 @@ tie-break jitter, which XLA contracts in the reference) as ``fmaf``.
 A build failure raises; nothing here falls back to the plain version.
 ``build_all`` starts every ``nvcc`` at once, so a cold start costs the
 slowest kernel's build, not the sum.
+
+Each build, and each first load of a library no build of this process
+made, is one event for the device observatory's build accounting
+(``obs/device.note_compile``), attributed to the entry scope open at
+that moment.
 """
 
 from __future__ import annotations
@@ -27,7 +32,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Optional
+
+from ..obs import device as _obs_device
 
 __all__ = ["load", "build_all", "kernel_sources", "NVCC_FLAGS"]
 
@@ -38,6 +46,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC_DIR = os.path.join(_HERE, "csrc")
 _BUILD_DIR = os.path.join(_HERE, "_build")
 _LIBS: dict[str, ctypes.CDLL] = {}
+_BUILT: set[str] = set()  # libraries this process built (already counted)
 _LOCK = threading.Lock()
 
 
@@ -71,20 +80,25 @@ def _tmp(out: str) -> str:
     return f"{out}.{os.getpid()}.tmp"
 
 
-def _compile(name: str, out: str) -> subprocess.Popen:
+def _compile(name: str, out: str) -> tuple[subprocess.Popen, float]:
     os.makedirs(_BUILD_DIR, exist_ok=True)
     cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", _tmp(out),
            kernel_sources()[name]]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    return (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True),
+            time.perf_counter())
 
 
-def _finish(name: str, out: str, proc: subprocess.Popen) -> str:
+def _finish(name: str, out: str,
+            started: tuple[subprocess.Popen, float]) -> str:
+    proc, t0 = started
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(_tmp(out), out)  # atomic for concurrent loaders
+    _BUILT.add(name)
+    _obs_device.note_compile(f"lib{name}", time.perf_counter() - t0)
     return log
 
 
@@ -114,5 +128,9 @@ def load(name: str) -> ctypes.CDLL:
             out = _lib_path(name)
             if not os.path.exists(out):
                 _finish(name, out, _compile(name, out))
+            t0 = time.perf_counter()
             _LIBS[name] = ctypes.CDLL(out)
+            if name not in _BUILT:
+                _obs_device.note_compile(f"lib{name}",
+                                         time.perf_counter() - t0)
         return _LIBS[name]

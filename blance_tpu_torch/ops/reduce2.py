@@ -25,6 +25,8 @@ import ctypes
 
 import torch
 
+from . import cost as _cost
+
 __all__ = ["min2_argmin", "min2_argmin_reference", "priced_min2_argmin",
            "batched_min2_reference", "min2_lanes", "min2_vec", "min2_layout",
            "LANES_BY_N", "LANES_BY_N_SCALAR"]
@@ -161,6 +163,7 @@ def priced_min2_argmin(score: torch.Tensor, price: torch.Tensor):
     if n == 0:
         raise ValueError("min2_argmin requires N >= 1 (got shape %r)"
                          % (tuple(score.shape),))
+    _cost.note(_cost.min2_work, score, price)
     if score.device.type == "cpu":
         if score.dim() == 3:
             return batched_min2_reference(score, price)

@@ -41,6 +41,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from . import cost as _cost
+
 __all__ = ["fused_score_min2", "fused_score_min2_reference",
            "batched_fused_reference", "ScoreInputs",
            "pack_score_inputs", "score_at_columns", "jitter_hash",
@@ -447,6 +449,7 @@ def fused_score_min2(price: torch.Tensor, si: ScoreInputs, pbase: int,
     :func:`batched_fused_reference`."""
     if price.shape[-1] == 0:
         raise ValueError("fused_score_min2 requires N >= 1")
+    _cost.note(_cost.fused_work, price, si, nrules)
     if price.device.type == "cpu":
         if price.dim() == 2:
             return batched_fused_reference(

@@ -32,6 +32,8 @@ import ctypes
 
 import torch
 
+from . import cost as _cost
+
 __all__ = ["sparse_min2_reference", "sparse_min2_cand_reference",
            "sparse_priced_min2", "sparse_priced_min2_cand", "load_variant"]
 
@@ -124,6 +126,7 @@ def sparse_priced_min2(score: torch.Tensor, price: torch.Tensor):
     """Fused (best, argmin, second, raw) over ``score + price``, both
     [P, K].  Bitwise equal to :func:`sparse_min2_reference`."""
     _check_rows("sparse_priced_min2", score, price, "price")
+    _cost.note(_cost.sparse_work, score, price)
     if _device_kind("sparse_priced_min2", score, price) == "cpu":
         return sparse_min2_reference(score, price)
     if score.dtype != torch.float32 or price.dtype != torch.float32:
@@ -158,6 +161,7 @@ def sparse_priced_min2_cand(score: torch.Tensor, cand: torch.Tensor,
     if price_n.dim() != 1 or price_n.shape[0] == 0:
         raise ValueError(f"{what} takes a non-empty 1-D price_n, got shape "
                          f"{tuple(price_n.shape)}")
+    _cost.note(_cost.sparse_cand_work, score, cand, price_n)
     if _device_kind(what, score, cand, price_n) == "cpu":
         return sparse_min2_cand_reference(score, cand, price_n)
     if score.dtype != torch.float32 or price_n.dtype != torch.float32:

@@ -1,7 +1,6 @@
 # Port of blance_tpu/orchestrate/sched/ranks.py: rank_levels on tensors in
-# place of the jitted lax.scan; _upward_ranks_host copied.  The reference
-# attributes its device sweep to the XLA compile observatory
-# (obs.device.entry("sched.ranks")), which waits for ROADMAP A.10.
+# place of the jitted lax.scan; _upward_ranks_host copied.  The device
+# sweep is the observatory's "sched.ranks" entry (obs/device.py).
 """Upward-rank (critical-path) priorities over the leveled move DAG.
 
 The move DAG is a union of per-partition chains, so a move's upward
@@ -33,6 +32,7 @@ import numpy as np
 import torch
 
 from ...convert import resolve_device
+from ...obs import device as obs_device
 
 __all__ = ["DEVICE_THRESHOLD", "rank_levels", "upward_ranks"]
 
@@ -86,7 +86,9 @@ def _upward_ranks_device(
     padded = np.zeros((len(chain_costs), max_len), dtype=np.float32)
     for i, costs in enumerate(chain_costs):
         padded[i, :lens[i]] = costs
-    ranks = rank_levels(torch.from_numpy(padded).to(dev)).cpu().numpy()
+    with obs_device.entry("sched.ranks"), obs_device.measure(
+            "sched.ranks", f"{padded.shape[0]}x{max_len}", dev):
+        ranks = rank_levels(torch.from_numpy(padded).to(dev)).cpu().numpy()
     return [ranks[i, :lens[i]].tolist() for i in range(len(chain_costs))]
 
 

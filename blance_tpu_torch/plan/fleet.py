@@ -2,9 +2,7 @@
 # solve under jax.vmap; here the batch axis is explicit: the dense solver
 # of plan/tensor.py takes [B, ...] arrays and keeps every element's
 # arithmetic the single problem's.  The batch axis's mesh sharding is
-# ROADMAP A.9 (``mesh=`` raises); the reference's compile observatory
-# hooks (obs.device cost gauges and entry attribution) are A.10 and left
-# out.
+# ROADMAP A.9 (``mesh=`` raises).
 """Fleet-scale multi-tenant batch planning: batched bucket-class solves.
 
 Production deployments (cbgt/FTS-style) rebalance hundreds of tenant
@@ -58,6 +56,7 @@ from ..core.encode import (
     pad_to,
     stack_problem_arrays,
 )
+from ..obs import device as _device
 from ..obs import get_recorder
 from .carry import capacity_shrank, effective_dirty
 from .tensor import (
@@ -332,16 +331,20 @@ def _dispatch(fn_args: list[NPArray], warm: bool, k: BatchClass,
     and ``fleet.h2d_bytes`` read as the reference's."""
     b_real = fn_args[0].shape[0]
     b_target = bucket_size(max(b_real, batch_floor))
+    ent = "fleet.warm" if warm else "fleet.cold"
     fn_args, b_padded = _pad_batch(fn_args, b_target)
     dev_args = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
                 for a in fn_args]
     statics = dict(constraints=k.constraints, rules=k.rules,
                    fused_score=fused_score)
-    if warm:
-        outs = _fleet_warm_batch(*dev_args, **statics)
-    else:
-        outs = _fleet_cold_batch(*dev_args, max_iterations=max_iterations,
-                                 **statics)
+    with _device.entry(ent), _device.measure(
+            ent, f"{k.p}x{k.n}xB{b_padded}", device, dev_args):
+        if warm:
+            outs = _fleet_warm_batch(*dev_args, **statics)
+        else:
+            outs = _fleet_cold_batch(*dev_args,
+                                     max_iterations=max_iterations,
+                                     **statics)
     if record:
         rec.observe("fleet.batch_tenants", float(b_real))
         rec.observe("fleet.batch_occupancy",

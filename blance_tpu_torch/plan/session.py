@@ -43,6 +43,7 @@ from ..core.encode import DenseProblem, NPArray, decode_assignment, \
     encode_problem
 from ..core.types import Partition, PartitionMap, PartitionModel, \
     PlanOptions
+from ..obs import device as _obs_device
 from ..obs import get_recorder
 from . import tensor as _tensor
 from .audit import _VALIDATE_AUTO_CELLS, _audit_rules_nest, \
@@ -495,7 +496,12 @@ class PlannerSession:
             rec.observe("plan.solve.dirty_fraction",
                         float(dirty_np.mean()) if dirty_np.size else 0.0)
             t0 = rec.now()
-            with rec.span("plan.pipeline.dispatch", warm=True, engine=mode):
+            with rec.span("plan.pipeline.dispatch", warm=True, engine=mode), \
+                    _obs_device.entry("pipeline.warm"), _obs_device.measure(
+                        "pipeline.warm",
+                        f"{self.current.shape[0]}x"
+                        f"{self._problem.node_weights.shape[0]}",
+                        self.device, (dirty_t, carry.used)):
                 args = self._solver_args()
                 (out, prices, used, ok, d_nodes, d_states, d_ops, _packed,
                  _counts) = _tensor._pipeline_warm_impl(
@@ -539,7 +545,8 @@ class PlannerSession:
                 prob.gid_valid, constraints, rules, max_iterations=iters,
                 fused_score=mode,
                 allow_fallback=_tensor._FUSED_SCORE_DEFAULT == "auto",
-                favor_min_nodes=favor_min_nodes, device=self.device)
+                favor_min_nodes=favor_min_nodes, device=self.device,
+                entry="pipeline.cold")
         return assign, new_carry, darrs
 
     def moves(

@@ -58,6 +58,7 @@ partition-axis sharding.
 
 from __future__ import annotations
 
+import contextlib
 import time
 import warnings as _warnings
 from typing import Callable, NamedTuple, Optional
@@ -87,6 +88,7 @@ from ..ops.score_fused import (
     score_at_columns,
 )
 from ..moves.batch import diff_assignments, moves_from_arrays
+from ..obs import device as _device
 from ..obs import get_recorder
 from ..obs.recorder import phase_span
 from ..utils.trace import PhaseTimer
@@ -1158,12 +1160,19 @@ def _solve_dense_converged_impl(prev, pweights, nweights, valid, stickiness,
                                 max_iterations: int = 10,
                                 fused_score: str = "off",
                                 carry_used: Optional[torch.Tensor] = None,
-                                p_real=None):
+                                p_real=None, trace_sweeps: bool = False):
     """The fixpoint loop; returns (assign, sweeps executed).  One host
     read of the changed flag per sweep.  ``carry_used`` seeds the FIRST
     sweep only: later sweeps re-derive their seed from their own input;
     ``p_real`` is the real partition count under padding (see
     _solve_assign).
+
+    ``trace_sweeps`` (one problem only) also counts each sweep's changed
+    rows on the device and returns (assign, sweeps, fracs) with
+    ``fracs`` a float32 numpy [max_iterations]: sweep i's changed-row
+    count over max(p_real, 1) (max(P, 1) without ``p_real``), zeros past
+    the last sweep, read back once after the loop (see
+    _traced_fixpoint).  Off, the loop is the untraced one.
 
     Over a batch ([B, P, S, R] and the other arrays with a leading [B],
     ``p_real`` [B]) each element iterates until its own map stops
@@ -1177,6 +1186,9 @@ def _solve_dense_converged_impl(prev, pweights, nweights, valid, stickiness,
                            carry_used=cu, p_real=p_real)
 
     if prev.dim() == 3:
+        if trace_sweeps:
+            return _traced_fixpoint(solve, prev, carry_used, max_iterations,
+                                    p_real)
         out, prev_i, it = solve(prev, carry_used), prev, 1
         while it < max_iterations and bool((out != prev_i).any()):
             out, prev_i, it = solve(out), out, it + 1
@@ -1204,6 +1216,34 @@ def _solve_dense_converged_impl(prev, pweights, nweights, valid, stickiness,
         out[live] = y
         sweeps[live.cpu()] += 1
     return out, sweeps
+
+
+def _traced_fixpoint(solve, prev, carry_used, max_iterations: int, p_real):
+    """The single-problem fixpoint with the sweep trace: the untraced
+    loop, plus each sweep's changed-row count kept on the device (sweep
+    0 compares its output with ``prev``).  The counts are summed exactly
+    (int64) and cast to float32 (exact below 2**24 rows), then scaled as
+    the reference's compiled program scales its float32 sum: divided
+    once by a traced ``p_real``, but multiplied by the float32
+    reciprocal of the static max(P, 1) (XLA rewrites a division by a
+    constant so).  They come back in one copy after the loop."""
+    def changed_rows(a, b):
+        return (a != b).any(dim=2).any(dim=1).sum()
+
+    out, prev_i, it = solve(prev, carry_used), prev, 1
+    counts = [changed_rows(out, prev_i)]
+    while it < max_iterations and bool((out != prev_i).any()):
+        out, prev_i, it = solve(out), out, it + 1
+        counts.append(changed_rows(out, prev_i))
+    total = torch.stack(counts).to(torch.float32)
+    if p_real is None:
+        fracs = total * (np.float32(1.0) / np.float32(max(prev.shape[0], 1)))
+    else:
+        fracs = total / torch.clamp(torch.as_tensor(
+            p_real, dtype=torch.float32, device=prev.device), min=1.0)
+    full = np.zeros(max_iterations, np.float32)
+    full[:it] = fracs.cpu().numpy()
+    return out, it, full
 
 
 def _record_sweeps(sweeps: int) -> None:
@@ -1283,14 +1323,37 @@ def solve_dense_converged(prev, pweights, nweights, valid, stickiness,
     ``carry_used`` (SolveCarry.used matching ``prev``) seeds the first
     sweep; ``return_carry`` returns (assign, SolveCarry) instead of
     assign; ``p_real`` is the real partition count when the arrays carry
-    inert pad rows (shape bucketing; see _solve_assign)."""
+    inert pad rows (shape bucketing; see _solve_assign).
+
+    Device observatory (obs/device.py), all opt-in: the dispatch is the
+    entry ``solve_dense.cold`` (``solve_dense.carry`` with a carry, or
+    the enclosing dispatch site's label, as the bucketed plan path's)
+    and its first run per shape is measured; with the sweep trace armed
+    and ``record``, the sweeps' changed-row fractions go out as
+    ``device.sweep_accept_frac`` samples across the solve's interval."""
     _check_tier_band_scale(prev, pweights, nweights, valid, stickiness,
                            constraints, rules)
-    out, sweeps = _solve_dense_converged_impl(
-        prev, pweights, nweights, valid, stickiness, gids, gid_valid,
-        constraints, rules, max_iterations, fused_score, carry_used, p_real)
+    ent = _device.ambient_entry() or (
+        "solve_dense.carry" if carry_used is not None
+        else "solve_dense.cold")
+    want_trace = record and prev.dim() == 3 and \
+        _device.sweep_trace_enabled()
+    rec = get_recorder()
+    t0 = rec.now()
+    operands = (prev, pweights, nweights, valid, stickiness, gids,
+                gid_valid, carry_used, p_real)
+    with _device.entry(ent), _device.measure(
+            ent, f"{prev.shape[-3]}x{nweights.shape[-1]}", prev.device,
+            operands):
+        res = _solve_dense_converged_impl(
+            prev, pweights, nweights, valid, stickiness, gids, gid_valid,
+            constraints, rules, max_iterations, fused_score, carry_used,
+            p_real, trace_sweeps=want_trace)
+    out, sweeps = res[0], res[1]
     if record:
         _record_sweeps(sweeps)
+    if want_trace:
+        _device.record_sweep_trace(rec, t0, rec.now(), sweeps, res[2])
     if stats is not None:
         stats["sweeps"] = sweeps
     if return_carry:
@@ -1470,12 +1533,16 @@ def solve_dense_warm(
     if record:
         rec.observe("plan.solve.dirty_fraction",
                     float(dirty_np.mean()) if dirty_np.size else 0.0)
+    used = carry.used.to(prev.device)
     with rec.span("plan.solve.attempt", warm=True,
-                  engine=_ENGINE_NAMES[fused_score]):
+                  engine=_ENGINE_NAMES[fused_score]), \
+            _device.entry("solve_dense.warm"), _device.measure(
+                "solve_dense.warm", f"{prev.shape[0]}x{nweights.shape[-1]}",
+                prev.device, (prev, pweights, nweights, valid, stickiness,
+                              gids, gid_valid, dirty_t, used, p_real)):
         out, new_used, ok = _warm_repair(
             prev, pweights, nweights, valid, stickiness, gids, gid_valid,
-            dirty_t, carry.used.to(prev.device), constraints, rules,
-            fused_score, p_real)
+            dirty_t, used, constraints, rules, fused_score, p_real)
         accepted = bool(ok)
     if not accepted:
         return _warm_declined(record)
@@ -1790,16 +1857,26 @@ def solve_sparse(
     bucketing; see _solve_assign)."""
     constraints, rules = _sparse_statics(prev, pweights, nweights, valid,
                                          stickiness, constraints, rules)
-    shortlist, shortlist_s = _build_or_adopt_shortlist(
-        prev, pweights, nweights, valid, gids, gid_valid, constraints,
-        rules, shortlist, k, record)
-    with get_recorder().span("plan.solve.attempt", engine="sparse"):
-        out, sweeps, exh = _solve_sparse_converged_impl(
-            prev, pweights, nweights, valid, stickiness, gids, gid_valid,
-            shortlist, constraints, rules, max(int(max_iterations), 1),
-            carry_used, p_real)
-        out_np = out.cpu().numpy()
-        exh_np = exh.cpu().numpy()
+    # The entry scope (obs/device.py) opens before the shortlist step, as
+    # the reference's does; the measured dispatch is the fixpoint.
+    ent = _device.ambient_entry() or (
+        "sparse.carry" if carry_used is not None else "sparse.cold")
+    with _device.entry(ent):
+        shortlist, shortlist_s = _build_or_adopt_shortlist(
+            prev, pweights, nweights, valid, gids, gid_valid, constraints,
+            rules, shortlist, k, record)
+        with get_recorder().span("plan.solve.attempt", engine="sparse"), \
+                _device.measure(
+                    ent, f"{prev.shape[0]}x{nweights.shape[-1]}",
+                    prev.device, (prev, pweights, nweights, valid,
+                                  stickiness, gids, gid_valid, shortlist,
+                                  carry_used, p_real)):
+            out, sweeps, exh = _solve_sparse_converged_impl(
+                prev, pweights, nweights, valid, stickiness, gids,
+                gid_valid, shortlist, constraints, rules,
+                max(int(max_iterations), 1), carry_used, p_real)
+            out_np = out.cpu().numpy()
+            exh_np = exh.cpu().numpy()
     if record:
         _record_sweeps(sweeps)
     out_np, replaced = _apply_sparse_fallback(
@@ -1839,15 +1916,22 @@ def solve_sparse_warm(
     if record:
         rec.observe("plan.solve.dirty_fraction",
                     float(dirty_np.mean()) if dirty_np.size else 0.0)
-    shortlist, shortlist_s = _build_or_adopt_shortlist(
-        prev, pweights, nweights, valid, gids, gid_valid, constraints,
-        rules, shortlist, k, record)
-    with rec.span("plan.solve.attempt", warm=True, engine="sparse"):
-        out, new_used, ok, exh = _warm_repair_sparse(
-            prev, pweights, nweights, valid, stickiness, gids, gid_valid,
-            shortlist, dirty_t, carry.used.to(prev.device), constraints,
-            rules, p_real)
-        accepted = bool(ok)
+    with _device.entry("sparse.warm"):
+        shortlist, shortlist_s = _build_or_adopt_shortlist(
+            prev, pweights, nweights, valid, gids, gid_valid, constraints,
+            rules, shortlist, k, record)
+        used = carry.used.to(prev.device)
+        with rec.span("plan.solve.attempt", warm=True, engine="sparse"), \
+                _device.measure(
+                    "sparse.warm", f"{prev.shape[0]}x{nweights.shape[-1]}",
+                    prev.device, (prev, pweights, nweights, valid,
+                                  stickiness, gids, gid_valid, shortlist,
+                                  dirty_t, used, p_real)):
+            out, new_used, ok, exh = _warm_repair_sparse(
+                prev, pweights, nweights, valid, stickiness, gids,
+                gid_valid, shortlist, dirty_t, used, constraints, rules,
+                p_real)
+            accepted = bool(ok)
     if stats is not None:
         stats.update(k=int(shortlist.shape[1]), shortlist_s=shortlist_s,
                      accepted=accepted, exhausted_rows=int(exh.sum()),
@@ -2014,11 +2098,17 @@ def plan_next_map_cuda(
     arrays, (solve_p, solve_n), p_real = _solver_arrays(problem, opts,
                                                         device)
     use_sparse = _sparse_selected(opts, solve_p, solve_n, rules, device)
+    # Observatory attribution: the bucketed path owns its dispatch as
+    # "solve_dense.bucketed" (first-wins, so the inner cold/carry labels
+    # of the solvers yield to it); the unbucketed path lets them stand.
+    obs_entry = _device.entry("solve_dense.bucketed") \
+        if opts.shape_bucketing else contextlib.nullcontext()
     with phase_span("plan.solve", timer=timer, partitions=problem.P,
                     nodes=problem.N,
                     engine=("sparse" if use_sparse else None),
                     bucketed_shape=((solve_p, solve_n)
-                                    if opts.shape_bucketing else None)):
+                                    if opts.shape_bucketing else None)), \
+            obs_entry:
         args = problem_to_torch(*arrays, device=device)
         if use_sparse:
             assign = solve_sparse(
@@ -2266,6 +2356,8 @@ def plan_pipeline(
                         solve_p, solve_n, device),
                     allow_fallback=_FUSED_SCORE_DEFAULT == "auto",
                     favor_min_nodes=favor_min_nodes, device=device,
+                    entry=("solve_dense.bucketed" if opts.shape_bucketing
+                           else "pipeline.cold"),
                     timer=timer, p_real=p_real)
         except (ValueError, TypeError):
             raise  # deterministic input errors: the same on the staged path
@@ -2307,20 +2399,25 @@ def _dispatch_pipeline_cold(
     prev_a, pw_a, nw_a, valid_a, stick_a, gids_a, gv_a,
     constraints: Constraints, rules: Rules, *, max_iterations: int,
     fused_score: str, allow_fallback: bool, favor_min_nodes: bool,
-    device: torch.device, timer=None, carry_used=None, p_real=None,
+    device: torch.device, entry: str, timer=None, carry_used=None,
+    p_real=None,
 ):
     """One cold pipeline run on ``device`` from host arrays, with
     solve_converged_resilient's engine-failure degradation (retry once on
     the other engine when the mode came from "auto", on a card).  Returns
     (assign, sweeps, SolveCarry, (d_nodes, d_states, d_ops), (packed,
-    counts)), the arrays numpy and off the device in one copy."""
+    counts)), the arrays numpy and off the device in one copy.
+    ``entry`` is the dispatch's observatory label (obs/device.py)."""
     rec = get_recorder()
 
     def run(m: str):
         check_dense_memory(prev_a.shape[0], prev_a.shape[1],
                            nw_a.shape[-1], m, device)
         t0 = rec.now()
-        with phase_span("plan.pipeline.dispatch", timer=timer, engine=m):
+        with phase_span("plan.pipeline.dispatch", timer=timer, engine=m), \
+                _device.entry(entry), _device.measure(
+                    entry, f"{prev_a.shape[0]}x{nw_a.shape[-1]}", device,
+                    (carry_used,)):
             args = problem_to_torch(prev_a, pw_a, nw_a, valid_a, stick_a,
                                     gids_a, gv_a, device=device)
             (assign, sweeps, prices, used, d_nodes, d_states, d_ops,
@@ -2367,10 +2464,14 @@ def _dispatch_pipeline_sparse(
     ``_dispatch_pipeline_cold``'s tuple.  Exhausted rows are re-placed by
     the host fallback against the host ``prev_a``, and their diff, pack
     and carry re-derived on the device from the patched assignment (one
-    more copy, on that rare path only)."""
+    more copy, on that rare path only).  The dispatch is the
+    observatory's "sparse.pipeline" entry (obs/device.py)."""
     rec = get_recorder()
     t0 = rec.now()
-    with phase_span("plan.pipeline.dispatch", timer=timer, engine="sparse"):
+    with phase_span("plan.pipeline.dispatch", timer=timer, engine="sparse"), \
+            _device.entry("sparse.pipeline"), _device.measure(
+                "sparse.pipeline", f"{prev_a.shape[0]}x{nw_a.shape[-1]}",
+                device):
         args = problem_to_torch(prev_a, pw_a, nw_a, valid_a, stick_a,
                                 gids_a, gv_a, device=device)
         (assign, sweeps, prices, used, d_nodes, d_states, d_ops, packed,

@@ -1,4 +1,5 @@
-# Copied from blance_tpu/utils/nativebuild.py.
+# Copied from blance_tpu/utils/nativebuild.py; a successful call is also a
+# build event for the port's device observatory (obs/device.py).
 """Shared compile-and-cache helper for the repo's native components.
 
 The native loaders — here the CPython marshalling extension
@@ -11,6 +12,9 @@ from __future__ import annotations
 
 import os
 import subprocess
+import time
+
+from ..obs import device as _obs_device
 
 __all__ = ["compile_cached"]
 
@@ -27,10 +31,15 @@ def compile_cached(source: str, out_path: str, command: list[str]) -> bool:
     directory, published with an atomic os.replace(): concurrent importers
     only ever dlopen a fully-written shared object (a plain in-place write
     passes the existence/mtime check the moment the file is created).
+
+    The callers load what this returns once per process, so each
+    successful call is one build-or-first-load event for the device
+    observatory's build accounting (``obs/device.note_compile``).
     """
     if not os.path.exists(source):
         return False
     tmp_path = f"{out_path}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
     try:
         os.makedirs(os.path.dirname(out_path), exist_ok=True)
         if (not os.path.exists(out_path)
@@ -39,6 +48,8 @@ def compile_cached(source: str, out_path: str, command: list[str]) -> bool:
                 [tmp_path if c == out_path else c for c in command],
                 check=True, capture_output=True)
             os.replace(tmp_path, out_path)
+        _obs_device.note_compile(os.path.basename(out_path),
+                                 time.perf_counter() - t0)
         return True
     except (OSError, subprocess.CalledProcessError):
         return False

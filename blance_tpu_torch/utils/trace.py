@@ -1,5 +1,5 @@
-# Copied from blance_tpu/utils/trace.py (PhaseTimer only: device_profile
-# wraps jax.profiler and waits for ROADMAP A.10 as torch.profiler).
+# Copied from blance_tpu/utils/trace.py; device_profile wraps
+# torch.profiler where the reference wraps jax.profiler.
 """Lightweight tracing/profiling for planner and orchestrator phases.
 
 The reference has no tracing (SURVEY.md §5); its observability surface is
@@ -11,18 +11,23 @@ framework exposes:
   also recorded as a Recorder span (and annotations land on the current
   span), so legacy PhaseTimer callers feed the unified trace for free
   while ``report()`` output stays byte-identical to the pre-obs shape.
+- ``device_profile``: context manager around torch.profiler (the card's
+  kernels and copies beside the host's operations), exported as a
+  Chrome trace viewable in Perfetto.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import os
 from dataclasses import dataclass, field
-from typing import Iterator
+from typing import Iterator, Optional
 
 from ..obs import get_recorder
 from .hostclock import perf_now
 
-__all__ = ["PhaseTimer"]
+__all__ = ["PhaseTimer", "device_profile"]
 
 
 @dataclass
@@ -73,3 +78,57 @@ class PhaseTimer:
         ]
         parts += [f"{k}={v}" for k, v in sorted(self.annotations.items())]
         return "; ".join(parts)
+
+
+_PROFILES = itertools.count()
+
+
+@contextlib.contextmanager
+def device_profile(log_dir: Optional[str]) -> Iterator[None]:
+    """torch.profiler over the body: CPU and CUDA activities when a card
+    is present (CPU only without one), exported on exit — also when the
+    body raises — as a Chrome trace ``trace.<pid>.<n>.json`` in
+    ``log_dir``.
+
+    Inert when ``log_dir`` is None or a profiler is already active (the
+    documented no-op cases).  Any other failure to start raises on a
+    machine with a card, so a run that was asked for a device trace
+    never passes without one; without a card it warns and the body runs
+    unprofiled."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if torch.autograd.profiler._is_profiler_enabled:
+        yield
+        return
+    cuda = torch.cuda.is_available()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    prof = None
+    try:
+        os.makedirs(log_dir, exist_ok=True)
+        prof = profile(activities=acts)
+        prof.__enter__()
+    except Exception as e:
+        if cuda:
+            raise
+        prof = None
+        import warnings
+
+        warnings.warn(
+            f"device_profile: profiler failed to start "
+            f"({type(e).__name__}: {e}); continuing without a trace",
+            RuntimeWarning, stacklevel=3)
+    # Guard only profiler startup: the body's own exceptions propagate
+    # unchanged.
+    try:
+        yield
+    finally:
+        if prof is not None:
+            if cuda:
+                torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+            prof.export_chrome_trace(os.path.join(
+                log_dir, f"trace.{os.getpid()}.{next(_PROFILES)}.json"))

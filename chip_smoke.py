@@ -37,7 +37,19 @@ nothing of jax or of the JAX package.  In order:
 4. drives plan_next_map(backend="cuda") at the north-star deployment
    (100k partitions x 10k nodes, primary + 1 replica, racks of 25 under
    one zone, replica on another rack, 5% of nodes removed) on the engine
-   auto picks, then again on the in-kernel score engine;
+   auto picks, then again on the in-kernel score engine; then runs it
+   under the device observatory (the ``obs`` line): both engines'
+   plans with ``obs.device.enable()``, a fresh recorder and a Chrome
+   trace with a torch.profiler log dir (maps bitwise the plain map,
+   each engine's kernel launched and in the profiler's trace, one
+   sweep-trace sample per sweep, the cold solve's peak allocation
+   published once, the exposition parsing with nothing undeclared),
+   ``device_check --check`` on the card in a cold process, and the
+   membudget table's ``smoke`` and ``north`` rows on the card, each
+   within its budget (both in processes of their own, beside the
+   traced plans), then the plan's wall time with the observatory off
+   and on (a warm-up call, then 5 alternating pairs: the solve stage's
+   medians within 5%, the walls' within their spread);
 5. builds the sparse deployment's shortlist (the same shape at 1M
    partitions x 10k nodes) and runs its converged sparse solve on the
    card and on the CPU, array for array equal, then drives
@@ -168,7 +180,8 @@ from blance_tpu_torch.core.shortlist import build_shortlist_core
 from blance_tpu_torch.moves import batch as moves_batch
 from blance_tpu_torch.obs import Recorder, use_recorder
 from blance_tpu_torch.obs.sinks import InMemorySink
-from blance_tpu_torch.ops import reduce2, score_fused, sparse2
+from blance_tpu_torch.ops import cost, reduce2, score_fused, sparse2
+from blance_tpu_torch.ops.cost import LANE_INSTR_PER_S, fused_ops_per_cell
 from blance_tpu_torch import fleetloop
 from blance_tpu_torch.plan import fleet
 from blance_tpu_torch.plan import native as native_planner
@@ -178,11 +191,6 @@ from blance_tpu_torch.utils.trace import PhaseTimer
 
 P_MAIN, N_MAIN = 100_000, 10_000
 P_SPARSE = 1_000_000  # the sparse engine's deployment: 1M x 10k
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-F32_OPS_PER_S = 67e12      # float32 outside the tensor cores, same sheet
-# Lane-instructions the card issues per second: 132 SMs x 4 schedulers x
-# 32 lanes at the 1.98 GHz boost clock (same sheet).
-LANE_INSTR_PER_S = 132 * 4 * 32 * 1.98e9
 
 
 def log(msg: str) -> None:
@@ -280,26 +288,16 @@ def check_min2(dev: torch.device) -> dict:
                     score + price[None, :]), reps=3),
                 library_ms=time_ms(lambda: torch.topk(
                     eff, 2, dim=1, largest=False), reps=3))
-            nbytes = p * n * 4 + n * 4 + p * 12
-            ops = p * n * 3  # price add + two compares per element
-            out.update(_bound(nbytes, ops))
+            out.update(_bound(*cost.min2_work(score, price)))
             del eff
         del score, price, got, want
     return out
 
 
-def _bound(nbytes: int, ops: int) -> dict:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-
-def fused_ops_per_cell(r: int, t: int, a: int, nrules: int) -> int:
-    """Operations the in-kernel score does per (row, column): column id
-    1, boost 3, same-ordinal 2, sticky 2R, rules nrules*(5A + 2) + 2,
-    taken/valid 2T + 2, jitter 6, priced min2 3."""
-    return 21 + 2 * r + 2 * t + nrules * (5 * a + 2)
+# Each kernel's bound from its work on these inputs: the formulas of
+# blance_tpu_torch/ops/cost.py, which the device observatory's
+# device.flops / device.hbm_bytes gauges count with too.
+_bound = cost.bound
 
 
 def fused_inputs(dev: torch.device, p: int = P_MAIN, n: int = N_MAIN,
@@ -397,8 +395,7 @@ def check_fused(dev: torch.device) -> dict:
                 price, si, 0, 0, nrules=nrules, **kw), reps=2, warmup=1),
             library_ms=None,
             issue_floor_ms=p * n * ops_cell / LANE_INSTR_PER_S * 1e3)
-        in_bytes = sum(x.numel() * x.element_size() for x in si) + n * 4
-        out.update(_bound(in_bytes + p * 16, p * n * ops_cell))
+        out.update(_bound(*cost.fused_work(price, si, nrules)))
     return out
 
 
@@ -472,7 +469,8 @@ def check_sparse_min2(dev: torch.device) -> dict:
                 ungathered_with_gathers_ms=graph_ms(unfused))
             # score and cand read once, the [N] price row once, five [P]
             # outputs written; a price add and two compares per element.
-            out.update(_bound(p * k * 8 + n * 4 + p * 20, p * k * 3))
+            out.update(_bound(*cost.sparse_cand_work(score, cand,
+                                                     price_n)))
             del cand_c
         del score, price, cand, price_n, got, want
     return out
@@ -1647,7 +1645,6 @@ def narrow_sweep_row(kind: str, dev, n: int, batched: bool,
     rows = NARROW_CELLS // n
     b = NARROW_B if batched else 0
     p = max(1, rows // NARROW_B) if batched else rows
-    cells = max(b, 1) * p * n
     if kind == "min2":
         score, price = narrow_min2_inputs(dev, ((b,) if b else ()) + (p,), n)
         if not aligned:
@@ -1660,8 +1657,7 @@ def narrow_sweep_row(kind: str, dev, n: int, batched: bool,
         else:
             plain = lambda: reduce2.min2_argmin_reference(  # noqa: E731
                 score + price[None, :])
-        bound = _bound(cells * 4 + price.numel() * 4 + max(b, 1) * p * 12,
-                       cells * 3)
+        bound = _bound(*cost.min2_work(score, price))
         name = "priced_min2_argmin"
         vec = reduce2.min2_vec(score, price)
         lanes = reduce2.min2_lanes(n, vec)
@@ -1676,10 +1672,7 @@ def narrow_sweep_row(kind: str, dev, n: int, batched: bool,
             score_fused.fused_score_min2_reference, *args, **kw)
         widths = (si.prev_state.shape[-1], si.taken.shape[-1],
                   si.present.shape[-1])
-        in_bytes = sum(x.numel() * x.element_size() for x in si) + \
-            price.numel() * 4
-        bound = _bound(in_bytes + max(b, 1) * p * 16,
-                       cells * fused_ops_per_cell(*widths, nrules))
+        bound = _bound(*cost.fused_work(price, si, nrules))
         name = "fused_score_min2"
         lanes = score_fused.fused_lanes(n, nrules, *widths)
         table = score_fused.FUSED_LANES_BY_N
@@ -1821,7 +1814,7 @@ def path_kernel_entry(kind: str, seen: dict, launches: int,
             score + price[None, :])
         library = lambda: torch.topk(score + price[None, :], 2,  # noqa: E731
                                      dim=1, largest=False)
-        bound = _bound(p * n * 4 + n * 4 + p * 12, p * n * 3)
+        bound = _bound(*cost.min2_work(score, price))
     elif kind == "fused":
         price, si = args[:2]
         p, n = si.stick.shape[0], price.shape[0]
@@ -1831,11 +1824,7 @@ def path_kernel_entry(kind: str, seen: dict, launches: int,
         plain = lambda: score_fused.fused_score_min2_reference(  # noqa: E731
             price, si, *args[2:4], **call)
         library = None
-        widths = (si.prev_state.shape[1], si.taken.shape[1],
-                  si.present.shape[1])
-        ops = p * n * fused_ops_per_cell(*widths, kw["nrules"])
-        in_bytes = sum(x.numel() * x.element_size() for x in si) + n * 4
-        bound = _bound(in_bytes + p * 16, ops)
+        bound = _bound(*cost.fused_work(price, si, kw["nrules"]))
     else:
         score, cand, price_n = args
         p, n = score.shape
@@ -1846,7 +1835,7 @@ def path_kernel_entry(kind: str, seen: dict, launches: int,
         library = lambda: torch.topk(  # noqa: E731
             score + price_n[cand.clamp(0, price_n.shape[0] - 1).long()], 2,
             dim=1, largest=False)
-        bound = _bound(p * n * 8 + price_n.shape[0] * 4 + p * 20, p * n * 3)
+        bound = _bound(*cost.sparse_cand_work(score, cand, price_n))
     before = launch_variants()
     err = compare(kernel(), plain(), f"{kind} kernel at {where} [{p}, {n}]")
     variant, = _variants_since(before)[{"min2": "priced_min2_argmin",
@@ -2402,8 +2391,7 @@ def fleet_kernel_entry(kind: str, seen: dict, launches: int,
         library = lambda: torch.topk(  # noqa: E731
             (score + price[:, None, :]).reshape(b * p, n), 2, dim=1,
             largest=False)
-        bound = _bound(b * p * n * 4 + b * n * 4 + b * p * 12,
-                       b * p * n * 3)
+        bound = _bound(*cost.min2_work(score, price))
         name = "priced_min2_argmin"
     else:
         price, si = args[:2]
@@ -2415,11 +2403,7 @@ def fleet_kernel_entry(kind: str, seen: dict, launches: int,
         plain = lambda: score_fused.batched_fused_reference(  # noqa: E731
             price, si, *args[2:4], **call)
         library = None
-        widths = (si.prev_state.shape[-1], si.taken.shape[-1],
-                  si.present.shape[-1])
-        ops = b * p * n * fused_ops_per_cell(*widths, kw["nrules"])
-        in_bytes = sum(x.numel() * x.element_size() for x in si) + b * n * 4
-        bound = _bound(in_bytes + b * p * 16, ops)
+        bound = _bound(*cost.fused_work(price, si, kw["nrules"]))
         name = "fused_score_min2"
     reset_launch_counts()
     got = kernel()
@@ -2491,6 +2475,361 @@ def fleet_phase(dev) -> tuple:
     return res, entries
 
 
+# --- the device observatory (the ``obs`` line) -------------------------------
+
+OBS_KERNELS = {"min2.cu": ("priced_min2",),
+               "score_fused.cu": ("fused_score_min2_kernel",
+                                  "fused_rows_kernel")}
+
+
+def _obs_plan(prev, nodes, removed, model, opts, mode: str) -> tuple:
+    """One north-star plan_next_map on engine ``mode``, the launch counts
+    set to 0 just before it and read just after; (wall s, map, timings,
+    launches), the wall on the host clock with the device synchronised,
+    ``timings`` the plan's own (``solve_s``, ``sweeps``, ...)."""
+    T.set_fused_score_default(mode)
+    try:
+        reset_launch_counts()
+        timings: dict = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, warn = bt.plan_next_map(prev, prev, nodes, removed, [], model,
+                                     opts, backend="cuda", timings=timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+    finally:
+        T.set_fused_score_default("auto")
+    if warn:
+        raise AssertionError(f"obs plan ({mode}): {len(warn)} warnings")
+    return wall, out, timings, launches
+
+
+def _trace_kernels(log_dir: str) -> dict:
+    """Kernel launches by source file in the torch.profiler traces that
+    device_profile exported into ``log_dir``."""
+    import glob
+    import os
+
+    names: collections.Counter = collections.Counter()
+    for path in glob.glob(os.path.join(log_dir, "trace.*.json")):
+        with open(path) as f:
+            for ev in json.load(f).get("traceEvents", []):
+                if ev.get("cat") == "kernel":
+                    names[ev.get("name", "")] += 1
+    return {src: sum(c for nm, c in names.items()
+                     if any(k in nm for k in keys))
+            for src, keys in OBS_KERNELS.items()}
+
+
+class _GcClock:
+    """A ``gc.callbacks`` hook: the seconds the cyclic collector ran and
+    its full (generation-2) collections, while installed."""
+
+    def __init__(self) -> None:
+        self.s, self.full, self._t0 = 0.0, 0, 0.0
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.s += time.perf_counter() - self._t0
+            self.full += info["generation"] == 2
+
+
+OBS_PAIRS = 5  # off/on pairs timed after the warm-up calls
+
+
+# The membudget table in a process of its own, one shape class a
+# process (``sys.argv[1]``): the ``smoke`` class through the whole check
+# (MEM001-MEM003), the ``north`` rows measured alone; printed as one JSON
+# object.
+_MEMBUDGET_CHILD = """
+import json
+import sys
+from blance_tpu_torch.analysis import membudget
+if sys.argv[1] == "north":
+    rows = membudget.measure_budget_table(["north"], device="cuda")
+    measured = sum(r["ok"] is not None for r in rows)
+    findings = [f"MEM001 {r['entry']}@north: {r.get('error', r.get('measured'))}"
+                for r in rows if r["ok"] is not True]
+else:
+    rows = []
+    found, measured = membudget.run_membudget_check(device="cuda",
+                                                    rows_out=rows)
+    findings = [f.render() for f in found]
+print(json.dumps(dict(rows=rows, measured=measured, findings=findings)))
+"""
+
+
+def _start_checks() -> dict:
+    """The observatory's checks, each in a process of its own, started
+    now: ``python -m blance_tpu_torch.obs.device_check --check``
+    (nothing is loaded there yet, so its build counts are a cold
+    process's, the ones the retrace budgets bound) and the membudget
+    table, its ``smoke`` class and its ``north`` rows apart (each peak
+    is the child's own allocator's, whatever else runs on the card)."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k != "BLANCE_MEMBUDGET_NORTH"}
+    cmds = {"device_check": [sys.executable, "-m",
+                             "blance_tpu_torch.obs.device_check", "--check"]}
+    for klass in ("smoke", "north"):
+        cmds[f"membudget_{klass}"] = [sys.executable, "-c",
+                                      _MEMBUDGET_CHILD, klass]
+    return {name: subprocess.Popen(
+        cmd, cwd=here, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for name, cmd in cmds.items()}
+
+
+def _finish_check(proc: subprocess.Popen) -> tuple:
+    """Wait for one check process; (exit code, stdout, stderr)."""
+    try:
+        out, err = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    log(err.strip())
+    return proc.returncode, out, err
+
+
+def _device_check_result(proc: subprocess.Popen) -> dict:
+    """The cold check's exit code and the build counts it printed."""
+    import ast
+    import re
+
+    rc, _out, err = _finish_check(proc)
+    m = re.search(r"builds by entry (\{.*?\}), added by calls 2-4 "
+                  r"(\{.*?\})", err)
+    return dict(rc=rc,
+                builds=ast.literal_eval(m.group(1)) if m else None,
+                repeated=ast.literal_eval(m.group(2)) if m else None)
+
+
+def _membudget_result(proc: subprocess.Popen) -> dict:
+    """The membudget child's rows, findings and measured count."""
+    rc, out, _err = _finish_check(proc)
+    if rc != 0:
+        raise AssertionError(f"membudget check process exited {rc}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _obs_traced(prev, nodes, removed, model, opts, plain_map, checks,
+                parts, t_phase) -> tuple:
+    """The observatory's traced plans (see obs_phase): (plans, sweep
+    fractions, kernels in the profiler's trace, the recorder, the sweeps
+    of each plan)."""
+    import os
+    import tempfile
+
+    from blance_tpu_torch.obs import chrome
+    from blance_tpu_torch.obs import device as obs_device
+
+    rec = Recorder()
+    samples_want = []
+    with tempfile.TemporaryDirectory() as tmp, use_recorder(rec), \
+            warnings.catch_warnings():
+        # The profiler's own notices are not engine fallbacks.
+        warnings.filterwarnings("ignore", module=r"torch\.")
+        log_dir = os.path.join(tmp, "device")
+        trace_path = os.path.join(tmp, "obs_trace.json")
+        obs_device.enable()
+        obs_device.reset_cost_cache()
+        try:
+            with chrome.trace(trace_path, recorder=rec,
+                              device_log_dir=log_dir) as sink:
+                plans = {}
+                for mode, kernel in (("auto", "priced_min2_argmin"),
+                                     ("on", "fused_score_min2")):
+                    wall, out, timings, launches = _obs_plan(
+                        prev, nodes, removed, model, opts, mode)
+                    name = _ENGINES["off" if mode == "auto" else mode]
+                    checks[f"{name}_map_equal"] = _same_map(out, plain_map)
+                    checks[f"{name}_launched"] = launches[kernel] > 0
+                    plans[name] = dict(wall_s=wall,
+                                       sweeps=int(timings["sweeps"]),
+                                       launches=launches[kernel])
+                    samples_want.append(int(timings["sweeps"]))
+                    del out
+            fracs = [v for _, nm, v in sorted(sink._counter_samples)
+                     if nm == "device.sweep_accept_frac"]
+        finally:
+            obs_device.disable()
+        parts["traced_s"] = time.perf_counter() - t_phase
+        t0 = time.perf_counter()
+        kernels_in_trace = _trace_kernels(log_dir)
+        parts["trace_read_s"] = time.perf_counter() - t0
+
+    return plans, fracs, kernels_in_trace, rec, samples_want
+
+
+def obs_phase(dev, prev, nodes, removed, model, opts, plain_map) -> dict:
+    """The device observatory around the main path (the ``obs`` line).
+
+    First the checks start, each in a process of its own
+    (``_start_checks``): ``device_check --check`` in a cold process, its
+    build counts bound by the retrace budgets, and the membudget table,
+    the ``smoke`` class (MEM001 on the card) and the ``north`` rows, each
+    peak beside its budget and the dense guard's projected P*N*20 B.
+
+    Beside them, with ``obs.device.enable()``, a fresh Recorder and
+    ``chrome.trace`` with a torch.profiler log dir: the north-star plan
+    on the matrix engine and on the in-kernel score engine (the
+    observatory's first calls), each map bitwise the plain map and each
+    launching its engine's kernel; a sweep-trace sample per sweep, the
+    last 0.0 when the plan converged; the cold solve's peak allocation
+    published once, above 0 and below the card's memory; the profiler's
+    trace holding both kernels' launches; the recorder's exposition
+    parsing with nothing undeclared.
+
+    Then, the checks finished, the plan's wall time with the observatory
+    off and on (matrix engine): one warm-up call after the profiler's
+    exit, then ``OBS_PAIRS`` pairs, alternating which side goes first;
+    the medians and the spread of each side, of the wall and of the
+    plan's own solve stage (the only stage the observatory touches), and
+    the collector's pauses and full collections inside each call.  The
+    objects alive before are frozen out of the collector's passes (the
+    script holds several maps of P partitions), so a full collection of
+    them lands in no timed call.  The observatory passes when its solve
+    stage's on median is within 5% of the off median, and the walls' on
+    median exceeds the off median by no more than the wider side's
+    spread (the host stages around the solve vary call to call)."""
+    from blance_tpu_torch.analysis import membudget
+    from blance_tpu_torch.obs import (default_registry, parse_prometheus,
+                                      render_prometheus)
+    from blance_tpu_torch.obs import device as obs_device
+
+    t_phase = time.perf_counter()
+    parts: dict = {}
+    checks: dict = {}
+    max_iter = opts.max_iterations
+    children = _start_checks()
+    try:
+        plans, fracs, kernels_in_trace, rec, samples_want = _obs_traced(
+            prev, nodes, removed, model, opts, plain_map, checks, parts,
+            t_phase)
+        t0 = time.perf_counter()
+        device_check = _device_check_result(children["device_check"])
+        budgets = [_membudget_result(children[f"membudget_{klass}"])
+                   for klass in ("smoke", "north")]
+        parts["checks_wait_s"] = time.perf_counter() - t0
+    finally:
+        for proc in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+    checks["device_check"] = device_check["rc"] == 0
+    # A cold process loads the libraries it calls: a count of 0 would
+    # mean the budgets were not exercised.
+    checks["device_check_cold"] = bool(device_check["builds"])
+    rows = [row for b in budgets for row in b["rows"]]
+    budget_findings = [f for b in budgets for f in b["findings"]]
+    for row in rows:
+        d = membudget.SHAPE_CLASSES[row["class"]]
+        row["projected_pn20"] = d.P * d.N * 20
+        log(f"membudget {row['entry']} @ {row['class']}: peak "
+            f"{row.get('measured', row.get('error'))} B, budget "
+            f"{row['budget']} B, P*N*20 {row['projected_pn20']} B")
+    checks["membudget_clean"] = not budget_findings and \
+        sum(b["measured"] for b in budgets) == len(rows) and \
+        {r["class"] for r in rows} == set(membudget.SHAPE_CLASSES)
+
+    t0 = time.perf_counter()
+    clock = _GcClock()
+    timed_calls: list = []
+    calls = {"off": 0, "on": 0}
+
+    def timed(state: str) -> dict:
+        if state == "on":
+            obs_device.enable()
+        try:
+            s0, f0 = clock.s, clock.full
+            wall, out, timings, _launches = _obs_plan(
+                prev, nodes, removed, model, opts, "auto")
+            pause, full = clock.s - s0, clock.full - f0
+        finally:
+            obs_device.disable()
+        calls[state] += 1
+        checks[f"{state}_call{calls[state]}_map_equal"] = _same_map(
+            out, plain_map)
+        if state == "on":
+            samples_want.append(int(timings["sweeps"]))
+        return dict(state=state, wall_s=wall, **{
+            k: timings[k] for k in ("encode_s", "solve_s", "decode_s",
+                                    "audit_s") if k in timings},
+            gc_s=pause, gc_full=full)
+
+    gc.collect()
+    gc.freeze()
+    gc.callbacks.append(clock)
+    try:
+        with use_recorder(rec):
+            warm_up = timed("off")
+            for i in range(OBS_PAIRS):
+                for state in (("off", "on") if i % 2 == 0
+                              else ("on", "off")):
+                    timed_calls.append(timed(state))
+    finally:
+        gc.callbacks.remove(clock)
+        gc.unfreeze()
+    parts["timing_s"] = time.perf_counter() - t0
+
+    checks["one_sample_per_sweep"] = len(fracs) == sum(samples_want[:2]) \
+        and rec.histogram_summary("device.sweep_accept_frac")["count"] == \
+        sum(samples_want)
+    ends = np.cumsum(samples_want[:2]) - 1
+    checks["converged_last_sample_zero"] = \
+        checks["one_sample_per_sweep"] and all(
+            fracs[e] == 0.0 for e, n in zip(ends, samples_want)
+            if n < max_iter)
+    key = 'device.peak_alloc_bytes{entry="solve_dense.cold",' \
+          f'klass="{P_MAIN}x{N_MAIN}"}}'
+    peak = rec.gauges.get(key, 0.0)
+    total_mem = torch.cuda.get_device_properties(dev).total_memory
+    summaries = obs_device.cost_summaries()
+    checks["peak_published_once"] = key in rec.gauges and \
+        rec.counters.get("device.cost_analyses") == sum(
+            len(v) for v in summaries.values())
+    checks["peak_in_range"] = 0 < peak < total_mem
+    checks["trace_holds_kernels"] = all(kernels_in_trace.values())
+    samples, _types = parse_prometheus(render_prometheus(rec))
+    undeclared = default_registry().undeclared(rec)
+    checks["exposition_parses_all_declared"] = bool(samples) and \
+        not undeclared
+    side = {st: {k: [c[k] for c in timed_calls if c["state"] == st]
+                 for k in ("wall_s", "solve_s")} for st in ("off", "on")}
+    median = {st: {k: statistics.median(v) for k, v in d.items()}
+              for st, d in side.items()}
+    spread = {st: {k: [min(v), max(v)] for k, v in d.items()}
+              for st, d in side.items()}
+    off, on = median["off"]["wall_s"], median["on"]["wall_s"]
+    checks["wall_overhead_in_noise"] = on - off <= max(
+        hi - lo for lo, hi in (spread["off"]["wall_s"],
+                               spread["on"]["wall_s"]))
+    checks["solve_overhead_under_5pct"] = \
+        median["on"]["solve_s"] <= 1.05 * median["off"]["solve_s"]
+    line = dict(
+        checks=checks, timed_calls=timed_calls, warm_up=warm_up,
+        median_s=median, spread_s=spread, overhead=on / off - 1.0,
+        solve_overhead=median["on"]["solve_s"]
+        / median["off"]["solve_s"] - 1.0, plans=plans,
+        sweep_fracs=fracs, peak_alloc_bytes=peak, card_bytes=total_mem,
+        cost=summaries.get("solve_dense.cold"),
+        trace_kernel_launches=kernels_in_trace, undeclared=undeclared,
+        device_check=device_check, membudget=rows,
+        membudget_findings=budget_findings, parts_s=parts,
+        phase_s=time.perf_counter() - t_phase)
+    log(f"obs: {json.dumps(line)}")
+    if not all(checks.values()):
+        raise AssertionError(f"obs phase: failed checks "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is False; needs one GPU")
@@ -2545,6 +2884,9 @@ def main() -> int:
             on["variants"]["fused_score_min2"]:
         raise AssertionError(f"fused run: engine {on['engine']}, launches "
                              f"{on['variants']}")
+
+    obs = obs_phase(dev, prev, nodes, removed, model, ns_opts, plain_map)
+    torch.cuda.empty_cache()
 
     diff = diff_matches_host(prev, plain_map, model, dev)
     rebalance = rebalance_main_path(prev, nodes, removed, model, ns_opts,
@@ -2700,6 +3042,7 @@ def main() -> int:
     print(json.dumps({"bucketed": bucketed}))
     print(json.dumps({"fleet": fleet_line}))
     print(json.dumps({"narrow": narrow}))
+    print(json.dumps({"obs": obs}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

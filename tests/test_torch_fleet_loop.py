@@ -7,8 +7,8 @@ planning through ``ServicePlanner`` -> one shared ``PlanService`` ->
 
 - the reference's own cases of ``tests/test_fleet_loop.py`` and
   ``tests/test_encode_resident.py`` that need no simulator
-  (``testing/fleetsim.py``, ROADMAP A.15) or exposition registry
-  (A.10) run again with their module names bound to the port's, on the
+  (``testing/fleetsim.py``, ROADMAP A.15) run again with their module
+  names bound to the port's (the exposition registry included), on the
   CPU;
 - the same fleet, the same deltas, through both packages on the
   reference's ``DeterministicLoop``: equal final maps, op logs and
@@ -21,6 +21,7 @@ import importlib
 
 import numpy as np
 import pytest
+import torch
 
 pytest.importorskip("jax")  # the reference package imports it
 
@@ -42,6 +43,7 @@ from blance_tpu_torch.obs import slo as t_slo  # noqa: E402
 from blance_tpu_torch.plan import carry as t_carry  # noqa: E402
 from blance_tpu_torch.plan import fleet as t_fleet  # noqa: E402
 from blance_tpu_torch.plan import service as t_service  # noqa: E402
+from blance_tpu_torch.plan import tensor as t_tensor  # noqa: E402
 from blance_tpu_torch.plan.resident import build_encoded_state  # noqa: E402
 
 import test_encode_resident as ref_resident  # noqa: E402
@@ -85,6 +87,7 @@ COMMON = {
     "CarryCache": t_carry.CarryCache, "EncodeCache": t_carry.EncodeCache,
     "TenantProblem": t_fleet.TenantProblem, "solve_fleet": cpu_solve_fleet,
     "FleetSloRollup": t_slo.FleetSloRollup, "SloTracker": t_slo.SloTracker,
+    "default_registry": tobs.default_registry,
 }
 LOOP = rebind(ref_loop, COMMON)
 RESIDENT = rebind(ref_resident, dict(
@@ -94,8 +97,22 @@ RESIDENT = rebind(ref_resident, dict(
     strip_prev_rows=t_encode.strip_prev_rows,
     _strip_nodes=t_rebalance._strip_nodes))
 
-# The cases that need neither the simulator (A.15) nor the exposition
-# registry (A.10).
+
+def _port_carry_for(cache, key, n=64):
+    """The reference helper's carry, as the port's tensors (a port
+    carry lives on its solve's device)."""
+    used = torch.zeros((2, n))
+    carry = t_tensor.SolveCarry(prices=used.sum(0),
+                                assign=torch.zeros((4, 2, 1),
+                                                   dtype=torch.int32),
+                                used=used)
+    cache.store(key, carry, np.zeros((4, 2, 1), np.int32))
+    return carry
+
+
+LOOP["_carry_for"] = _port_carry_for
+
+# The cases that do not need the simulator (A.15).
 LOOP_CASES = [
     "test_service_fair_share_defers_chatty_tenant",
     "test_service_fair_share_validation",
@@ -105,6 +122,8 @@ LOOP_CASES = [
     "test_stop_survives_a_dead_tenant_loop",
     "test_session_and_planner_are_mutually_exclusive",
     "test_fleet_rollup_math_and_gauges",
+    "test_fleet_loop_emits_only_declared_metrics",
+    "test_carry_cache_eviction_stats_and_labeled_counter",
 ]
 RESIDENT_CASES = [
     "test_strip_prev_rows_matches_strip_then_reencode",
@@ -147,6 +166,7 @@ def port_locals(monkeypatch):
     monkeypatch.setattr(j_types, "PlanOptions", bt.PlanOptions)
     monkeypatch.setattr(j_service, "PlanServiceClosed",
                         t_service.PlanServiceClosed)
+
 
 
 def _call(fn, request, params):

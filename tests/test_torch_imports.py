@@ -155,3 +155,27 @@ def test_fleet_tier_modules_export_the_reference_surface(mod):
     ref = importlib.import_module(f"blance_tpu.{mod}")
     missing = set(getattr(ref, "__all__", ())) - set(port.__all__)
     assert not missing, sorted(missing)
+
+
+OBS_MODULES = ["obs", "obs.device", "obs.device_check", "obs.chrome",
+               "obs.expo", "obs.__main__", "utils.trace", "analysis",
+               "analysis.retrace", "analysis.membudget"]
+
+
+@pytest.mark.parametrize("mod", OBS_MODULES)
+def test_observatory_modules_export_the_reference_surface(mod):
+    """The observatory's modules are in the port and import without jax
+    (the subprocess check above walks them); each exports every name its
+    reference module exports, but for the analysis package, which holds
+    only Finding (its lints and run_all are ROADMAP A.16)."""
+    import importlib
+
+    assert f"blance_tpu_torch.{mod}" in _port_modules()
+    port = importlib.import_module(f"blance_tpu_torch.{mod}")
+    pytest.importorskip("jax")  # the reference needs it
+    ref = importlib.import_module(f"blance_tpu.{mod}")
+    want = set(getattr(ref, "__all__", ()))
+    if mod == "analysis":
+        want = {"Finding"}
+    missing = want - set(getattr(port, "__all__", ()))
+    assert not missing, sorted(missing)
