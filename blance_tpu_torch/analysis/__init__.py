@@ -1,6 +1,7 @@
-# Port of blance_tpu/analysis/__init__.py: only Finding and what the two
-# device-side passes (retrace, membudget) need.  The lints, the shape
-# audit, the baseline and run_all are not ported (ROADMAP A.16).
+# Port of blance_tpu/analysis/__init__.py: only Finding, the two
+# device-side passes (retrace, membudget) and the schedule explorer.  The
+# lints, the shape audit, the baseline and run_all are not ported
+# (ROADMAP A.16).
 """Repo-specific contract checks of the port.
 
 - :mod:`.retrace` — the build contract: per-entry-point ceilings on the
@@ -13,6 +14,12 @@
   during a real dispatch of each entry (MEM001), plus the table's
   host-only consistency rules (MEM002 drift, MEM003 rows the dense
   guard would reject).
+- :mod:`.schedule` — deterministic schedule exploration of the
+  orchestrator (the race tier's dynamic half): every scenario of its
+  registry runs under seeded random walks and bounded-exhaustive
+  enumeration in ``testing.sched``'s controlled loop, checking the
+  control plane's dynamic invariants; a violating schedule is written as
+  a replayable trace (``python -m blance_tpu_torch.analysis.schedule``).
 """
 
 from __future__ import annotations

@@ -1,5 +1,4 @@
-# Copied from blance_tpu/obs/expo.py; the device.* help strings say what the
-# port measures, and the smoke takes --device.
+# Copied from blance_tpu/obs/expo.py; the smoke takes --device.
 """Streaming metrics exposition: a Prometheus text-format endpoint.
 
 The Recorder alone is post-hoc — spans and histograms readable only
@@ -450,27 +449,33 @@ def default_registry() -> MetricsRegistry:
                "bounded by the fleet demotion attribution identity)"),
         # -- device (obs/device.py; all emitted only while the device
         # observatory is enabled) ---------------------------------------------
+        # The help strings are the reference's, so a scrape (and the
+        # simulators' replayed expositions) reads byte for byte as the
+        # reference's.  What the port records under each name:
+        # device.compiles / compile_s, the builds and first loads of the
+        # kernel libraries and native extensions; cost_analyses, the first
+        # dispatches measured; flops / hbm_bytes, the operations and bytes
+        # of the hand-written kernels' calls (ops/cost.py); peak_alloc_bytes,
+        # the card allocator's peak during the dispatch above what it held
+        # before, plus the dispatch's operands on the card.
         Metric("device.compiles", "counter",
-               "builds and first loads of kernel libraries and native "
-               "extensions, labeled by owning entry point (solve_dense "
-               "cold/carry/warm/bucketed, fleet batches, pipelines, "
-               "other)"),
+               "XLA compilations, labeled by owning entry point "
+               "(solve_dense cold/carry/warm/bucketed, fleet batch "
+               "classes, sharded dispatch, other)"),
         Metric("device.compile_s", "histogram",
-               "seconds per kernel-library or extension build or first "
-               "load (labeled by entry)"),
+               "seconds per XLA backend compilation (labeled by entry)"),
         Metric("device.cost_analyses", "counter",
-               "first dispatches measured (one per entry x shape class, "
-               "memoized)"),
+               "AOT cost/memory analyses published (one per entry x "
+               "bucket-shape, memoized)"),
         Metric("device.flops", "gauge",
-               "kernel work per dispatch: operations of the hand-written "
-               "kernels' calls (labeled entry + shape klass)"),
+               "XLA cost-analysis FLOPs per dispatch of the compiled "
+               "program (labeled entry + bucket-shape klass)"),
         Metric("device.hbm_bytes", "gauge",
-               "kernel work per dispatch: bytes the kernels' calls must "
-               "move (labeled entry + klass)"),
+               "XLA cost-analysis bytes accessed per dispatch (labeled "
+               "entry + klass)"),
         Metric("device.peak_alloc_bytes", "gauge",
-               "the card allocator's peak during the dispatch above what "
-               "it held before, plus the dispatch's operands on the card "
-               "(labeled entry + klass)"),
+               "XLA memory-analysis argument+output+temp bytes for the "
+               "compiled program (labeled entry + klass)"),
         Metric("device.sweep_accept_frac", "histogram",
                "per-sweep accepted-bid fraction of the converged solve "
                "(also a Chrome counter track under the solve span)"),

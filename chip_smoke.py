@@ -136,7 +136,22 @@ nothing of jax or of the JAX package.  In order:
    score at the bench tenants' class and at the wave's [240, 1024, 64]
    join the ``kernels`` line with ``path="fleet"``, each with its wide
    layout (the batched launch before the narrow rows) timed beside it;
-13. prints one JSON line of kernel measurements, the card's name and
+13. drives the port's testing harness on the card (the ``harness``
+   line): the five committed traces under tests/traces/ with
+   ``device="cuda"``, each byte for byte the file (the pause guard's
+   schedule replayed ok), the fleet trace's solves through the batched
+   min2; spot_preemption(11) and mixed_week(7) on the card's planner
+   (``backend="cuda"``), without and with a PlannerSession, each log on
+   the card equal to its log on the CPU with min2 launched; the fleet
+   week (240 tenants on 18 nodes, 7 virtual days) complete, every tenant
+   available at the end, nothing unconverged, at least 4 plan requests a
+   dispatch, its log and exposition hashing to the JAX package's pinned
+   digests; and the schedule explorer's seeded walks over every scenario,
+   clean and with the CPU's signatures; all inside the phase's budget.
+   min2, on the inputs of its first unbatched (closed loop) and batched
+   (fleet simulator) calls on the card, joins the ``kernels`` line with
+   ``path="harness"``, its wide layout timed beside it;
+14. prints one JSON line of kernel measurements, the card's name and
    power limit, the script's wall time, and last
    ``{"ok": true, "device": {...}}``.  A kernel's ``ms`` is its device
    time per call, from back-to-back calls in a CUDA graph
@@ -160,10 +175,13 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -178,15 +196,18 @@ from blance_tpu_torch.core.encode import bucket_size, pad_problem_arrays
 from blance_tpu_torch.core.order import sort_state_names
 from blance_tpu_torch.core.shortlist import build_shortlist_core
 from blance_tpu_torch.moves import batch as moves_batch
-from blance_tpu_torch.obs import Recorder, use_recorder
+from blance_tpu_torch.obs import Recorder, parse_prometheus, use_recorder
 from blance_tpu_torch.obs.sinks import InMemorySink
 from blance_tpu_torch.ops import cost, reduce2, score_fused, sparse2
 from blance_tpu_torch.ops.cost import LANE_INSTR_PER_S, fused_ops_per_cell
-from blance_tpu_torch import fleetloop
+from blance_tpu_torch import durability, fleetloop
+from blance_tpu_torch.analysis import schedule
 from blance_tpu_torch.plan import fleet
 from blance_tpu_torch.plan import native as native_planner
 from blance_tpu_torch.plan import service as plan_service
 from blance_tpu_torch.plan import tensor as T
+from blance_tpu_torch.testing import (crashsim, fleetsim, scenarios, sched,
+                                      simulate)
 from blance_tpu_torch.utils.trace import PhaseTimer
 
 P_MAIN, N_MAIN = 100_000, 10_000
@@ -2475,6 +2496,267 @@ def fleet_phase(dev) -> tuple:
     return res, entries
 
 
+# --- the testing harness (the ``harness`` line) ------------------------------
+
+TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests", "traces")
+# The fleet week at its full width: 240 tenants on 18 nodes over 7 virtual
+# days, nothing cut.
+FLEET_WEEK_DAYS = 7.0
+# sha256 of the JAX package's own run_fleet_scenario(fleet_week()) log_text()
+# and exposition, computed on the CPU with
+#   JAX_PLATFORMS=cpu python -c "import hashlib; from blance_tpu.testing.\
+#   scenarios import fleet_week; from blance_tpu.testing.fleetsim import \
+#   run_fleet_scenario; r = run_fleet_scenario(fleet_week()); print(*(hashlib.\
+#   sha256(t.encode()).hexdigest() for t in (r.log_text(), r.exposition)))"
+# (tests/test_torch_harness.py holds the port's CPU run to them).
+FLEET_WEEK_LOG_SHA256 = (
+    "166bacaf16c693a1c2da9282a25e99326f65dff2cc9f0382ef73fa07308ac4ab")
+FLEET_WEEK_EXPO_SHA256 = (
+    "fd014693eeb2c88616c2f3f80bf2f455d5d6dc6c0af1f4d432601a324f11361f")
+# The port's CPU walk signatures at CI_WALK_SEEDS (11, 23, 37), equal to
+# the JAX package's (tests/test_torch_schedule.py holds both to them).
+SCHEDULE_WALK_SIGNATURES = {
+    "fleet_coalesce_window": (
+        "159fb33ebc808000", "01bbbd938a1b65ba", "8bf4141b49e6e1bc"),
+    "movers_race_breaker_trip": (
+        "e2c9fcaa9ffc9e60", "7a837f43ef53499b", "ace49db6fef5ccb5"),
+    "pause_cycle_guard": (
+        "c69ab8e1ca8b32aa", "ef9d7591497494a8", "c42f63d98603dae1"),
+    "pause_resume_during_retry_backoff": (
+        "fa783af8d83ffa74", "15c29821e8e086e4", "7f7629588c92a5d7"),
+    "reschedule_on_quarantine": (
+        "fff2df369bd02dd2", "9ded7ff936fc5eb1", "114f9374254435fe"),
+    "slo_gauges_under_chaos": (
+        "07e66de1548cb0ff", "d4fc6367369e75ba", "57682c8fdc3c45b4"),
+    "stop_during_quarantine_probe": (
+        "894c36aae9a18570", "b0f2b1eca4844a62", "fdb86ab935246f4a"),
+    "supersede_mid_rebalance": (
+        "544896eef4f340a3", "03837cabb38dc844", "33785f277425fd7a"),
+    "two_movers_three_partitions": (
+        "00921d806035e624", "4c5d26bd87ddfa9c", "fef4b568e647f309"),
+}
+HARNESS_BUDGET_S = 180.0  # the phase's wall, kernel entries included
+
+
+def _on_card(args, kw) -> bool:
+    return bool(args) and args[0].is_cuda
+
+
+def _sha256(text: str) -> str:
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def _committed_trace(name: str) -> str:
+    with open(os.path.join(TRACE_DIR, name)) as f:
+        return f.read()
+
+
+def harness_traces(dev) -> dict:
+    """The five committed traces through the port on the card, each byte
+    for byte the file under tests/traces/ (the pause guard: its replay
+    comes back ok, as the reference replays it)."""
+    out: dict = {}
+
+    def replayed(key, name, make_text):
+        t0 = time.perf_counter()
+        text = make_text()
+        out[key] = dict(equal=text == _committed_trace(name),
+                        wall_s=time.perf_counter() - t0)
+
+    replayed("sim_spot_preemption_s11", "sim_spot_preemption_s11.json",
+             lambda: simulate.run_scenario(scenarios.spot_preemption(11),
+                                           device=dev).log_text())
+    replayed("sim_hetero_drain_s41", "sim_hetero_drain_s41.json",
+             lambda: simulate.run_scenario(dataclasses.replace(
+                 scenarios.hetero_drain(41), scheduler="critical_path"),
+                 device=dev).log_text())
+    fsync = os.environ.get("BLANCE_WAL_FSYNC")
+    os.environ["BLANCE_WAL_FSYNC"] = "0"
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            cs = scenarios.crash_storm(19)
+            durability.reset_fences()
+            replayed("crash_storm_s19", "crash_storm_s19.json",
+                     lambda: crashsim.run_crash_scenario(
+                         cs.base, d, crashes=cs.crashes,
+                         snapshot_every=cs.snapshot_every,
+                         rotate_records=cs.rotate_records,
+                         device=dev).log_text())
+            durability.reset_fences()
+    finally:
+        if fsync is None:
+            del os.environ["BLANCE_WAL_FSYNC"]
+        else:
+            os.environ["BLANCE_WAL_FSYNC"] = fsync
+    before = launch_variants()
+    replayed("fleet_zone_outage_s5_t8", "fleet_zone_outage_s5_t8.json",
+             lambda: fleetsim.run_fleet_scenario(
+                 scenarios.fleet_zone_outage(seed=5, tenants=8),
+                 device=dev).log_text())
+    variants = _variants_since(before)["priced_min2_argmin"]
+    out["fleet_zone_outage_s5_t8"]["min2_variants"] = variants
+    out["fleet_zone_outage_s5_t8"]["min2_batched_launched"] = any(
+        v.startswith("batched") for v in variants)
+    t0 = time.perf_counter()
+    res = sched.replay(schedule.SCENARIOS["pause_cycle_guard"].factory,
+                       sched.load_trace(os.path.join(
+                           TRACE_DIR, "pause_cycle_guard.json")),
+                       strict=False)
+    out["pause_cycle_guard"] = dict(ok=res.ok, signature=res.signature,
+                                    steps=res.steps,
+                                    wall_s=time.perf_counter() - t0)
+    return out
+
+
+def harness_closed_loop(dev) -> dict:
+    """spot_preemption(11) and mixed_week(7) on the card's planner
+    (backend "cuda"), without and with a PlannerSession: each run's log on
+    the card equal to its log on the CPU, min2 launched on the card;
+    ``plans`` counts the card run's solves (``plan.solve.calls``)."""
+    out = {}
+    for family, scn in (("spot_preemption_s11", scenarios.spot_preemption(11)),
+                        ("mixed_week_s7", scenarios.mixed_week(7))):
+        for session in (False, True):
+            s = dataclasses.replace(scn, backend="cuda", use_session=session)
+            before = launch_variants()
+            card = simulate.run_scenario(s, device=dev)
+            variants = _variants_since(before)
+            cpu = simulate.run_scenario(s, device="cpu")
+            samples, _types = parse_prometheus(card.exposition)
+            out[family + ("_session" if session else "")] = dict(
+                equal_cpu=card.log_text() == cpu.log_text(),
+                complete=card.complete, passes=card.rebalances,
+                plans=samples["blance_plan_solve_calls_total"],
+                carry_hits=samples["blance_plan_solve_carry_hit_total"],
+                card_wall_s=card.wall_s, cpu_wall_s=cpu.wall_s,
+                launches={k: sum(v.values()) for k, v in variants.items()
+                          if v},
+                min2_variants=variants["priced_min2_argmin"])
+    return out
+
+
+def harness_fleet_week(dev) -> dict:
+    """fleet_week() on the card: complete, every tenant available at the
+    end, nothing unconverged, coalescing at least 4 plan requests a
+    dispatch, and its log and exposition the JAX package's, by digest."""
+    torch.cuda.synchronize()
+    start_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    scn = scenarios.fleet_week(days=FLEET_WEEK_DAYS)
+    before = launch_variants()
+    r = fleetsim.run_fleet_scenario(scn, device=dev)
+    torch.cuda.synchronize()
+    variants = _variants_since(before)
+    log_sha, expo_sha = _sha256(r.log_text()), _sha256(r.exposition)
+    info = dict(
+        days=FLEET_WEEK_DAYS, tenants=r.tenants, nodes=len(scn.nodes),
+        wall_s=r.wall_s, dispatches=r.dispatches,
+        plan_requests=r.plan_requests, complete=r.complete,
+        availability_min=r.fleet.availability_min,
+        unconverged=r.unconverged, carry_hits=r.carry_hits,
+        min2_batched_launches=sum(
+            c for v, c in variants["priced_min2_argmin"].items()
+            if v.startswith("batched")),
+        launches={k: sum(v.values()) for k, v in variants.items() if v},
+        min2_variants=variants["priced_min2_argmin"],
+        peak_alloc_bytes=torch.cuda.max_memory_allocated(),
+        start_alloc_bytes=start_bytes, log_sha256=log_sha,
+        expo_sha256=expo_sha, phase_wall=r.phase_wall)
+    info["checks"] = dict(
+        complete=r.complete, availability_1=r.fleet.availability_min == 1.0,
+        converged=r.unconverged == 0,
+        coalesced_4x=r.dispatches * 4 <= r.plan_requests,
+        min2_batched_launched=info["min2_batched_launches"] > 0,
+        log_digest_is_reference=log_sha == FLEET_WEEK_LOG_SHA256,
+        expo_digest_is_reference=expo_sha == FLEET_WEEK_EXPO_SHA256)
+    return info
+
+
+def harness_walks() -> dict:
+    """run_scenario_walks over every scenario of the explorer's registry
+    at CI_WALK_SEEDS: every walk clean, every signature the CPU's."""
+    out = {}
+    for name, scenario in schedule.SCENARIOS.items():
+        walks = schedule.run_scenario_walks(scenario, schedule.CI_WALK_SEEDS)
+        out[name] = dict(
+            ok=all(w.ok for _seed, w in walks),
+            signatures=[w.signature for _seed, w in walks],
+            steps=[w.steps for _seed, w in walks])
+    return out
+
+
+def harness_phase(dev) -> tuple:
+    """The port's testing harness on the card (the ``harness`` line): the
+    committed traces, the closed loop on the card's planner, the fleet
+    week, the schedule walks; returns the line and the min2 entries on
+    the inputs of its first unbatched (closed loop) and batched (fleet
+    simulator) calls on the card."""
+    T.set_fused_score_default("auto")
+    reset_launch_counts()
+    parts: dict = {}
+    res: dict = {}
+    t_phase = time.perf_counter()
+    with first_call("priced_min2_argmin",
+                    lambda a, kw: _on_card(a, kw) and a[0].dim() == 3) \
+            as seen_batched:
+        t0 = time.perf_counter()
+        res["traces"] = harness_traces(dev)
+        parts["traces"] = time.perf_counter() - t0
+        with first_call("priced_min2_argmin",
+                        lambda a, kw: _on_card(a, kw) and a[0].dim() == 2) \
+                as seen_flat:
+            t0 = time.perf_counter()
+            res["closed_loop"] = harness_closed_loop(dev)
+            parts["closed_loop"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["fleet_week"] = harness_fleet_week(dev)
+        parts["fleet_week"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["walks"] = harness_walks()
+    parts["walks"] = time.perf_counter() - t0
+    # Every launch of the phase's runs, before the entries' comparisons.
+    res["variants"] = launch_variants()
+    min2 = res["variants"]["priced_min2_argmin"]
+    batched = sum(c for v, c in min2.items() if v.startswith("batched"))
+    t0 = time.perf_counter()
+    entries = {
+        "flat": path_kernel_entry("min2", seen_flat, sum(min2.values()) -
+                                  batched, "the closed loop's", wide=True),
+        "batched": fleet_kernel_entry("min2", seen_batched, batched)}
+    parts["kernels"] = time.perf_counter() - t0
+    res["parts_s"] = parts
+    res["phase_s"] = time.perf_counter() - t_phase
+    checks = {f"traces.{k}": v.get("equal", v.get("ok"))
+              for k, v in res["traces"].items()}
+    checks["traces.fleet_min2_batched"] = \
+        res["traces"]["fleet_zone_outage_s5_t8"]["min2_batched_launched"]
+    for k, v in res["closed_loop"].items():
+        checks[f"closed_loop.{k}.equal_cpu"] = v["equal_cpu"]
+        checks[f"closed_loop.{k}.complete"] = v["complete"]
+        checks[f"closed_loop.{k}.min2_launched"] = \
+            v["launches"].get("priced_min2_argmin", 0) > 0
+    checks.update({f"fleet_week.{k}": v
+                   for k, v in res["fleet_week"]["checks"].items()})
+    for name, w in res["walks"].items():
+        checks[f"walks.{name}.ok"] = w["ok"]
+        checks[f"walks.{name}.signatures_cpu"] = \
+            tuple(w["signatures"]) == SCHEDULE_WALK_SIGNATURES[name]
+    checks["walks.registry"] = \
+        sorted(res["walks"]) == sorted(SCHEDULE_WALK_SIGNATURES)
+    checks["no_fused_or_sparse_launch"] = not any(
+        res["variants"][k] for k in ("fused_score_min2",
+                                     "sparse_priced_min2_cand"))
+    checks["within_budget"] = res["phase_s"] <= HARNESS_BUDGET_S
+    res["budget_s"] = HARNESS_BUDGET_S
+    res["checks"] = checks
+    log(f"harness: {json.dumps(res)}")
+    if not all(checks.values()):
+        raise AssertionError(
+            f"harness: {[k for k, v in checks.items() if not v]}")
+    return res, entries
+
+
 # --- the device observatory (the ``obs`` line) -------------------------------
 
 OBS_KERNELS = {"min2.cu": ("priced_min2",),
@@ -2984,6 +3266,7 @@ def main() -> int:
     t0 = time.perf_counter()
     fleet_line, fleet_kernels = fleet_phase(dev)
     fleet_line["phase_s"] = time.perf_counter() - t0
+    harness, harness_kernels = harness_phase(dev)
 
     kernels = [
         dict(name="priced_min2_argmin", route="cuda",
@@ -3028,6 +3311,14 @@ def main() -> int:
             name=entry["name"], route="cuda", source=entry["source"],
             replaces=entry["replaces"], path="small", bitwise=True,
             **narrow_kernels[key]))
+    # The min2 kernel on the harness's path, on the inputs of its first
+    # unbatched call (the closed loop on the card's planner) and of its
+    # first batched call (the fleet simulator); launches: the phase's own.
+    for key in ("flat", "batched"):
+        kernels.append(dict(
+            name=kernels[0]["name"], route="cuda",
+            source=kernels[0]["source"], replaces=kernels[0]["replaces"],
+            path="harness", call=key, bitwise=True, **harness_kernels[key]))
     prof = [profile_main_path(m, prev, nodes, removed, model, opts)
             for m in ("off", "on")]
     prof.append(profile_main_path("auto", *sp_map))
@@ -3043,6 +3334,7 @@ def main() -> int:
     print(json.dumps({"fleet": fleet_line}))
     print(json.dumps({"narrow": narrow}))
     print(json.dumps({"obs": obs}))
+    print(json.dumps({"harness": harness}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

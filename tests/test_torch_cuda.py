@@ -10,6 +10,8 @@ plain versions against the JAX package lives in tests/test_torch_ops.py
 and tests/test_torch_plan.py.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -802,3 +804,62 @@ def test_fleet_on_card_matches_cpu(dev, engine, kernel, variant):
 
             assert launch_variants()[kernel].get(variant, 0) > 0
     assert out[str(dev)] == out["cpu"]
+
+
+TRACES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "traces")
+
+
+def _harness_trace(name, tmp_path):
+    """The port's regeneration of one committed artifact on the card."""
+    import dataclasses
+
+    from blance_tpu_torch.analysis.schedule import SCENARIOS
+    from blance_tpu_torch.testing import (crashsim, fleetsim, scenarios,
+                                          sched, simulate)
+
+    if name == "sim_spot_preemption_s11.json":
+        return simulate.run_scenario(scenarios.spot_preemption(11),
+                                     device="cuda").log_text()
+    if name == "sim_hetero_drain_s41.json":
+        return simulate.run_scenario(dataclasses.replace(
+            scenarios.hetero_drain(41), scheduler="critical_path"),
+            device="cuda").log_text()
+    if name == "crash_storm_s19.json":
+        cs = scenarios.crash_storm(19)
+        return crashsim.run_crash_scenario(
+            cs.base, str(tmp_path), crashes=cs.crashes,
+            snapshot_every=cs.snapshot_every,
+            rotate_records=cs.rotate_records, device="cuda").log_text()
+    if name == "fleet_zone_outage_s5_t8.json":
+        return fleetsim.run_fleet_scenario(
+            scenarios.fleet_zone_outage(seed=5, tenants=8),
+            device="cuda").log_text()
+    out = sched.replay(SCENARIOS["pause_cycle_guard"].factory,
+                       sched.load_trace(os.path.join(TRACES, name)),
+                       strict=False)
+    assert out.ok, out.describe()
+    return None
+
+
+@pytest.mark.parametrize("name", [
+    "sim_spot_preemption_s11.json", "sim_hetero_drain_s41.json",
+    "crash_storm_s19.json", "fleet_zone_outage_s5_t8.json",
+    "pause_cycle_guard.json"])
+def test_harness_replays_committed_trace_on_card(dev, name, tmp_path,
+                                                 monkeypatch):
+    """Each committed trace replays through the port with device="cuda",
+    byte for byte; the fleet's solves take the batched min2 launch."""
+    from blance_tpu_torch import durability
+    from blance_tpu_torch.ops import launch_variants
+
+    monkeypatch.setenv("BLANCE_WAL_FSYNC", "0")
+    durability.reset_fences()
+    reset_launch_counts()
+    text = _harness_trace(name, tmp_path)
+    durability.reset_fences()
+    if text is not None:
+        with open(os.path.join(TRACES, name)) as f:
+            assert text == f.read()
+    if name.startswith("fleet"):
+        assert any(v.startswith("batched") for v in
+                   launch_variants()["priced_min2_argmin"])

@@ -5,8 +5,8 @@ Two kinds of check, on the CPU:
 - every case of the reference's ``tests/test_durability.py`` (none of
   them needs jax) runs again with its module names bound to the port's
   modules: the same assertions hold of the port's copies;
-- a fleet of control loops with a journal runs through both packages on
-  the reference's deterministic event loop: the journal segments are
+- a fleet of control loops with a journal runs through both packages,
+  each on its own package's deterministic event loop: the journal segments are
   byte-identical, and ``recover`` and ``resume_tenant`` give equal
   state and equal resumed maps.
 """
@@ -25,7 +25,7 @@ import blance_tpu.durability as jdur  # noqa: E402
 import blance_tpu.fleetloop as jfleetloop  # noqa: E402
 import blance_tpu.obs as jobs  # noqa: E402
 from blance_tpu.rebalance import ClusterDelta as JDelta  # noqa: E402
-from blance_tpu.testing.sched import DeterministicLoop, FifoPolicy  # noqa: E402
+import blance_tpu.testing.sched as jsched  # noqa: E402
 
 import blance_tpu_torch as bt  # noqa: E402
 import blance_tpu_torch.durability as tdur  # noqa: E402
@@ -36,6 +36,7 @@ from blance_tpu_torch.durability import journal as t_journal  # noqa: E402
 from blance_tpu_torch.obs.slo import SloTracker  # noqa: E402
 from blance_tpu_torch.orchestrate import health as t_health  # noqa: E402
 from blance_tpu_torch.rebalance import ClusterDelta as TDelta  # noqa: E402
+from blance_tpu_torch.testing import sched as tsched  # noqa: E402
 from blance_tpu_torch.utils import atomicio as t_atomicio  # noqa: E402
 
 import test_durability as ref_cases  # noqa: E402
@@ -148,9 +149,9 @@ def _nbs(pmap):
 
 PKGS = {
     "ref": dict(lib=blance_tpu, obs=jobs, dur=jdur, fleet=jfleetloop,
-                delta=JDelta, kw={}),
+                delta=JDelta, sched=jsched, kw={}),
     "port": dict(lib=bt, obs=tobs, dur=tdur, fleet=tfleetloop,
-                 delta=TDelta, kw={"device": "cpu"}),
+                 delta=TDelta, sched=tsched, kw={"device": "cpu"}),
 }
 
 
@@ -165,7 +166,8 @@ def _journaled_fleet(pkg, jdir):
         log.append((node, tuple(partitions), tuple(states), tuple(ops)))
         await asyncio.sleep(0.01)
 
-    loop = DeterministicLoop(FifoPolicy(), max_steps=500_000)
+    sched = pkg["sched"]
+    loop = sched.DeterministicLoop(sched.FifoPolicy(), max_steps=500_000)
     rec = obs.Recorder(clock=loop.time)
 
     async def first_life():
@@ -184,7 +186,7 @@ def _journaled_fleet(pkg, jdir):
     with obs.use_recorder(rec):
         first = loop.run_until_complete(first_life())
 
-    loop2 = DeterministicLoop(FifoPolicy(), max_steps=500_000)
+    loop2 = sched.DeterministicLoop(sched.FifoPolicy(), max_steps=500_000)
     rec2 = obs.Recorder(clock=loop2.time)
 
     async def second_life():

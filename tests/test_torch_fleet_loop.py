@@ -6,12 +6,12 @@ planning through ``ServicePlanner`` -> one shared ``PlanService`` ->
 (``EncodeCache`` / ``build_encoded_state``).  Three kinds of check:
 
 - the reference's own cases of ``tests/test_fleet_loop.py`` and
-  ``tests/test_encode_resident.py`` that need no simulator
-  (``testing/fleetsim.py``, ROADMAP A.15) run again with their module
-  names bound to the port's (the exposition registry included), on the
-  CPU;
-- the same fleet, the same deltas, through both packages on the
-  reference's ``DeterministicLoop``: equal final maps, op logs and
+  ``tests/test_encode_resident.py`` run again with their module names
+  bound to the port's (the exposition registry, the ``DeterministicLoop``
+  and the fleet simulator ``testing/fleetsim.py`` included), on the CPU;
+  the seven-day fleet week stays with ``tests/test_torch_harness.py``;
+- the same fleet, the same deltas, through both packages, each on its
+  own package's ``DeterministicLoop``: equal final maps, op logs and
   ``fleet.*`` / ``plan.solve.*`` counters;
 - ``build_encoded_state`` gives the reference's resident arrays.
 """
@@ -33,7 +33,7 @@ import blance_tpu.plan.service as j_service  # noqa: E402
 from blance_tpu.core.encode import encode_problem as j_encode  # noqa: E402
 from blance_tpu.plan.resident import build_encoded_state as j_build  # noqa: E402
 from blance_tpu.rebalance import ClusterDelta as JDelta  # noqa: E402
-from blance_tpu.testing.sched import DeterministicLoop, FifoPolicy  # noqa: E402
+import blance_tpu.testing.sched as jsched  # noqa: E402
 
 import blance_tpu_torch as bt  # noqa: E402
 import blance_tpu_torch.fleetloop as tfleetloop  # noqa: E402
@@ -45,6 +45,9 @@ from blance_tpu_torch.plan import fleet as t_fleet  # noqa: E402
 from blance_tpu_torch.plan import service as t_service  # noqa: E402
 from blance_tpu_torch.plan import tensor as t_tensor  # noqa: E402
 from blance_tpu_torch.plan.resident import build_encoded_state  # noqa: E402
+from blance_tpu_torch.testing import fleetsim as t_fleetsim  # noqa: E402
+from blance_tpu_torch.testing import scenarios as t_scenarios  # noqa: E402
+from blance_tpu_torch.testing import sched as tsched  # noqa: E402
 
 import test_encode_resident as ref_resident  # noqa: E402
 import test_fleet_loop as ref_loop  # noqa: E402
@@ -73,6 +76,10 @@ def cpu_solve_fleet(problems, **kw):
     return t_fleet.solve_fleet(problems, device="cpu", **kw)
 
 
+def cpu_run_fleet_scenario(scn, *args, **kw):
+    return t_fleetsim.run_fleet_scenario(scn, *args, device="cpu", **kw)
+
+
 M = bt.model(primary=(0, 1), replica=(1, 1))
 
 COMMON = {
@@ -88,6 +95,13 @@ COMMON = {
     "TenantProblem": t_fleet.TenantProblem, "solve_fleet": cpu_solve_fleet,
     "FleetSloRollup": t_slo.FleetSloRollup, "SloTracker": t_slo.SloTracker,
     "default_registry": tobs.default_registry,
+    "DeterministicLoop": tsched.DeterministicLoop,
+    "FifoPolicy": tsched.FifoPolicy,
+    "run_fleet_scenario": cpu_run_fleet_scenario,
+    "fleet_noisy_neighbor": t_scenarios.fleet_noisy_neighbor,
+    "fleet_onboarding": t_scenarios.fleet_onboarding,
+    "fleet_week": t_scenarios.fleet_week,
+    "fleet_zone_outage": t_scenarios.fleet_zone_outage,
 }
 LOOP = rebind(ref_loop, COMMON)
 RESIDENT = rebind(ref_resident, dict(
@@ -112,8 +126,15 @@ def _port_carry_for(cache, key, n=64):
 
 LOOP["_carry_for"] = _port_carry_for
 
-# The cases that do not need the simulator (A.15).
+# Every case but the slow-marked fleet week.
 LOOP_CASES = [
+    "test_fleet_scenario_bit_identical_across_runs",
+    "test_committed_fleet_trace_replays_exactly",
+    "test_tenant_scale_matrix",
+    "test_coalesced_equals_sequential_at_fewer_dispatches",
+    "test_onboarding_family_converges_from_empty",
+    "test_noisy_neighbor_family_keeps_neighbors_serving",
+    "test_shared_cache_eviction_under_fleet_only_costs_cold",
     "test_service_fair_share_defers_chatty_tenant",
     "test_service_fair_share_validation",
     "test_service_planner_warm_protocol_and_invalidation",
@@ -212,12 +233,13 @@ def _nbs(pmap):
             for k, p in pmap.items()}
 
 
-def _fleet_run(lib, obs, fleet, delta, kw, tenants=8):
+def _fleet_run(lib, obs, fleet, delta, sched, kw, tenants=8):
     """8 tenants, one zone-outage delta for all of them, then a weight
-    delta for one tenant: final maps, op log, fleet counters."""
+    delta for one tenant, on ``sched``'s loop: final maps, op log, fleet
+    counters."""
     m = lib.model(primary=(0, 1), replica=(1, 1))
     log = []
-    loop = DeterministicLoop(FifoPolicy(), max_steps=2_000_000)
+    loop = sched.DeterministicLoop(sched.FifoPolicy(), max_steps=2_000_000)
     rec = obs.Recorder(clock=loop.time)
 
     async def drive():
@@ -249,9 +271,9 @@ def _fleet_run(lib, obs, fleet, delta, kw, tenants=8):
 
 @pytest.fixture(scope="module")
 def both_fleets():
-    ref = _fleet_run(blance_tpu, jobs, jfleetloop, JDelta, {})
+    ref = _fleet_run(blance_tpu, jobs, jfleetloop, JDelta, jsched, {})
     port = _fleet_run(bt, tobs, tfleetloop, t_rebalance.ClusterDelta,
-                      {"device": "cpu"})
+                      tsched, {"device": "cpu"})
     return ref, port
 
 
@@ -312,11 +334,12 @@ def test_service_planner_dirty_protocol_equals_reference():
     """The planner's warm-or-cold decision (``_dirty_for``) on the same
     cycle sequence in both packages: equal masks, equal maps."""
     out = {}
-    for name, lib, obs, fleet, kw in (
-            ("ref", blance_tpu, jobs, jfleetloop, {}),
-            ("port", bt, tobs, tfleetloop, {"device": "cpu"})):
+    for name, lib, obs, fleet, sched, kw in (
+            ("ref", blance_tpu, jobs, jfleetloop, jsched, {}),
+            ("port", bt, tobs, tfleetloop, tsched, {"device": "cpu"})):
         m = lib.model(primary=(0, 1), replica=(1, 1))
-        loop = DeterministicLoop(FifoPolicy(), max_steps=500_000)
+        loop = sched.DeterministicLoop(sched.FifoPolicy(),
+                                       max_steps=500_000)
         rec = obs.Recorder(clock=loop.time)
         svc_cls = j_service.PlanService if name == "ref" \
             else t_service.PlanService

@@ -179,3 +179,48 @@ def test_observatory_modules_export_the_reference_surface(mod):
         want = {"Finding"}
     missing = want - set(getattr(port, "__all__", ()))
     assert not missing, sorted(missing)
+
+
+HARNESS_MODULES = ["testing", "testing.sched", "testing.scenarios",
+                   "testing.vis", "testing.simulate", "testing.crashsim",
+                   "testing.fleetsim", "analysis.schedule"]
+
+
+def test_harness_imports_leave_jax_out():
+    """The testing harness and the schedule explorer, imported alone in a
+    fresh interpreter, pull in neither jax nor the JAX package."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {HARNESS_MODULES!r}:\n"
+        "    importlib.import_module('blance_tpu_torch.' + m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'blance_tpu' or "
+        "m.startswith('blance_tpu.'))\n"
+        "print('BAD', bad)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("mod", HARNESS_MODULES)
+def test_harness_modules_export_the_reference_surface(mod):
+    """Each harness module is in the port and exports every public name
+    of its reference module (its ``__all__``, or for the package its
+    public attributes other than submodules)."""
+    import importlib
+    import types
+
+    assert f"blance_tpu_torch.{mod}" in _port_modules()
+    port = importlib.import_module(f"blance_tpu_torch.{mod}")
+    pytest.importorskip("jax")  # the reference needs it
+    ref = importlib.import_module(f"blance_tpu.{mod}")
+
+    def public(m):
+        return set(getattr(m, "__all__", None) or
+                   (n for n, v in vars(m).items() if not n.startswith("_")
+                    and not isinstance(v, types.ModuleType)))
+
+    missing = public(ref) - public(port)
+    assert not missing, sorted(missing)

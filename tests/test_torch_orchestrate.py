@@ -3,10 +3,10 @@ the CPU.
 
 The rank sweep is compared bitwise with the reference's jitted scan.  The
 orchestrator is the same host code in both packages: each run drives the
-reference and the port on the same maps, options and (seeded) fault plan
-under a DeterministicLoop of the reference's testing tier, with each
-package's own recorder on the loop's virtual clock, and compares the op
-log, the final progress counters and the achieved map.
+reference and the port on the same maps, options and (seeded) fault plan,
+each under its own package's DeterministicLoop (``testing.sched``) with
+its own recorder on the loop's virtual clock, and compares the op log,
+the final progress counters and the achieved map.
 """
 
 import asyncio
@@ -26,8 +26,9 @@ import blance_tpu_torch as bt  # noqa: E402
 import blance_tpu_torch.obs as tobs  # noqa: E402
 import blance_tpu_torch.orchestrate as torch_orch  # noqa: E402
 from blance_tpu.orchestrate.sched import ranks as jranks  # noqa: E402
-from blance_tpu.testing.sched import DeterministicLoop  # noqa: E402
+from blance_tpu.testing.sched import DeterministicLoop as JLoop  # noqa: E402
 from blance_tpu_torch.orchestrate.sched import ranks as tranks  # noqa: E402
+from blance_tpu_torch.testing.sched import DeterministicLoop as TLoop  # noqa: E402
 
 STATES = dict(primary=(0, 1), replica=(1, 2))
 NODES = [f"n{i}" for i in range(8)]
@@ -113,7 +114,7 @@ def _maps(lib, seed, n_partitions=60):
 
 def _orchestrate(pkg, opts_kw, sched, faults, seed, nodes=NODES):
     """One orchestration with ``pkg``'s orchestrator on a fresh
-    DeterministicLoop; returns (op log, final progress, achieved map as
+    DeterministicLoop of the same package; returns (op log, final progress, achieved map as
     JSON, recorder counters)."""
     lib, obs, orch = pkg
     beg, end = _maps(lib, seed)
@@ -136,7 +137,7 @@ def _orchestrate(pkg, opts_kw, sched, faults, seed, nodes=NODES):
     if lib is bt:
         kw["device"] = "cpu"
     options = orch.OrchestratorOptions(**kw)
-    loop = DeterministicLoop()
+    loop = TLoop() if lib is bt else JLoop()
     rec = obs.Recorder(clock=loop.time)
 
     async def main():

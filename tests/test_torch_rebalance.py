@@ -3,7 +3,7 @@
 ``rebalance`` runs plan -> diff -> orchestrate.  The port plans with
 ``backend="cuda", device="cpu"`` and the reference with ``backend="tpu"``;
 both orchestrate the same host code.  Each run goes on a fresh
-DeterministicLoop of the reference's testing tier, with each package's own
+DeterministicLoop of its own package's testing tier, with each package's own
 recorder on the loop's virtual clock, so the op logs, progress, result
 counts and SLO summaries are compared exactly.
 """
@@ -23,16 +23,17 @@ import blance_tpu.orchestrate as jorch  # noqa: E402
 import blance_tpu_torch as bt  # noqa: E402
 import blance_tpu_torch.obs as tobs  # noqa: E402
 import blance_tpu_torch.orchestrate as torch_orch  # noqa: E402
-from blance_tpu.testing.sched import DeterministicLoop  # noqa: E402
+from blance_tpu.testing.sched import DeterministicLoop as JLoop  # noqa: E402
+from blance_tpu_torch.testing.sched import DeterministicLoop as TLoop  # noqa: E402
 from test_torch_plan import _opts, _rack_delta, _weighted  # noqa: E402
 
 # Both packages export a function ``rebalance`` that shadows the module.
 jreb = importlib.import_module("blance_tpu.rebalance")
 treb = importlib.import_module("blance_tpu_torch.rebalance")
 
-REF = dict(lib=blance_tpu, obs=jobs, orch=jorch, reb=jreb,
+REF = dict(lib=blance_tpu, obs=jobs, orch=jorch, reb=jreb, loop=JLoop,
            plan=dict(backend="tpu"))
-PORT = dict(lib=bt, obs=tobs, orch=torch_orch, reb=treb,
+PORT = dict(lib=bt, obs=tobs, orch=torch_orch, reb=treb, loop=TLoop,
             plan=dict(backend="cuda", device="cpu"))
 
 
@@ -64,7 +65,7 @@ def _data_plane(lib, current):
 
 
 def _on_loop(pkg, make_coro):
-    loop = DeterministicLoop()
+    loop = pkg["loop"]()
     rec = pkg["obs"].Recorder(clock=loop.time)
     with pkg["obs"].use_recorder(rec):
         out = loop.run_until_complete(make_coro())

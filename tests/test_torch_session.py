@@ -7,8 +7,8 @@ the final state and the ``plan.solve.*`` counters each package's recorder
 kept must be equal, exactly (the fixtures use whole-number weights).  The
 port's sessions run with ``device="cpu"``, where every kernel takes its
 plain version.  ``rebalance(session=)`` and ``RebalanceController(
-session=)`` run on the reference's DeterministicLoop, each package's
-recorder on its virtual clock, so op logs compare exactly too.
+session=)`` run each on its own package's DeterministicLoop, each
+package's recorder on its virtual clock, so op logs compare exactly too.
 """
 
 import asyncio
@@ -27,17 +27,18 @@ import blance_tpu_torch as bt  # noqa: E402
 import blance_tpu_torch.obs as tobs  # noqa: E402
 import blance_tpu_torch.orchestrate as torch_orch  # noqa: E402
 from blance_tpu.plan.session import PlannerSession as JSession  # noqa: E402
-from blance_tpu.testing.sched import DeterministicLoop  # noqa: E402
+from blance_tpu.testing.sched import DeterministicLoop as JLoop  # noqa: E402
 from blance_tpu_torch.plan import session as tsession  # noqa: E402
 from blance_tpu_torch.plan import tensor as ttensor  # noqa: E402
 from blance_tpu_torch.plan.audit import check_assignment  # noqa: E402
+from blance_tpu_torch.testing.sched import DeterministicLoop as TLoop  # noqa: E402
 
 jreb = importlib.import_module("blance_tpu.rebalance")
 treb = importlib.import_module("blance_tpu_torch.rebalance")
 
-REF = dict(lib=blance_tpu, obs=jobs, orch=jorch, reb=jreb,
+REF = dict(lib=blance_tpu, obs=jobs, orch=jorch, reb=jreb, loop=JLoop,
            session=JSession, kw={})
-PORT = dict(lib=bt, obs=tobs, orch=torch_orch, reb=treb,
+PORT = dict(lib=bt, obs=tobs, orch=torch_orch, reb=treb, loop=TLoop,
             session=bt.PlannerSession, kw=dict(device="cpu"))
 STATES = dict(primary=(0, 1), replica=(1, 1))
 NODES = [f"n{i}" for i in range(8)]
@@ -361,7 +362,7 @@ def test_matches_one_shot_plan():
 
 
 def _on_loop(pkg, make_coro):
-    loop = DeterministicLoop()
+    loop = pkg["loop"]()
     rec = pkg["obs"].Recorder(clock=loop.time)
     with pkg["obs"].use_recorder(rec):
         out = loop.run_until_complete(make_coro())
