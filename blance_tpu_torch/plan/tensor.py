@@ -1179,7 +1179,8 @@ def _solve_dense_converged_impl(prev, pweights, nweights, valid, stickiness,
     changing, as ``vmap`` runs a ``while_loop`` with a batched
     predicate: a converged element is frozen, and later sweeps solve
     only the elements still changing (a subset, which changes no
-    element's result).  Returns (assign[B, P, S, R], sweeps[B] int)."""
+    element's result).  Returns (assign[B, P, S, R], sweeps[B] int32,
+    the reference's dtype)."""
     def solve(x, cu=None):
         return solve_dense(x, pweights, nweights, valid, stickiness, gids,
                            gid_valid, constraints, rules, fused_score,
@@ -1196,7 +1197,7 @@ def _solve_dense_converged_impl(prev, pweights, nweights, valid, stickiness,
 
     out = solve(prev, carry_used)
     last_in = prev
-    sweeps = torch.ones(prev.shape[0], dtype=torch.int64)
+    sweeps = torch.ones(prev.shape[0], dtype=torch.int32)
     live = torch.arange(prev.shape[0], device=prev.device)
     pr = None if p_real is None else \
         torch.as_tensor(p_real, dtype=torch.float32, device=prev.device)

@@ -1,5 +1,6 @@
 # Copied from blance_tpu/utils/nativebuild.py; a successful call is also a
-# build event for the port's device observatory (obs/device.py).
+# build event for the port's device observatory (obs/device.py), timed
+# through utils/hostclock.perf_now.
 """Shared compile-and-cache helper for the repo's native components.
 
 The native loaders — here the CPython marshalling extension
@@ -12,9 +13,9 @@ from __future__ import annotations
 
 import os
 import subprocess
-import time
 
 from ..obs import device as _obs_device
+from .hostclock import perf_now
 
 __all__ = ["compile_cached"]
 
@@ -39,7 +40,7 @@ def compile_cached(source: str, out_path: str, command: list[str]) -> bool:
     if not os.path.exists(source):
         return False
     tmp_path = f"{out_path}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
+    t0 = perf_now()
     try:
         os.makedirs(os.path.dirname(out_path), exist_ok=True)
         if (not os.path.exists(out_path)
@@ -49,7 +50,7 @@ def compile_cached(source: str, out_path: str, command: list[str]) -> bool:
                 check=True, capture_output=True)
             os.replace(tmp_path, out_path)
         _obs_device.note_compile(os.path.basename(out_path),
-                                 time.perf_counter() - t0)
+                                 perf_now() - t0)
         return True
     except (OSError, subprocess.CalledProcessError):
         return False

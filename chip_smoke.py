@@ -151,7 +151,15 @@ nothing of jax or of the JAX package.  In order:
    min2, on the inputs of its first unbatched (closed loop) and batched
    (fleet simulator) calls on the card, joins the ``kernels`` line with
    ``path="harness"``, its wide layout timed beside it;
-14. prints one JSON line of kernel measurements, the card's name and
+14. runs the port's analysis gate (the ``analysis`` line):
+   ``analysis.run_all(shape_audit=True, device="cuda")``, the AST lints
+   over the package on the host and the 60 shape contracts on the card
+   (then the 4 host checks), with no new finding, no stale pin and no
+   analyzer error, the audit launching min2 (unbatched and batched) and
+   the sparse kernel, all inside the phase's budget; min2 on the inputs
+   of its first unbatched and batched audit calls and the sparse kernel
+   on its first join the ``kernels`` line with ``path="analysis"``;
+15. prints one JSON line of kernel measurements, the card's name and
    power limit, the script's wall time, and last
    ``{"ok": true, "device": {...}}``.  A kernel's ``ms`` is its device
    time per call, from back-to-back calls in a CUDA graph
@@ -2757,6 +2765,81 @@ def harness_phase(dev) -> tuple:
     return res, entries
 
 
+# --- the analysis gate (the ``analysis`` line) ------------------------------
+
+ANALYSIS_BUDGET_S = 30.0  # the phase's wall, kernel entries included
+
+
+def analysis_phase(dev) -> tuple:
+    """The port's analysis gate on the card (the ``analysis`` line): the
+    lints over the package (host work) and the shape audit with
+    ``device="cuda"``, folded through the port's baseline; returns the
+    line and the kernel entries on the inputs of the audit's first
+    unbatched and batched min2 calls and its first sparse call."""
+    from blance_tpu_torch.analysis import run_all
+
+    T.set_fused_score_default("auto")
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    with first_call("priced_min2_argmin",
+                    lambda a, kw: _on_card(a, kw) and a[0].dim() == 3) \
+            as seen_batched, \
+            first_call("priced_min2_argmin",
+                       lambda a, kw: _on_card(a, kw) and a[0].dim() == 2) \
+            as seen_flat, \
+            first_call("sparse_priced_min2_cand", _on_card) as seen_sparse:
+        t0 = time.perf_counter()
+        result = run_all(shape_audit=True, device=dev)
+        gate_s = time.perf_counter() - t0
+    # Every launch of the gate's run, before the entries' comparisons.
+    counts = launch_counts()
+    variants = launch_variants()
+    min2 = variants["priced_min2_argmin"]
+    batched = sum(c for v, c in min2.items() if v.startswith("batched"))
+    t0 = time.perf_counter()
+    entries = {
+        "flat": path_kernel_entry("min2", seen_flat,
+                                  sum(min2.values()) - batched,
+                                  "the audit's"),
+        "batched": fleet_kernel_entry("min2", seen_batched, batched),
+        "sparse": path_kernel_entry("sparse", seen_sparse,
+                                    counts["sparse_priced_min2_cand"],
+                                    "the audit's")}
+    kernels_s = time.perf_counter() - t0
+    timings = result.shape_timings
+    res = {
+        "checked_files": result.checked_files,
+        "shape_entries": result.shape_entries,
+        "new": [f.render() for f in result.new],
+        "baselined": len(result.baselined),
+        "stale": [e.render() for e in result.unused_baseline],
+        "errors": result.errors,
+        "launches": counts,
+        "variants": variants,
+        "contract_s": timings,
+        "contracts_s": sum(timings.values()),
+        "slowest_contract": max(timings, key=timings.get, default=None),
+        "parts_s": {"gate": gate_s, "kernels": kernels_s},
+        "phase_s": time.perf_counter() - t_phase,
+        "budget_s": ANALYSIS_BUDGET_S,
+    }
+    res["checks"] = checks = {
+        "no_new_findings": not res["new"],
+        "no_stale_pins": not res["stale"],
+        "no_errors": not res["errors"],
+        "all_contracts_ran": res["shape_entries"] == 64 and len(timings) == 60,
+        "min2_launched": sum(min2.values()) - batched > 0,
+        "min2_batched_launched": batched > 0,
+        "sparse_launched": counts["sparse_priced_min2_cand"] > 0,
+        "within_budget": res["phase_s"] <= ANALYSIS_BUDGET_S,
+    }
+    log(f"analysis: {json.dumps(res)}")
+    if not all(checks.values()):
+        raise AssertionError(
+            f"analysis: {[k for k, v in checks.items() if not v]}")
+    return res, entries
+
+
 # --- the device observatory (the ``obs`` line) -------------------------------
 
 OBS_KERNELS = {"min2.cu": ("priced_min2",),
@@ -3267,6 +3350,7 @@ def main() -> int:
     fleet_line, fleet_kernels = fleet_phase(dev)
     fleet_line["phase_s"] = time.perf_counter() - t0
     harness, harness_kernels = harness_phase(dev)
+    analysis, analysis_kernels = analysis_phase(dev)
 
     kernels = [
         dict(name="priced_min2_argmin", route="cuda",
@@ -3319,6 +3403,15 @@ def main() -> int:
             name=kernels[0]["name"], route="cuda",
             source=kernels[0]["source"], replaces=kernels[0]["replaces"],
             path="harness", call=key, bitwise=True, **harness_kernels[key]))
+    # The analysis gate's shape audit: min2 on the inputs of its first
+    # unbatched and batched calls, the sparse kernel on its first call;
+    # launches: the gate's own run.
+    for entry, key in zip((kernels[0], kernels[0], kernels[2]),
+                          ("flat", "batched", "sparse")):
+        kernels.append(dict(
+            name=entry["name"], route="cuda", source=entry["source"],
+            replaces=entry["replaces"], path="analysis", call=key,
+            bitwise=True, **analysis_kernels[key]))
     prof = [profile_main_path(m, prev, nodes, removed, model, opts)
             for m in ("off", "on")]
     prof.append(profile_main_path("auto", *sp_map))
@@ -3335,6 +3428,7 @@ def main() -> int:
     print(json.dumps({"narrow": narrow}))
     print(json.dumps({"obs": obs}))
     print(json.dumps({"harness": harness}))
+    print(json.dumps({"analysis": analysis}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

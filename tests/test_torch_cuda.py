@@ -863,3 +863,20 @@ def test_harness_replays_committed_trace_on_card(dev, name, tmp_path,
     if name.startswith("fleet"):
         assert any(v.startswith("batched") for v in
                    launch_variants()["priced_min2_argmin"])
+
+
+def test_shape_audit_passes_on_card(dev):
+    """The 60 shape contracts and 4 host checks pass with device="cuda";
+    the dense, pipeline and fleet contracts launch min2 (unbatched and
+    batched) and the sparse ones the sparse kernel's gathered entry."""
+    from blance_tpu_torch.analysis.shape_audit import run_shape_audit
+    from blance_tpu_torch.ops import launch_variants
+
+    reset_launch_counts()
+    findings, entries = run_shape_audit(device="cuda")
+    assert findings == [], "\n".join(f.render() for f in findings)
+    assert entries == 64
+    variants = launch_variants()["priced_min2_argmin"]
+    assert any(v.startswith("batched") for v in variants), variants
+    assert any(not v.startswith("batched") for v in variants), variants
+    assert launch_counts()["sparse_priced_min2_cand"] > 0

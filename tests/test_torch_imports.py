@@ -166,8 +166,8 @@ OBS_MODULES = ["obs", "obs.device", "obs.device_check", "obs.chrome",
 def test_observatory_modules_export_the_reference_surface(mod):
     """The observatory's modules are in the port and import without jax
     (the subprocess check above walks them); each exports every name its
-    reference module exports, but for the analysis package, which holds
-    only Finding (its lints and run_all are ROADMAP A.16)."""
+    reference module exports (the analysis package: Finding, run_lints,
+    run_all, PACKAGE_ROOT and REPO_ROOT)."""
     import importlib
 
     assert f"blance_tpu_torch.{mod}" in _port_modules()
@@ -175,8 +175,57 @@ def test_observatory_modules_export_the_reference_surface(mod):
     pytest.importorskip("jax")  # the reference needs it
     ref = importlib.import_module(f"blance_tpu.{mod}")
     want = set(getattr(ref, "__all__", ()))
-    if mod == "analysis":
-        want = {"Finding"}
+    missing = want - set(getattr(port, "__all__", ()))
+    assert not missing, sorted(missing)
+
+
+ANALYSIS_MODULES = ["analysis.__main__", "analysis._astutil",
+                    "analysis.asyncio_lint", "analysis.baseline",
+                    "analysis.determinism", "analysis.donation",
+                    "analysis.jit_purity", "analysis.race_lint",
+                    "analysis.shape_audit"]
+
+
+def test_analysis_cli_runs_without_jax():
+    """The analysis passes and ``python -m blance_tpu_torch.analysis
+    --help``, in a fresh interpreter, pull in neither jax nor the JAX
+    package."""
+    code = (
+        "import importlib, runpy, sys\n"
+        f"for m in {ANALYSIS_MODULES!r}:\n"
+        "    importlib.import_module('blance_tpu_torch.' + m)\n"
+        "sys.argv = ['analysis', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('blance_tpu_torch.analysis', "
+        "run_name='__main__', alter_sys=True)\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'blance_tpu' or "
+        "m.startswith('blance_tpu.'))\n"
+        "print('BAD', bad)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "--device DEV" in out.stdout and "--ci" in out.stdout
+    assert "BAD []" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("mod", ANALYSIS_MODULES)
+def test_analysis_modules_export_the_reference_surface(mod):
+    """Each analysis module is in the port and exports every name its
+    reference module exports; the donation pass's callable record is
+    ConsumingCallable (torch has no donation: the registry is the
+    declared CONSUMING table)."""
+    import importlib
+
+    assert f"blance_tpu_torch.{mod}" in _port_modules()
+    port = importlib.import_module(f"blance_tpu_torch.{mod}")
+    pytest.importorskip("jax")  # the reference needs it
+    ref = importlib.import_module(f"blance_tpu.{mod}")
+    renamed = {"DonatingCallable": "ConsumingCallable"}
+    want = {renamed.get(n, n) for n in getattr(ref, "__all__", ())}
     missing = want - set(getattr(port, "__all__", ()))
     assert not missing, sorted(missing)
 
