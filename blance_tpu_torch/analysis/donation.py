@@ -81,6 +81,11 @@ CONSUMING: dict[str, tuple[str, ...]] = {
     # the public warm solves: "the carry is single-use by contract"
     "blance_tpu_torch.plan.tensor.solve_dense_warm": ("carry",),
     "blance_tpu_torch.plan.tensor.solve_sparse_warm": ("carry",),
+    # the sharded warm paths: "the carry is consumed either way", as the
+    # reference's solve_dense_sharded says of its warm attempt
+    "blance_tpu_torch.parallel.sharded.solve_dense_sharded": ("carry",),
+    "blance_tpu_torch.parallel.sharded.solve_sparse_sharded": ("carry",),
+    "blance_tpu_torch.parallel.sharded.solve_pipeline_sharded": ("carry",),
 }
 
 #: Zero-copy aliases: the result shares the operand's storage when it is

@@ -64,8 +64,8 @@ from ._astutil import dotted as _dotted
 __all__ = ["JitPurityPass", "DEVICE_ROOTS"]
 
 #: The port's device roots: fq name -> why (the reference's trace root it
-#: stands for).  The reference's sharded programs wrap these same bodies
-#: in shard_map; the port's sharded dispatch comes with ROADMAP A.9.
+#: stands for).  The sharded bodies (parallel/sharded.py) are the
+#: reference's shard_map'd programs: each rank of a mesh runs one.
 DEVICE_ROOTS: dict[str, str] = {
     "blance_tpu_torch.plan.tensor.solve_dense":
         "one auction sweep: the reference's jitted solve_dense",
@@ -92,6 +92,30 @@ DEVICE_ROOTS: dict[str, str] = {
         "and _pipeline_sparse_donating",
     "blance_tpu_torch.plan.tensor.carry_from_assignment":
         "the carry tables: the reference's _carry_used_jit",
+    "blance_tpu_torch.parallel.sharded._dense_cold":
+        "the sharded dense fixpoint: the reference's shard_map of "
+        "solve_dense_converged (solve_dense_sharded, cold)",
+    "blance_tpu_torch.parallel.sharded._dense_warm":
+        "the sharded repair sweep: the reference's shard_map of "
+        "_warm_repair (solve_dense_sharded, warm)",
+    "blance_tpu_torch.parallel.sharded._sparse_cold":
+        "the sharded sparse fixpoint: the reference's shard_map of "
+        "_solve_sparse_converged_impl",
+    "blance_tpu_torch.parallel.sharded._sparse_warm":
+        "the sharded sparse repair: the reference's shard_map of "
+        "_warm_repair_sparse",
+    "blance_tpu_torch.parallel.sharded._pipeline_cold":
+        "the sharded cold pipeline: the reference's _pipeline_sharded_fn "
+        "(cold)",
+    "blance_tpu_torch.parallel.sharded._pipeline_warm":
+        "the sharded warm pipeline: the reference's _pipeline_sharded_fn "
+        "(warm)",
+    "blance_tpu_torch.parallel.sharded._fleet_cold":
+        "the fleet cold batch over a mesh: the reference's "
+        "_mesh_callable (cold)",
+    "blance_tpu_torch.parallel.sharded._fleet_warm":
+        "the fleet warm batch over a mesh: the reference's "
+        "_mesh_callable (warm)",
     "blance_tpu_torch.plan.fleet._fleet_cold_batch":
         "the batched cold fixpoint: the reference's jitted vmap "
         "_fleet_cold_batch",

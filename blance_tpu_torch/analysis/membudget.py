@@ -47,8 +47,12 @@ blance_tpu_torch.analysis.membudget import run_membudget_check as r;
 r(device='cuda')"`` on the card, which prints the measured-vs-budget
 table, then update the rows.
 
-The sharded entries are exempt (``MESH_EXEMPT``): their per-device peak
-scales with the mesh, and the mesh is ROADMAP A.9.
+The sharded entries are exempt (``MESH_EXEMPT``), as in the reference:
+each rank's peak scales with the mesh actually constructed (its rows are
+P / n_shards of the same budgeted bodies), so one number would pin the
+wrong artifact for every other mesh.  The sharded solves report each
+rank's peak allocation per call instead (``Mesh.last_call``, printed in
+``chip_smoke.py``'s ``sharded`` line).
 """
 
 from __future__ import annotations
@@ -324,8 +328,9 @@ def _builders() -> dict[str, _Builder]:
     }
 
 
-# Entries whose peak scales with the constructed mesh (ROADMAP A.9): a
-# budget row for one of these is MEM002 table drift.
+# Entries whose peak scales with the constructed mesh (parallel/sharded.py;
+# each rank reports its own peak per call): a budget row for one of these
+# is MEM002 table drift.
 MESH_EXEMPT: frozenset[str] = frozenset({
     "sharded.cold",
     "sharded.warm",

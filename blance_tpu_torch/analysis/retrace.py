@@ -1,5 +1,5 @@
-# Port of blance_tpu/analysis/retrace.py: the same entry labels (the
-# sharded ones stay with ROADMAP A.9) and workload, counted in builds.
+# Port of blance_tpu/analysis/retrace.py: the same entry labels and
+# workload, counted in builds.
 """Build budgets: the port's counterpart of the reference's retrace table.
 
 The port compiles nothing per shape: what it builds are its kernel
@@ -7,7 +7,8 @@ libraries (``ops/_build.py``, nvcc) and host extensions
 (``utils/nativebuild.py``), each once per process.  ``RETRACE_BUDGETS``
 declares, for one canonical workload (cold solve, carry, warm repair,
 bucketed plan, rank sweep, sparse cold and warm, fleet cold and warm,
-pipeline cold and warm), the most builds each owning entry point may
+pipeline cold and warm, the sharded solve and pipeline on a 2-rank
+mesh), the most builds each owning entry point may
 trigger, counted by :class:`blance_tpu_torch.obs.device.CompileMonitor`
 under the dispatch sites' :func:`~blance_tpu_torch.obs.device.entry`
 attribution.  The workload dispatches each entry 4 times at one shape,
@@ -58,6 +59,12 @@ RETRACE_BUDGETS: dict[str, int] = {
     "fleet.warm": 0,
     "pipeline.cold": 0,
     "pipeline.warm": 0,
+    # The sharded dispatches on a 2-rank mesh: rank 0 runs its share of
+    # the body in this process after the solves above loaded every
+    # library it calls, and the worker rank loads its own in its own
+    # process, outside this monitor.
+    "sharded.cold": 0,
+    "sharded.pipeline": 0,
     # Builds outside any dispatch site: the encode's marshal extension.
     "other": 1,
 }
@@ -221,6 +228,16 @@ def _workload(device: Any,
         sess.apply()
 
     repeat("pipeline.warm", pipeline_warm_call)
+
+    # sharded.cold / sharded.pipeline — a 2-rank mesh on ``device``.
+    from ..parallel.sharded import (make_mesh, solve_dense_sharded,
+                                    solve_pipeline_sharded)
+
+    with make_mesh(2, device=device) as mesh:
+        repeat("sharded.cold", lambda: solve_dense_sharded(
+            mesh, prev, pw, nw, valid, stick, gids, gv, constraints, rules))
+        repeat("sharded.pipeline", lambda: solve_pipeline_sharded(
+            mesh, prev, pw, nw, valid, stick, gids, gv, constraints, rules))
 
 
 def run_retrace_check(device: Any = "cuda",

@@ -1,6 +1,6 @@
-# Port of blance_tpu/analysis/shape_audit.py: the same contract table less
-# its 12 sharded contracts (ROADMAP A.9), each contract run on a small
-# concrete problem on the audit's device, and the same four host checks.
+# Port of blance_tpu/analysis/shape_audit.py: the same contract table, its
+# 12 sharded contracts included, each contract run on a small concrete
+# problem on the audit's device, and the same four host checks.
 """Shape audit: the solver's [P, S, N, R] contracts, enforced.
 
 The dense solver's shape conventions — assign[P, S, R] int32 with -1
@@ -25,8 +25,7 @@ the port keeps as a Python value (a sweep count, an acceptance flag that
 stays a Python bool) reads as a 0-d ``int32`` / ``bool``, the
 reference's type for the same output.
 
-Covered entry points (the reference's, less the sharded layouts, which
-come with ROADMAP A.9):
+Covered entry points (the reference's):
 
 - ``solve_dense``            — cold, carry-seeded, bucketed, bucketed+carry
 - ``solve_dense_converged``  — via ``_solve_dense_converged_impl`` (the
@@ -45,6 +44,13 @@ come with ROADMAP A.9):
   K -> [P, N]), and a concrete host-side check of the per-row dense
   exhaustion fallback (fills flagged rows audit-clean)
 - carry construction         — ``carry_from_assignment`` (its ``used``)
+- sharded solves             — ``solve_dense_sharded``,
+  ``solve_sparse_sharded`` and the sharded plan pipeline (cold, warm):
+  the bodies ``Mesh.shard_map`` runs, dispatched with the layout tables
+  of parallel/sharded.py (the same rows the runtime dispatch uses, so
+  the audited layout cannot drift from the dispatched one) on a
+  ``_AUDIT_RANKS``-rank mesh of the audit's device, started once per
+  audit run and closed after it
 - ``encode_problem`` / ``decode_assignment`` — dense-encoding dtypes and
   the decode round trip (tiny concrete problem; host-only, milliseconds)
 - ``bucket_size`` / ``pad_to`` — the bucketing algebra (monotone, >= x,
@@ -357,6 +363,84 @@ def _expect_sparse_warm(d: Dims):
             ((d.P,), np.bool_))
 
 
+# -- the sharded contracts: one mesh per audit run ---------------------------
+
+_AUDIT_RANKS = 2  # every _MATRIX P divides over it: a real 2-shard mesh
+_MESHES: dict[str, Any] = {}
+
+
+def _audit_mesh(device):
+    """The audit's mesh on ``device``, started on first use."""
+    from ..parallel.sharded import make_mesh
+
+    key = str(device)
+    if key not in _MESHES:
+        _MESHES[key] = make_mesh(_AUDIT_RANKS, device=device)
+    return _MESHES[key]
+
+
+def close_audit_meshes() -> None:
+    """Stop the audit's meshes (run_shape_audit does after its table)."""
+    while _MESHES:
+        _MESHES.popitem()[1].close()
+
+
+def _build_sharded_body(d: Dims, device, body: str, in_layout, out_layout,
+                        extra=(), keep=None, **statics):
+    """``Mesh.shard_map`` of ``body`` over the audit problem (plus
+    ``extra`` operands) with the runtime's layout tables; ``keep`` picks
+    the outputs the reference's contract names."""
+    mesh = _audit_mesh(device)
+    args = _solver_args(d, device)
+    args = args + tuple(x(args) if callable(x) else x for x in extra)
+
+    def run(*a):
+        out = mesh.shard_map(body, a, in_layout, out_layout,
+                             constraints=d.constraints, rules=d.rules,
+                             **statics)
+        return out if keep is None else out[keep]
+    return run, args, {}
+
+
+def _build_sharded(d: Dims, device):
+    """solve_dense_sharded's cold dispatch (its assign)."""
+    from ..parallel import sharded as sh
+
+    return _build_sharded_body(
+        d, device, "dense.cold", sh.SOLVER_IN_LAYOUT,
+        sh.DENSE_COLD_OUT_LAYOUT, keep=0, max_iterations=4,
+        fused_score="off")
+
+
+def _build_sparse_sharded(d: Dims, device):
+    """solve_sparse_sharded's cold dispatch: (assign, sweeps,
+    exhausted), the shortlist riding the partition axis."""
+    from ..parallel import sharded as sh
+
+    return _build_sharded_body(
+        d, device, "sparse.cold",
+        sh.SOLVER_IN_LAYOUT + sh.SPARSE_EXTRA_LAYOUT,
+        sh.SPARSE_COLD_OUT_LAYOUT, extra=(lambda a: _shortlist(d, a),),
+        max_iterations=4)
+
+
+def _build_pipeline_sharded(d: Dims, device, warm: bool = False):
+    """solve_pipeline_sharded's dispatch, cold or warm."""
+    from ..parallel import sharded as sh
+
+    if warm:
+        return _build_sharded_body(
+            d, device, "pipeline.warm",
+            sh.SOLVER_IN_LAYOUT + sh.WARM_EXTRA_LAYOUT,
+            sh.PIPELINE_WARM_OUT_LAYOUT,
+            extra=(_dirty(d, device), lambda a: _carry_used_of(*a[:3])),
+            fused_score="off", favor_min_nodes=False)
+    return _build_sharded_body(
+        d, device, "pipeline.cold", sh.SOLVER_IN_LAYOUT,
+        sh.PIPELINE_COLD_OUT_LAYOUT, max_iterations=4, fused_score="off",
+        favor_min_nodes=False)
+
+
 def _build_shortlist_builder(d: Dims, device, saturating: bool = False):
     from ..core.shortlist import build_shortlist_core
 
@@ -531,6 +615,12 @@ CONTRACTS: tuple[ShapeContract, ...] = tuple(
         for d in _MATRIX
     ] + [
         ShapeContract(
+            entry="solve_dense_sharded", variant=f"1d@{d.P}x{d.N}",
+            build=(lambda dev, d=d: _build_sharded(d, dev)),
+            expect=(lambda d=d: _expect_assign(d)))
+        for d in _MATRIX
+    ] + [
+        ShapeContract(
             entry="fleet_cold_batch",
             variant=f"B{_FLEET_B}@{d.P}x{d.N}",
             build=(lambda dev, d=d: _build_fleet_cold(d, dev)),
@@ -561,6 +651,12 @@ CONTRACTS: tuple[ShapeContract, ...] = tuple(
             entry="solve_sparse_warm", variant=f"repair@{d.P}x{d.N}",
             build=(lambda dev, d=d: _build_sparse_warm(d, dev)),
             expect=(lambda d=d: _expect_sparse_warm(d)))
+        for d in _MATRIX
+    ] + [
+        ShapeContract(
+            entry="solve_sparse_sharded", variant=f"1d@{d.P}x{d.N}",
+            build=(lambda dev, d=d: _build_sparse_sharded(d, dev)),
+            expect=(lambda d=d: _expect_sparse_cold(d)))
         for d in _MATRIX
     ] + [
         ShapeContract(
@@ -600,6 +696,19 @@ CONTRACTS: tuple[ShapeContract, ...] = tuple(
         ShapeContract(
             entry="plan_pipeline", variant=f"warm@{d.P}x{d.N}",
             build=(lambda dev, d=d: _build_pipeline_warm(d, dev)),
+            expect=(lambda d=d: _expect_pipeline_warm(d)))
+        for d in _MATRIX
+    ] + [
+        ShapeContract(
+            entry="plan_pipeline_sharded", variant=f"cold@{d.P}x{d.N}",
+            build=(lambda dev, d=d: _build_pipeline_sharded(d, dev)),
+            expect=(lambda d=d: _expect_pipeline_cold(d)))
+        for d in _MATRIX
+    ] + [
+        ShapeContract(
+            entry="plan_pipeline_sharded", variant=f"warm@{d.P}x{d.N}",
+            build=(lambda dev, d=d: _build_pipeline_sharded(
+                d, dev, warm=True)),
             expect=(lambda d=d: _expect_pipeline_warm(d)))
         for d in _MATRIX
     ] + [
@@ -953,14 +1062,17 @@ def run_shape_audit(device: Any = "cuda",
 
     device = resolve_device(device, "run_shape_audit")
     findings: list[Finding] = []
-    for contract in CONTRACTS:
-        t0 = time.perf_counter()
-        findings.extend(_check_one(contract, device))
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        if timings is not None:
-            timings[f"{contract.entry}[{contract.variant}]"] = \
-                time.perf_counter() - t0
+    try:
+        for contract in CONTRACTS:
+            t0 = time.perf_counter()
+            findings.extend(_check_one(contract, device))
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            if timings is not None:
+                timings[f"{contract.entry}[{contract.variant}]"] = \
+                    time.perf_counter() - t0
+    finally:
+        close_audit_meshes()
     for check in HOST_CHECKS:
         findings.extend(check())
     return findings, len(CONTRACTS) + len(HOST_CHECKS)

@@ -16,7 +16,10 @@ Three instruments, all fed through the port's Recorder:
   library no build of this process made, is one event, attributed to
   the OWNING ENTRY POINT via the :func:`entry` contextvar the dispatch
   sites set (``solve_dense`` cold/warm/bucketed, the fleet batches, the
-  pipelines, the rank sweep): ``device.compiles{entry=...}`` counters
+  pipelines, the rank sweep, the sharded dispatches ``sharded.cold`` /
+  ``sharded.warm`` / ``sharded.pipeline`` / ``sparse.sharded.cold`` /
+  ``sparse.sharded.warm``, whose worker ranks build in their own
+  processes): ``device.compiles{entry=...}`` counters
   and ``device.compile_s{entry=...}`` histograms.  A warm process — one
   that has loaded every library it calls — counts 0, whatever shapes
   it solves.  The per-entry budgets live in ``analysis/retrace.py``.

@@ -1,8 +1,8 @@
 # Port of blance_tpu/plan/fleet.py.  The reference runs its per-tenant
 # solve under jax.vmap; here the batch axis is explicit: the dense solver
 # of plan/tensor.py takes [B, ...] arrays and keeps every element's
-# arithmetic the single problem's.  The batch axis's mesh sharding is
-# ROADMAP A.9 (``mesh=`` raises).
+# arithmetic the single problem's.  With a 1-D port Mesh the batch axis
+# shards over the mesh's ranks (parallel/mesh.py shard_map, no collective).
 """Fleet-scale multi-tenant batch planning: batched bucket-class solves.
 
 Production deployments (cbgt/FTS-style) rebalance hundreds of tenant
@@ -36,7 +36,10 @@ the same padded arrays — and the results match those bit-for-bit.
 The asyncio front door (request coalescing, backpressure, per-tenant
 carry cache) lives in plan/service.py; this module is the synchronous
 compute core.  It solves on ``device`` ("cuda" unless the caller passes
-the CPU, where the kernels run their plain versions).
+the CPU, where the kernels run their plain versions); with a 1-D port
+``Mesh`` each class's batch axis is sharded over the mesh's ranks —
+tenant solves are independent, so this is pure data parallelism with no
+collective, and each element's result is still its single solve's.
 """
 
 from __future__ import annotations
@@ -74,7 +77,8 @@ from .tensor import (
 __all__ = ["TenantProblem", "BatchClass", "FleetResult", "batch_class_of",
            "validate_tenant", "solve_fleet", "FLEET_AXIS"]
 
-# The reference's default mesh axis name for batch sharding (A.9).
+# The reference's default mesh axis name for batch sharding (any 1-D
+# mesh works: the axis carries no collective).
 FLEET_AXIS = "fleet"
 
 
@@ -317,34 +321,85 @@ def _pad_batch(stacked: Sequence[NPArray],
     return [np.concatenate([a, a[reps]]) for a in stacked], b_target
 
 
+# Mesh-sharded dispatchers, bound per (mesh, statics) and cached with
+# the reference's LRU bound.  The port compiles nothing per shape, so
+# the cache only saves rebuilding the binding; it is kept so that the
+# hot classes of a long-lived service resolve their dispatch once.
+_MESH_FN_CACHE: dict[tuple[object, ...], Any] = {}
+_MESH_FN_CACHE_MAX = 128
+
+
+def _mesh_callable(mesh, warm: bool, constraints: Constraints, rules: Rules,
+                   max_iterations: int, fused_score: str):
+    """The fleet batch body shard_map'd over ``mesh`` (1-D): every
+    operand's and output's leading (batch) axis is sharded over the
+    ranks and nothing is replicated — tenant solves are independent, so
+    no collective rides the mesh."""
+    from ..parallel import sharded as _sh
+
+    key = (mesh, warm, constraints, rules, max_iterations, fused_score)
+    fn = _MESH_FN_CACHE.get(key)
+    if fn is not None:
+        # Move-to-end: insertion order doubles as LRU recency.
+        _MESH_FN_CACHE[key] = _MESH_FN_CACHE.pop(key)
+        return fn
+    _sh.check_mesh(mesh, "solve_fleet", one_d=True)
+    statics = dict(constraints=constraints, rules=rules,
+                   fused_score=fused_score)
+    if warm:
+        body, lay_in, lay_out = ("fleet.warm", _sh.FLEET_WARM_IN_LAYOUT,
+                                 _sh.FLEET_WARM_OUT_LAYOUT)
+    else:
+        body, lay_in, lay_out = ("fleet.cold", _sh.FLEET_COLD_IN_LAYOUT,
+                                 _sh.FLEET_COLD_OUT_LAYOUT)
+        statics["max_iterations"] = max_iterations
+
+    def fn(*args):
+        return mesh.shard_map(body, args, lay_in, lay_out, **statics)
+    while len(_MESH_FN_CACHE) >= _MESH_FN_CACHE_MAX:
+        # Evict the least-recently-used binding only.
+        _MESH_FN_CACHE.pop(next(iter(_MESH_FN_CACHE)))
+    _MESH_FN_CACHE[key] = fn
+    return fn
+
+
 def _dispatch(fn_args: list[NPArray], warm: bool, k: BatchClass,
               max_iterations: int, fused_score: str, rec, record: bool,
-              device: torch.device,
-              batch_floor: int = 1) -> tuple[torch.Tensor, ...]:
-    """Run one class batch on ``device``; returns its outputs as tensors
-    there, batch padding stripped.
+              device: torch.device, batch_floor: int = 1,
+              mesh=None) -> tuple[torch.Tensor, ...]:
+    """Run one class batch on ``device`` (mesh-sharded when given);
+    returns its outputs as tensors there, batch padding stripped.
 
-    B pads up to ``bucket_size(max(B, batch_floor))`` by replicating
-    the last element, as the reference pads its batch axis for its
-    compile cache.  The port compiles nothing per shape, so the padding
-    only costs device work; it is kept so that ``fleet.batch_occupancy``
-    and ``fleet.h2d_bytes`` read as the reference's."""
+    B pads up to ``bucket_size(max(B, batch_floor))`` (and to mesh
+    divisibility) by replicating the last element, as the reference pads
+    its batch axis for its compile cache.  The port compiles nothing per
+    shape, so the padding only costs device work; it is kept so that
+    ``fleet.batch_occupancy`` and ``fleet.h2d_bytes`` read as the
+    reference's."""
     b_real = fn_args[0].shape[0]
     b_target = bucket_size(max(b_real, batch_floor))
     ent = "fleet.warm" if warm else "fleet.cold"
+    if mesh is not None:
+        b_target += (-b_target) % mesh.size
     fn_args, b_padded = _pad_batch(fn_args, b_target)
-    dev_args = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                for a in fn_args]
     statics = dict(constraints=k.constraints, rules=k.rules,
                    fused_score=fused_score)
-    with _device.entry(ent), _device.measure(
-            ent, f"{k.p}x{k.n}xB{b_padded}", device, dev_args):
-        if warm:
-            outs = _fleet_warm_batch(*dev_args, **statics)
-        else:
-            outs = _fleet_cold_batch(*dev_args,
-                                     max_iterations=max_iterations,
-                                     **statics)
+    if mesh is not None:
+        fn = _mesh_callable(mesh, warm, k.constraints, k.rules,
+                            max_iterations, fused_score)
+        with _device.entry(ent):
+            outs = fn(*fn_args)
+    else:
+        dev_args = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                    for a in fn_args]
+        with _device.entry(ent), _device.measure(
+                ent, f"{k.p}x{k.n}xB{b_padded}", device, dev_args):
+            if warm:
+                outs = _fleet_warm_batch(*dev_args, **statics)
+            else:
+                outs = _fleet_cold_batch(*dev_args,
+                                         max_iterations=max_iterations,
+                                         **statics)
     if record:
         rec.observe("fleet.batch_tenants", float(b_real))
         rec.observe("fleet.batch_occupancy",
@@ -420,8 +475,10 @@ def solve_fleet(
     ``fused_score`` None resolves the module default per class shape
     (P, N), like every other solve entry point; the matrix engine's
     working set grows with B on top of that.  ``device`` is where the
-    batches solve ("cuda" unless the caller passes the CPU); ``mesh``
-    (batch-axis sharding) is not ported and raises.
+    batches solve ("cuda" unless the caller passes the CPU); ``mesh``, a
+    1-D port Mesh, shards each class's batch axis over its ranks (pure
+    data parallelism, results unchanged) and the batches then solve on
+    its ranks' devices, ``device`` ignored.
 
     obs: per-batch ``fleet.batch_tenants`` / ``fleet.batch_occupancy``
     histograms and a ``fleet.dispatch`` span per batched solve with the
@@ -433,10 +490,12 @@ def solve_fleet(
     ``fleet.dispatch`` span's attrs.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "solve_fleet(mesh=...) (batch-axis sharding) is not ported "
-            "(ROADMAP A.9)")
-    dev = resolve_device(device, "solve_fleet")
+        from ..parallel.sharded import check_mesh
+
+        check_mesh(mesh, "solve_fleet", one_d=True)
+        dev = mesh.device
+    else:
+        dev = resolve_device(device, "solve_fleet")
     rec = recorder if recorder is not None else get_recorder()
     results: dict[int, FleetResult] = {}
     tenants = [_normalized(t) for t in problems]
@@ -502,7 +561,7 @@ def solve_fleet(
                                           for i in warm_idx])):
                 out_b, used_b, ok_b = _dispatch(
                     stacked, True, k, max_iterations, mode, rec, record,
-                    dev, batch_floor=batch_floor)
+                    dev, batch_floor=batch_floor, mesh=mesh)
                 out_np = out_b.cpu().numpy()
                 ok_np = ok_b.cpu().numpy()
             if record:
@@ -549,7 +608,7 @@ def solve_fleet(
                                           for i in cold_idx])):
                 out_b, sweeps_b, used_b = _dispatch(
                     stacked, False, k, max_iterations, mode, rec, record,
-                    dev, batch_floor=batch_floor)
+                    dev, batch_floor=batch_floor, mesh=mesh)
                 out_np = out_b.cpu().numpy()
                 sweeps_np = sweeps_b.cpu().numpy()
             if record:

@@ -1,5 +1,5 @@
 # Port of blance_tpu/plan/service.py: the same service over the port's
-# solve_fleet, solving on ``device``; ``mesh=`` (A.9) raises.
+# solve_fleet, solving on ``device``, or over a 1-D port Mesh's ranks.
 """Asyncio plan service: the fleet solver's coalescing front door.
 
 plan/fleet.py turns B same-class tenant solves into one device dispatch;
@@ -103,8 +103,9 @@ class PlanService:
     max_pending: bounded request queue length; ``submit`` awaiting
         space IS the backpressure.
     max_batch: hard cap on tenants per fleet batch.
-    mesh: batch-axis sharding over several cards; not ported (ROADMAP
-        A.9), anything but None raises.
+    mesh: optional 1-D port Mesh (parallel/sharded.make_mesh): fleet
+        batches shard their batch axis over its ranks, solving on their
+        devices (``device`` is then the mesh's rank-0 device).
     device: where the batches solve ("cuda" unless the caller passes
         the CPU); the worker thread solves there, and the kernels launch
         on that card's current stream.
@@ -149,10 +150,13 @@ class PlanService:
         device: Any = "cuda",
     ) -> None:
         if mesh is not None:
-            raise NotImplementedError(
-                "PlanService(mesh=...) (batch-axis sharding) is not "
-                "ported (ROADMAP A.9)")
-        self.device = resolve_device(device, "PlanService")
+            from ..parallel.sharded import check_mesh
+
+            check_mesh(mesh, "PlanService", one_d=True)
+            self.device = mesh.device
+        else:
+            self.device = resolve_device(device, "PlanService")
+        self.mesh = mesh
         if max_pending <= 0 or max_batch <= 0:
             raise ValueError("max_pending and max_batch must be positive")
         if fair_share is not None and fair_share < 1:
@@ -430,7 +434,8 @@ class PlanService:
             results = solve_fleet(
                 problems, max_iterations=self.max_iterations,
                 recorder=rec, trace_ids=trace_ids,
-                batch_floor=self.batch_floor, device=self.device)
+                batch_floor=self.batch_floor, device=self.device,
+                mesh=self.mesh)
         self.host_solve_s += perf_now() - w0
         return t_start, rec.now(), results
 

@@ -1,8 +1,8 @@
 # Copied from blance_tpu/plan/session.py.  The session solves on a torch
 # device ("cuda" by default) through the port's solvers; ``current`` and
 # ``proposed`` stay host numpy arrays, so the carry cache's identity match
-# works as in the reference.  The mesh (sharded) session is ROADMAP A.9
-# and raises.
+# works as in the reference.  A mesh (a port Mesh, parallel/mesh.py) runs
+# every solve sharded through parallel/sharded.py, as the reference's does.
 """Long-lived dense planning sessions.
 
 ``plan_next_map`` is a pure function of PartitionMaps: every call pays the
@@ -65,7 +65,9 @@ class PlannerSession:
     partitions: partition names; placement order is the planner's canonical
         name sort.
     opts: planner knobs; weights/stickiness/hierarchy are encoded once.
-    mesh: not ported (ROADMAP A.9); anything but None raises.
+    mesh: optional port Mesh (parallel/sharded.make_mesh / make_mesh_2d):
+        shards every solve over its ranks; the session then runs its
+        diffs on the mesh's rank-0 device and ignores ``device``.
     carry_cache, cache_key: a shared CarryCache and this session's key in
         it (by default a private, unbounded cache).
     device: where every solve and diff runs ("cuda" unless the caller asks
@@ -84,10 +86,13 @@ class PlannerSession:
         device: Any = "cuda",
     ) -> None:
         if mesh is not None:
-            raise NotImplementedError(
-                "PlannerSession(mesh=...) (the sharded solve) is not "
-                "ported (ROADMAP A.9)")
-        self.device = resolve_device(device, "PlannerSession")
+            from ..parallel.sharded import check_mesh
+
+            check_mesh(mesh, "PlannerSession")
+            self.device = mesh.device
+        else:
+            self.device = resolve_device(device, "PlannerSession")
+        self.mesh = mesh
         self.model = model
         self.opts = opts or PlanOptions()
         self._removed: set[str] = set()
@@ -253,12 +258,16 @@ class PlannerSession:
                         ((prob.gids[lv][cur] == g) & held).any(axis=(1, 2)))
 
     def _capacity_shrank(self, carry: SolveCarry, dirty: NPArray) -> bool:
-        """Host-side warm-decline precheck (plan.carry.capacity_shrank),
-        one partition shard."""
+        """Host-side warm-decline precheck (plan.carry.capacity_shrank);
+        the session contributes its mesh's partition-shard count for the
+        quantization allowance."""
+        from ..parallel.sharded import shard_count
+
         prob = self._problem
         return capacity_shrank(
             carry.used, self.current, prob.partition_weights,
-            prob.node_weights, prob.valid_node, prob.constraints, dirty)
+            prob.node_weights, prob.valid_node, prob.constraints, dirty,
+            shards=shard_count(self.mesh))
 
     @property
     def nodes(self) -> list[str]:
@@ -312,6 +321,13 @@ class PlannerSession:
             self._problem, assign, pta, sorted(self._removed))
 
     # -- the loop -------------------------------------------------------------
+
+    def _problem_arrays(self) -> tuple[NPArray, ...]:
+        """The encoded host arrays after ``current`` (the sharded
+        solves' positional operands 2-7)."""
+        prob = self._problem
+        return (prob.partition_weights, prob.node_weights, prob.valid_node,
+                prob.stickiness, prob.gids, prob.gid_valid)
 
     def _solver_args(self) -> tuple[torch.Tensor, ...]:
         prob = self._problem
@@ -368,7 +384,13 @@ class PlannerSession:
                     # AND the audit) passed: the replan cost one sweep.
                     rec.count("plan.solve.carry_hit")
 
-        if assign is None:
+        if assign is None and self.mesh is not None:
+            from ..parallel.sharded import solve_dense_sharded
+
+            assign, new_carry = solve_dense_sharded(
+                self.mesh, self.current, *self._problem_arrays(),
+                constraints, rules, max_iterations=iters, return_carry=True)
+        elif assign is None:
             assign, _engine, new_carry = _tensor.solve_converged_resilient(
                 *self._solver_args(), constraints, rules,
                 max_iterations=iters, mode=mode,
@@ -386,6 +408,13 @@ class PlannerSession:
     ) -> tuple[Optional[NPArray], Optional[SolveCarry]]:
         """One warm repair attempt; (None, None) on decline/failure."""
         try:
+            if self.mesh is not None:
+                from ..parallel.sharded import solve_dense_sharded
+
+                return solve_dense_sharded(
+                    self.mesh, self.current, *self._problem_arrays(),
+                    constraints, rules, dirty=dirty, carry=carry,
+                    return_carry=True, warm_only=True)
             return _tensor.solve_dense_warm(
                 *self._solver_args(), constraints, rules, dirty=dirty,
                 carry=carry, fused_score=mode)
@@ -493,6 +522,15 @@ class PlannerSession:
         rec = get_recorder()
         dirty_np, dirty_t = _tensor._dirty_mask(dirty, self.device)
         try:
+            if self.mesh is not None:
+                # solve_pipeline_sharded records dirty_fraction itself
+                # (like solve_dense_sharded on the staged path).
+                from ..parallel.sharded import solve_pipeline_sharded
+
+                return solve_pipeline_sharded(
+                    self.mesh, self.current, *self._problem_arrays(),
+                    constraints, rules, favor_min_nodes=favor_min_nodes,
+                    dirty=dirty_np, carry=carry, warm_only=True)
             rec.observe("plan.solve.dirty_fraction",
                         float(dirty_np.mean()) if dirty_np.size else 0.0)
             t0 = rec.now()
@@ -536,8 +574,16 @@ class PlannerSession:
         self, constraints: Constraints, rules: Rules, iters: int,
         mode: str, favor_min_nodes: bool,
     ) -> tuple[Any, ...]:
-        """Cold pipeline run; returns (assign, next_carry, diff arrays)."""
+        """Cold pipeline run (mesh-sharded when the session has a mesh);
+        returns (assign, next_carry, diff arrays)."""
         prob = self._problem
+        if self.mesh is not None:
+            from ..parallel.sharded import solve_pipeline_sharded
+
+            return solve_pipeline_sharded(
+                self.mesh, self.current, *self._problem_arrays(),
+                constraints, rules, max_iterations=iters,
+                favor_min_nodes=favor_min_nodes)
         assign, _sweeps, new_carry, darrs, _packed = \
             _tensor._dispatch_pipeline_cold(
                 self.current, prob.partition_weights, prob.node_weights,

@@ -52,8 +52,18 @@ pack on the device and brings their outputs back in one copy.  Shape
 bucketing (``PlanOptions.shape_bucketing``) pads a plan to a static
 bucket with inert rows and columns and threads the real partition count
 (``p_real``) to the fill term; custom placement hooks run on the exact
-planner (``_cuda_supported``).  Not ported here: node-axis and
-partition-axis sharding.
+planner (``_cuda_supported``).
+
+Sharding (parallel/sharded.py): the solver entries take the reference's
+``axis_name`` / ``node_axis`` as ``axis`` / ``node_axis``, each an
+``Axis`` of a port ``Mesh`` (parallel/mesh.py) or None (unsharded, where
+every collective helper below is the identity).  The partition axis
+psums the [N] fills, counts and flags; the node axis splits every
+[P, N] intermediate by columns and combines the per-row min2 stats by
+an all_gather.  Every host-read loop test or branch that guards a
+collective is decided from a value every rank of that axis holds alike
+(a psum'd flag, or math replicated after the node-axis combine), so no
+rank issues a collective the others never reach.
 """
 
 from __future__ import annotations
@@ -245,12 +255,14 @@ class SolveCarry(NamedTuple):
 
 
 def _used_by_state(assign: torch.Tensor, pweights: torch.Tensor, n: int,
-                   s: int) -> torch.Tensor:
+                   s: int, axis=None) -> torch.Tensor:
     """[S, N] per-state weighted fill: one ``_scatter_counts`` per state,
     in state order, as the seed pass of ``_solve_assign`` runs them
-    ([B, S, N] for a batch of assignments [B, P, S, R])."""
-    return torch.stack([_scatter_counts(assign[..., si, :], pweights, n)
-                        for si in range(s)], dim=-2)
+    ([B, S, N] for a batch of assignments [B, P, S, R]); psum'd over the
+    partition ``axis`` when sharded."""
+    return _psum(torch.stack([_scatter_counts(assign[..., si, :], pweights,
+                                              n)
+                              for si in range(s)], dim=-2), axis)
 
 
 def carry_from_assignment(assign, pweights: torch.Tensor,
@@ -492,12 +504,99 @@ def _in_id_list(node: torch.Tensor,
     return out
 
 
+# --- collectives over a mesh axis --------------------------------------------
+#
+# ``axis`` / ``node_axis`` are parallel.mesh.Axis objects or None; None is
+# the unsharded solve, where each helper is the identity (the reference's
+# ``lax.psum(x, axis_name) if axis_name else x``).  Under a 2-D mesh every
+# [N] vector stays replicated along the node axis while the [P, N] score
+# holds only this shard's columns; the node-axis collectives combine the
+# per-row min2 stats and fetch a matrix value at a remote column.
+
+
+def _psum(x: torch.Tensor, axis) -> torch.Tensor:
+    return axis.psum(x) if axis is not None else x
+
+
+def _flag_any(flag: torch.Tensor, axis) -> torch.Tensor:
+    """``any`` of a 0-d bool across the axis (psum of its int32 > 0)."""
+    if axis is None:
+        return flag
+    return axis.psum(flag.to(torch.int32)) > 0
+
+
+def _node_off(node_axis, n_l: int) -> int:
+    """Global column offset of this node shard."""
+    return node_axis.index * n_l if node_axis is not None else 0
+
+
+def _node_slice(vec: torch.Tensor, node_axis, n_l: int) -> torch.Tensor:
+    """Local [.., N_l] slice of a node-replicated [.., N] array."""
+    if node_axis is None:
+        return vec
+    off = _node_off(node_axis, n_l)
+    return vec[..., off:off + n_l]
+
+
 def _gather_cols(mat: torch.Tensor, rows: torch.Tensor,
-                 cols_global: torch.Tensor) -> torch.Tensor:
-    """mat[rows, cols] (one device: global column ids are local)."""
+                 cols_global: torch.Tensor, node_axis=None) -> torch.Tensor:
+    """mat[rows, cols] with global column ids: the owner shard supplies
+    the value, a masked psum over the node axis delivers it everywhere
+    (one device: global column ids are local)."""
     n_l = mat.shape[-1]
-    return _take(mat.flatten(-2),
-                 rows.long() * n_l + cols_global.clamp(0, n_l - 1).long())
+    loc = cols_global.long() - _node_off(node_axis, n_l)
+    vals = _take(mat.flatten(-2), rows.long() * n_l + loc.clamp(0, n_l - 1))
+    if node_axis is None:
+        return vals
+    ok = (loc >= 0) & (loc < n_l)
+    return node_axis.psum(torch.where(ok, vals, 0.0))
+
+
+def _row_min_global(mat: torch.Tensor, node_axis) -> torch.Tensor:
+    """Per-row min over the full (sharded) column axis."""
+    m = mat.amin(dim=-1)
+    return node_axis.pmin(m) if node_axis is not None else m
+
+
+def _combine_min2(best_l, choice_g, second_l, raw_l, node_axis):
+    """Merge per-shard (min, argmin, second, raw-at-min) into global
+    stats: global second = min(second of the winning shard, best of
+    every other shard); ties in best break toward the lowest shard
+    index, the lowest global node id.  The four [P] rows ride one
+    all_gather (the int32 choice bit-cast into the float32 block)."""
+    if node_axis is None:
+        return best_l, choice_g, second_l, raw_l
+    block = torch.stack([best_l, choice_g.to(torch.int32).view(
+        torch.float32), second_l, raw_l])
+    g = node_axis.all_gather(block)  # [ns, 4, P]
+    bests, seconds, raws = g[:, 0], g[:, 2], g[:, 3]
+    choices = g[:, 1].contiguous().view(torch.int32)
+    ns = bests.shape[0]
+    k_star = torch.argmin(bests, dim=0)  # first min: the lowest shard
+
+    def take(a):
+        return a.gather(0, k_star[None, :])[0]
+
+    others = torch.where(
+        torch.arange(ns, device=bests.device)[:, None] == k_star[None, :],
+        float("inf"), bests)
+    second = torch.minimum(take(seconds), others.amin(dim=0))
+    return take(bests), take(choices), second, take(raws)
+
+
+def _shard_capacity(cap: torch.Tensor, axis) -> torch.Tensor:
+    """Split global per-node capacity into integral per-shard shares:
+    floor(cap / ns) each, the remainder rotated by node id and shard
+    index so no shard systematically holds the extras."""
+    if axis is None:
+        return cap
+    ns, idx = axis.size, axis.index
+    base_cap = torch.floor(cap / ns)
+    rem = cap - base_cap * ns
+    node_ids = torch.arange(cap.shape[-1], dtype=torch.int32,
+                            device=cap.device)
+    extra = ((node_ids + idx) % ns) < rem.to(torch.int32)
+    return base_cap + extra.to(torch.float32)
 
 
 def _segment_accept(
@@ -540,6 +639,7 @@ def _pin_prev_holders(
     slack: torch.Tensor,  # [P] per-holder capacity tolerance (stickiness)
     load_div: Optional[torch.Tensor] = None,  # [N] node weight (>= 1)
     taken_stack: Optional[torch.Tensor] = None,  # [P, T] GLOBAL node ids
+    axis=None,  # the partition axis (sharded solve) or None
 ) -> torch.Tensor:
     """Capacity-capped warm start: returns pinned[P] bool.
 
@@ -548,13 +648,18 @@ def _pin_prev_holders(
     emptiest node by exclusivity keep their place first, then partition
     order; the first holder per node always stays.  ``lax.cond`` became an
     ``if`` on one host-read flag; over a batch, the trim runs when any
-    element needs it and is selected back per element (vmap's rule)."""
+    element needs it and is selected back per element (vmap's rule).
+
+    Sharded over ``axis``, load and over-capacity are global questions
+    (the held weight is psum'd, so every shard takes the same branch),
+    while the trim quota and the lmin band are the shard's share: each
+    shard orders only its own holders."""
     p = prev_slot.shape[-1]
     n = cap.shape[-1]
     nb = cap.dim() - 1
     dev = prev_slot.device
     pin_w = torch.where(pin_ok, pweights, 0.0)
-    node_w = _scatter_add(n, prev_slot, pin_w, nb)
+    node_w = _psum(_scatter_add(n, prev_slot, pin_w, nb), axis)
     div = load_div if load_div is not None else \
         torch.ones(n, dtype=torch.float32, device=dev)
     load = node_w / div
@@ -582,7 +687,9 @@ def _pin_prev_holders(
     w_s = torch.where(ok_s, _take(pweights, perm), 0.0)
     nclip = node_s.clamp(0, n - 1)
     band = (lmin + _take(slack, perm)) * _take(div, nclip)
-    cap_here = torch.maximum(_take(cap, nclip), band)
+    if axis is not None:
+        band = band / axis.size
+    cap_here = torch.maximum(_take(_shard_capacity(cap, axis), nclip), band)
     keep_s = _segment_accept(node_s, ok_s, w_s, cap_here)
     keep = _scatter_set(p, perm, keep_s)
     return torch.where(need[..., None], keep, pin_ok)
@@ -590,7 +697,8 @@ def _pin_prev_holders(
 
 def _sparse_score_cols(
     cols: torch.Tensor,  # [M, K] GLOBAL node ids; -1 = pad (scores +_INF)
-    rows: torch.Tensor,  # [M] row ids (global partition ids: one device)
+    rows: torch.Tensor,  # [M] local row ids
+    pbase: int = 0,  # global partition index of local row 0 (jitter)
     *,
     total: torch.Tensor,  # [N] fill vector
     total_p,  # partition count, or the 0-d p_real tensor (fill_term)
@@ -631,7 +739,7 @@ def _sparse_score_cols(
     for tid in taken_ids:
         taken = taken | ((tid[rows][:, None] == cols) & okc)
     score = score + _INF * (taken | ~valid[cl] | ~okc)
-    pi = rows[:, None].to(torch.int32)
+    pi = (pbase + rows)[:, None].to(torch.int32)
     return jitter_add(score, pi, c.to(torch.int32), jitter_scale)
 
 
@@ -650,6 +758,7 @@ def _assign_slot(
     allow: Optional[torch.Tensor] = None,  # [P] bool: rows that may take
     # this slot at all (the sparse engine's shortlist gate); the others
     # neither bid nor get forced and stay -1
+    axis=None,  # the partition axis (sharded solve) or None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Auction: returns (slot_assign[P] int32 node id or -1, used[N]).
 
@@ -666,7 +775,16 @@ def _assign_slot(
     ``vmap`` gives a ``while_loop`` with a batched predicate); the force
     step runs when any element has an unassigned row and adds 0.0 to the
     others' fill, which leaves it bitwise unchanged.  Rounds run are
-    counted in ``_assign_slot.rounds``."""
+    counted in ``_assign_slot.rounds``.
+
+    Partition axis: the rounds are shard-local (the caller hands each
+    shard its share of capacity and psums the returned usage), so shards
+    may run different round counts; the force step prices on the psum'd
+    usage, and that psum runs on every shard whether or not its force
+    step does.  Node axis: the callables see only this shard's columns
+    and combine their stats inside ``min2_fn``; ``unassigned`` and every
+    [N] table are identical on the node shards of a row, so all of them
+    take the same loop exits and branches."""
     n = cap.shape[-1]
     nb = cap.dim() - 1
     dev = pweights.device
@@ -791,9 +909,11 @@ def _assign_slot(
         _assign_slot.rounds += 1
 
     # Force step: remaining partitions take their best feasible node,
-    # ignoring capacity; skipped when the rounds assigned everyone.
+    # ignoring capacity, priced on the global usage; skipped when the
+    # rounds assigned everyone.
+    used_global = _psum(used, axis)
     if bool(unassigned.any()):
-        best, choice, _second, _raw = min2_fn(used * price_scale)
+        best, choice, _second, _raw = min2_fn(used_global * price_scale)
         forced = unassigned & (best < _INF / 2)
         if allow is not None:
             forced = forced & allow
@@ -808,19 +928,23 @@ _assign_slot.rounds = 0
 
 def _matrix_score(total, total_p, w_div, neg_boost, valid, stick_si,
                   prev_slot, prev_state_ids, anchors, gids, gid_valid,
-                  state_rules: StateRules, taken_ids) -> torch.Tensor:
+                  state_rules: StateRules, taken_ids, pbase: int = 0,
+                  noff: int = 0, gids_cand=None) -> torch.Tensor:
     """The matrix engine's score[P, N] ([B, P, N] for a batch), term
     order as the reference's build (tensor.py:1526-1560), in row chunks
     so that temporaries stay bounded at any P.  The fill term is
     ``fill_term`` (XLA's fold of ``0.001 * total / P``, or its one
     division under a traced ``p_real``) and the jitter add rounds once
-    (``jitter_add``, XLA's fused multiply-add).  The jitter hashes each
-    element's own row and column ids."""
+    (``jitter_add``, XLA's fused multiply-add).  The jitter hashes
+    GLOBAL row and column ids: under sharding ``total``, ``w_div``,
+    ``neg_boost`` and ``valid`` are this node shard's [N_l] slices,
+    ``gids_cand`` its [L, N_l] candidate gids, ``noff`` its first column
+    and ``pbase`` the global index of local row 0."""
     p = prev_slot.shape[-1]
     n = total.shape[-1]
     lead = total.shape[:-1]
     dev = total.device
-    cols = torch.arange(n, dtype=torch.int32, device=dev)
+    cols = torch.arange(n, dtype=torch.int32, device=dev) + noff
     score_row = fill_term(total, total_p, w_div).unsqueeze(-2)
     nb = neg_boost.unsqueeze(-2)
     bad = ~valid.unsqueeze(-2)
@@ -837,12 +961,14 @@ def _matrix_score(total, total_p, w_div, neg_boost, valid, stick_si,
         score = score - st * _member_ids(prev_state_ids[..., lo:hi, :], cols)
         if state_rules:
             score = score + _hier_penalty(anchors[..., lo:hi, :], gids,
-                                          gid_valid, state_rules)
+                                          gid_valid, state_rules,
+                                          gids_cand=gids_cand)
         tk = _member_ids(taken[..., lo:hi, :], cols) \
             if taken is not None else \
             torch.zeros(lead + (hi - lo, n), dtype=torch.bool, device=dev)
         score = score + _INF * (tk | bad)
-        pi = torch.arange(lo, hi, dtype=torch.int32, device=dev)[:, None]
+        pi = (pbase + torch.arange(lo, hi, dtype=torch.int32,
+                                   device=dev))[:, None]
         out[..., lo:hi, :] = jitter_add(score, pi, cols[None, :], _JITTER)
     return out
 
@@ -865,6 +991,9 @@ def _solve_assign(
     p_real=None,  # the count of REAL partitions when prev carries inert
     # pad rows (shape bucketing): a number or a 0-d tensor, the fill
     # term's denominator as the reference's traced scalar (fill_term)
+    axis=None,  # partition-axis Axis (sharded solve) or None
+    node_axis=None,  # node-axis Axis of a 2-D mesh or None
+    node_shards: int = 1,  # size of the node axis (N must divide)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One assignment sweep on one device; returns (assign[P, S, R],
     exhausted[P]).  ``exhausted`` is all-False on the dense engines; on
@@ -872,8 +1001,13 @@ def _solve_assign(
     globally attainable rule tier (or had no feasible candidate) for
     some slot, for the per-row dense fallback.  ``carry_used`` must equal
     the per-state scatter of ``prev``; the seed then reads it instead of
-    re-scattering, bitwise the same.  The single-device branches of the
-    reference's _solve_assign.
+    re-scattering, bitwise the same.
+
+    Sharded (``axis`` / ``node_axis``, one problem): the rows are this
+    partition shard's and node ids stay global; the fill, capacity and
+    counts are psum'd over the partition axis, and with a node axis every
+    [P, N] intermediate holds this shard's N/node_shards columns while
+    the [N] vectors stay replicated (the reference's _solve_assign).
 
     The dense engines also take a batch of same-shaped problems: every
     array with a leading [B] axis and ``p_real`` a [B] tensor (the fleet
@@ -891,13 +1025,33 @@ def _solve_assign(
             "dense engines for exotic rule shapes")
     if shortlist is not None and lead:
         raise ValueError("the sparse engine solves one problem at a time")
+    if shortlist is not None and node_axis is not None:
+        raise ValueError(
+            "sparse solve does not support node-axis sharding: the [P, K] "
+            "shortlist already bounds the column working set; shard the "
+            "partition axis instead")
+    if nweights.shape[-1] % node_shards:
+        raise ValueError(
+            f"N={nweights.shape[-1]} not divisible by node_shards="
+            f"{node_shards}; pad nodes")
     if constraints and max(constraints) > r_max:
         raise ValueError(
             f"prev slot depth R={r_max} < max constraints {max(constraints)}")
 
-    total_p = p if p_real is None else torch.as_tensor(
-        p_real, dtype=torch.float32, device=dev).reshape(lead + (1,))
-    total_w = pweights.sum(dim=-1, keepdim=True)
+    n_l = n // node_shards
+    valid_l = _node_slice(valid, node_axis, n_l)
+    gids_l = _node_slice(gids, node_axis, n_l)
+    if p_real is not None:
+        total_p = torch.as_tensor(p_real, dtype=torch.float32,
+                                  device=dev).reshape(lead + (1,))
+    elif axis is not None:
+        # The psum of the shard row counts, as the reference's traced
+        # psum: the fill term then divides once (fill_term).
+        total_p = axis.psum(torch.tensor(float(p), dtype=torch.float32,
+                                         device=dev))
+    else:
+        total_p = p
+    total_w = _psum(pweights.sum(dim=-1, keepdim=True), axis)
     w_div = torch.where(nweights > 0, nweights, 1.0)
     neg_boost = torch.where(nweights < 0, -nweights, 0.0)
     cap_w = torch.where(valid & (nweights >= 0), nweights.clamp(min=1.0), 0.0)
@@ -907,7 +1061,7 @@ def _solve_assign(
     if carry_used is not None:
         total = carry_used.sum(dim=-2)
     else:
-        total = _used_by_state(prev, pweights, n, s).sum(dim=-2)
+        total = _psum(_used_by_state(prev, pweights, n, s).sum(dim=-2), axis)
 
     assign = torch.full(lead + (p, s, r_max), -1, dtype=torch.int32,
                         device=dev)
@@ -922,7 +1076,8 @@ def _solve_assign(
         if k <= 0:
             continue
         total = total - (carry_used[..., si, :] if carry_used is not None
-                         else _scatter_counts(prev[..., si, :], pweights, n))
+                         else _psum(_scatter_counts(prev[..., si, :],
+                                                    pweights, n), axis))
         prev_state_ids = prev[..., si, :]
         anchor = torch.where(assign[..., 0, 0] >= 0, assign[..., 0, 0],
                              top_anchor) if si > 0 else top_anchor
@@ -958,11 +1113,13 @@ def _solve_assign(
                         gid_valid, rules[si])
                 else:
                     hier_j = _hier_penalty(anchors[..., :1 + j], gids,
-                                           gid_valid, rules[si])
-                    floor_j = torch.where(valid.unsqueeze(-2), hier_j,
-                                          _INF).amin(dim=-1)
+                                           gid_valid, rules[si],
+                                           gids_cand=gids_l)
+                    floor_j = _row_min_global(
+                        torch.where(valid_l.unsqueeze(-2), hier_j, _INF),
+                        node_axis)
                     hier_at_prev = _gather_cols(hier_j, arange_p,
-                                                safe_k[..., j])
+                                                safe_k[..., j], node_axis)
                 ok_j = pin_ok_k[..., j] & (
                     hier_at_prev < floor_j + _RULE_TIER * 0.5)
                 pin_ok_k[..., j] = ok_j
@@ -978,6 +1135,7 @@ def _solve_assign(
             taken_stack=(torch.repeat_interleave(
                 torch.stack(taken_ids, dim=-1), kk, dim=-2)
                 if taken_ids else None),
+            axis=axis,
         ).reshape(lead + (p, kk))
         pin_base = len(taken_ids)
         for j in range(kk):
@@ -1001,9 +1159,11 @@ def _solve_assign(
                 n, init_assign, torch.where(init_assign >= 0, pweights, 0.0),
                 len(lead))
 
-            if bool((init_assign >= 0).all()):
-                # Every copy pinned (the confirming sweep's common case):
-                # no score, no auction.
+            # Every copy pinned on every shard (the confirming sweep's
+            # common case): no score, no auction.  The flag is psum'd, so
+            # all shards agree; the auction's collectives are node-axis
+            # only, over rows every node shard holds alike.
+            if not bool(_flag_any(~(init_assign >= 0).all(), axis)):
                 slot_assign, used = init_assign, pin_used
             else:
                 slot_assign, used, exh_slot = _run_auction(
@@ -1012,8 +1172,10 @@ def _solve_assign(
                     prev[..., si, ri] if ri < r_max else no_id,
                     prev_state_ids, anchors, gids, gid_valid, rules[si],
                     tuple(taken_ids), pweights, total_w, cap_share,
-                    init_assign, pin_used, shortlist, total_p)
+                    init_assign, pin_used, shortlist, total_p,
+                    axis=axis, node_axis=node_axis, n_l=n_l)
                 exhausted = exhausted | exh_slot
+            used = _psum(used, axis)  # global per-node accepted weight
 
             assign[..., si, ri] = slot_assign
             total = total + used
@@ -1029,13 +1191,20 @@ def _solve_assign(
 def _run_auction(fused_score, p, n, total, w_div, neg_boost, valid,
                  stick_si, prev_slot, prev_state_ids, anchors, gids,
                  gid_valid, state_rules, taken_ids, pweights, total_w,
-                 cap_share, init_assign, pin_used, shortlist, total_p):
+                 cap_share, init_assign, pin_used, shortlist, total_p,
+                 axis=None, node_axis=None, n_l=None):
     """Score + auction + force for one slot, through any engine; returns
     (slot_assign, used, exhausted[P] for this slot).  ``shortlist`` is
     the sparse engine's [P, K] table (None on the dense engines);
-    ``total_p`` the fill term's partition count (see fill_term)."""
+    ``total_p`` the fill term's partition count (see fill_term).  Under
+    sharding the rows are the partition shard's (``pbase`` their global
+    offset) and the dense engines score the node shard's ``n_l`` columns
+    from ``noff`` on, combining their min2 stats over ``node_axis``."""
     dev = total.device
     lead = total.shape[:-1]
+    n_l = n if n_l is None else n_l
+    pbase = axis.index * p if axis is not None else 0
+    noff = _node_off(node_axis, n_l)
     anchors_k = anchors if state_rules else \
         torch.full(lead + (p, 1), -1, dtype=torch.int32, device=dev)
     if shortlist is not None:
@@ -1050,7 +1219,7 @@ def _run_auction(fused_score, p, n, total, w_div, neg_boost, valid,
             taken_ids=taken_ids, anchors=anchors_k, rules=state_rules,
             jitter_scale=_JITTER)
         score_pk = _sparse_score_cols(cand, torch.arange(p, device=dev),
-                                      **score_kw)
+                                      pbase, **score_kw)
 
         def min2_fn(price_vec):
             b, _kidx, s2, raw, choice = sparse_priced_min2_cand(
@@ -1058,23 +1227,28 @@ def _run_auction(fused_score, p, n, total, w_div, neg_boost, valid,
             return b, choice, s2, raw
 
         def score_at_fn(rows, cols_global):
-            vals = _sparse_score_cols(cols_global[:, None], rows,
+            vals = _sparse_score_cols(cols_global[:, None], rows, pbase,
                                       **score_kw)[:, 0]
             in_sl = (cand[rows] == cols_global[:, None]).any(dim=1)
             return torch.where(in_sl, vals, _INF)
     elif fused_score == "on":
         si_pack = pack_score_inputs(
-            total_l=total, total_p=total_p, w_div_l=w_div,
-            neg_boost_l=neg_boost,
-            valid_l=valid, stickiness_si=stick_si, prev_slot=prev_slot,
+            total_l=_node_slice(total, node_axis, n_l), total_p=total_p,
+            w_div_l=_node_slice(w_div, node_axis, n_l),
+            neg_boost_l=_node_slice(neg_boost, node_axis, n_l),
+            valid_l=_node_slice(valid, node_axis, n_l),
+            stickiness_si=stick_si, prev_slot=prev_slot,
             prev_state=prev_state_ids, taken_ids=list(taken_ids),
-            anchors=anchors_k, gids_l=gids, gid_valid=gid_valid, gids=gids,
-            rules=state_rules)
+            anchors=anchors_k, gids_l=_node_slice(gids, node_axis, n_l),
+            gid_valid=gid_valid, gids=gids, rules=state_rules)
 
         def min2_fn(price_vec):
-            return fused_score_min2(price_vec, si_pack, 0, 0,
-                                    nrules=len(state_rules),
-                                    jitter_scale=_JITTER)
+            b, cl, s2, raw = fused_score_min2(
+                _node_slice(price_vec, node_axis, n_l), si_pack, pbase,
+                noff, nrules=len(state_rules), jitter_scale=_JITTER)
+            if node_axis is None:
+                return b, cl, s2, raw
+            return _combine_min2(b, cl + noff, s2, raw, node_axis)
 
         base_full = fill_term(total, total_p, w_div)
 
@@ -1085,20 +1259,27 @@ def _run_auction(fused_score, p, n, total, w_div, neg_boost, valid,
                 gid_valid=gid_valid, anchors=anchors_k, rules=state_rules,
                 prev_slot=prev_slot, prev_state=prev_state_ids,
                 taken_ids=taken_ids, stick=stick_si, jitter_scale=_JITTER,
-                pbase=0)
+                pbase=pbase)
     else:
-        score = _matrix_score(total, total_p, w_div, neg_boost, valid,
-                              stick_si,
-                              prev_slot, prev_state_ids, anchors, gids,
-                              gid_valid, state_rules, taken_ids)
+        score = _matrix_score(
+            _node_slice(total, node_axis, n_l), total_p,
+            _node_slice(w_div, node_axis, n_l),
+            _node_slice(neg_boost, node_axis, n_l),
+            _node_slice(valid, node_axis, n_l), stick_si, prev_slot,
+            prev_state_ids, anchors, gids, gid_valid, state_rules,
+            taken_ids, pbase=pbase, noff=noff,
+            gids_cand=_node_slice(gids, node_axis, n_l))
 
         def min2_fn(price_vec):
-            b, c, s2 = priced_min2_argmin(score, price_vec)
+            b, c, s2 = priced_min2_argmin(
+                score, _node_slice(price_vec, node_axis, n_l))
             raw = score.gather(-1, c.long()[..., None])[..., 0]
-            return b, c, s2, raw
+            if node_axis is None:
+                return b, c, s2, raw
+            return _combine_min2(b, c + noff, s2, raw, node_axis)
 
         def score_at_fn(rows, cols_global):
-            return _gather_cols(score, rows, cols_global)
+            return _gather_cols(score, rows, cols_global, node_axis)
 
     if state_rules:
         feasible_hint = None
@@ -1133,12 +1314,12 @@ def _run_auction(fused_score, p, n, total, w_div, neg_boost, valid,
             # feasible ones the gate excluded.
             feasible_hint = sl_feas
         exh_slot = (init_assign < 0) & ~allow
-    cap = torch.ceil(total_w * cap_share)
+    cap = _shard_capacity(torch.ceil(total_w * cap_share), axis)
     slot_assign, used = _assign_slot(
         min2_fn, score_at_fn, p, pweights, cap, 1.0 / w_div,
         init_assign=init_assign, init_used=pin_used, topup_share=cap_share,
         has_rules=bool(state_rules), feasible_hint=feasible_hint,
-        allow=allow)
+        allow=allow, axis=axis)
     return slot_assign, used, exh_slot
 
 
@@ -1146,13 +1327,16 @@ def solve_dense(prev, pweights, nweights, valid, stickiness, gids,
                 gid_valid, constraints: Constraints, rules: Rules,
                 fused_score: str = "off",
                 carry_used: Optional[torch.Tensor] = None,
-                p_real=None) -> torch.Tensor:
+                p_real=None, axis=None, node_axis=None,
+                node_shards: int = 1) -> torch.Tensor:
     """Solve the whole placement problem once; returns assign[P, S, R].
-    ``carry_used`` seeds the sweep's fill totals and ``p_real`` is the
-    real partition count under padding (see _solve_assign)."""
+    ``carry_used`` seeds the sweep's fill totals, ``p_real`` is the real
+    partition count under padding and ``axis`` / ``node_axis`` /
+    ``node_shards`` shard it (see _solve_assign)."""
     return _solve_assign(prev, pweights, nweights, valid, stickiness, gids,
                          gid_valid, constraints, rules, fused_score,
-                         carry_used=carry_used, p_real=p_real)[0]
+                         carry_used=carry_used, p_real=p_real, axis=axis,
+                         node_axis=node_axis, node_shards=node_shards)[0]
 
 
 def _solve_dense_converged_impl(prev, pweights, nweights, valid, stickiness,
@@ -1160,9 +1344,13 @@ def _solve_dense_converged_impl(prev, pweights, nweights, valid, stickiness,
                                 max_iterations: int = 10,
                                 fused_score: str = "off",
                                 carry_used: Optional[torch.Tensor] = None,
-                                p_real=None, trace_sweeps: bool = False):
+                                p_real=None, trace_sweeps: bool = False,
+                                axis=None, node_axis=None,
+                                node_shards: int = 1):
     """The fixpoint loop; returns (assign, sweeps executed).  One host
-    read of the changed flag per sweep.  ``carry_used`` seeds the FIRST
+    read of the changed flag per sweep; sharded (``axis`` / ``node_axis``
+    / ``node_shards``, see _solve_assign) the flag is psum'd over the
+    partition axis, so every shard runs the same sweeps.  ``carry_used`` seeds the FIRST
     sweep only: later sweeps re-derive their seed from their own input;
     ``p_real`` is the real partition count under padding (see
     _solve_assign).
@@ -1184,14 +1372,16 @@ def _solve_dense_converged_impl(prev, pweights, nweights, valid, stickiness,
     def solve(x, cu=None):
         return solve_dense(x, pweights, nweights, valid, stickiness, gids,
                            gid_valid, constraints, rules, fused_score,
-                           carry_used=cu, p_real=p_real)
+                           carry_used=cu, p_real=p_real, axis=axis,
+                           node_axis=node_axis, node_shards=node_shards)
 
     if prev.dim() == 3:
         if trace_sweeps:
             return _traced_fixpoint(solve, prev, carry_used, max_iterations,
                                     p_real)
         out, prev_i, it = solve(prev, carry_used), prev, 1
-        while it < max_iterations and bool((out != prev_i).any()):
+        while it < max_iterations and \
+                bool(_flag_any((out != prev_i).any(), axis)):
             out, prev_i, it = solve(out), out, it + 1
         return out, it
 
@@ -1432,7 +1622,8 @@ def solve_converged_resilient(
 
 def _warm_repair(prev, pweights, nweights, valid, stickiness, gids,
                  gid_valid, dirty, carry_used, constraints: Constraints,
-                 rules: Rules, fused_score: str = "off", p_real=None):
+                 rules: Rules, fused_score: str = "off", p_real=None,
+                 axis=None, node_axis=None, node_shards: int = 1):
     """ONE carry-seeded repair sweep and its acceptance flag; returns
     (assign, new_used[S, N], ok) with ``ok`` a 0-d bool tensor on the
     device (over a batch: [B, S, N] and ``ok`` [B], one flag each).
@@ -1440,19 +1631,22 @@ def _warm_repair(prev, pweights, nweights, valid, stickiness, gids,
     The sweep is ``solve_dense`` itself with the totals seeded from the
     carry, so it equals a cold solve's first sweep exactly; what a warm
     replan skips is the fixpoint's confirming sweep, which is sound only
-    when the repair stayed inside the delta (``_repair_ok``)."""
+    when the repair stayed inside the delta (``_repair_ok``).  Sharded,
+    ``new_used`` is the global fill and ``ok`` the globally agreed flag
+    (the carry's tables are replicated; the rows are the shard's)."""
     out = solve_dense(prev, pweights, nweights, valid, stickiness, gids,
                       gid_valid, constraints, rules, fused_score,
-                      carry_used=carry_used, p_real=p_real)
+                      carry_used=carry_used, p_real=p_real, axis=axis,
+                      node_axis=node_axis, node_shards=node_shards)
     new_used = _used_by_state(out, pweights, nweights.shape[-1],
-                              prev.shape[-2])
+                              prev.shape[-2], axis)
     ok = _repair_ok(prev, out, new_used, carry_used, dirty, pweights,
-                    nweights, valid, constraints)
+                    nweights, valid, constraints, axis)
     return out, new_used, ok
 
 
 def _repair_ok(prev, out, new_used, carry_used, dirty, pweights, nweights,
-               valid, constraints) -> torch.Tensor:
+               valid, constraints, axis=None) -> torch.Tensor:
     """The warm repair's acceptance gates, on the device:
 
     - ripple: a row outside the dirty mask changed (the delta leaked; a
@@ -1462,18 +1656,22 @@ def _repair_ok(prev, out, new_used, carry_used, dirty, pweights, nweights,
       overshoot, which replans unchanged) AND exceeds its previous fill.
 
     Every reduction runs per batch element ([B] flags for a batch).
+    Sharded over ``axis``, the ripple flag and the weights are psum'd
+    and the allowance is one max-weight partition per shard.
     """
     p = prev.shape[-3]
     lead = prev.shape[:-3]
     dev = prev.device
-    rippled = ((out != prev) & ~dirty[..., None, None]) \
-        .flatten(-3).any(dim=-1)
-    total_w = pweights.sum(dim=-1, keepdim=True)
+    rippled = _flag_any(((out != prev) & ~dirty[..., None, None])
+                        .flatten(-3).any(dim=-1), axis)
+    total_w = _psum(pweights.sum(dim=-1, keepdim=True), axis)
     cap_w = torch.where(valid & (nweights >= 0), nweights.clamp(min=1.0),
                         0.0)
     cap_share = cap_w / cap_w.sum(dim=-1, keepdim=True).clamp(min=1.0)
     allowance = pweights.amax(dim=-1, keepdim=True) if p else \
         torch.zeros(lead + (1,), device=dev)
+    if axis is not None:
+        allowance = axis.size * axis.pmax(allowance)
     overcap = torch.zeros(lead, dtype=torch.bool, device=dev)
     for si, k in enumerate(constraints):
         if k <= 0:
@@ -1576,19 +1774,21 @@ def _solve_sparse_converged_impl(prev, pweights, nweights, valid,
                                  constraints, rules,
                                  max_iterations: int = 10,
                                  carry_used: Optional[torch.Tensor] = None,
-                                 p_real=None):
+                                 p_real=None, axis=None):
     """The sparse fixpoint; returns (assign, sweeps, exhausted[P]).  The
     exhaustion flags are the LAST executed sweep's: rows still unservable
     at the fixpoint, which the host fallback re-places.  ``carry_used``
-    seeds the first sweep only, as on the dense loop."""
+    seeds the first sweep only, as on the dense loop; ``axis`` shards the
+    partition axis (psum'd changed flag)."""
     def solve(x, cu=None):
         return _solve_assign(x, pweights, nweights, valid, stickiness, gids,
                              gid_valid, constraints, rules, "off",
                              shortlist=shortlist, carry_used=cu,
-                             p_real=p_real)
+                             p_real=p_real, axis=axis)
 
     (out, exh), prev_i, it = solve(prev, carry_used), prev, 1
-    while it < max_iterations and bool((out != prev_i).any()):
+    while it < max_iterations and \
+            bool(_flag_any((out != prev_i).any(), axis)):
         (new, exh), prev_i, it = solve(out), out, it + 1
         out = new
     return out, it, exh
@@ -1596,7 +1796,8 @@ def _solve_sparse_converged_impl(prev, pweights, nweights, valid,
 
 def _warm_repair_sparse(prev, pweights, nweights, valid, stickiness, gids,
                         gid_valid, shortlist, dirty, carry_used,
-                        constraints: Constraints, rules: Rules, p_real=None):
+                        constraints: Constraints, rules: Rules, p_real=None,
+                        axis=None):
     """ONE carry-seeded sparse repair sweep; returns (assign,
     new_used[S, N], ok, exhausted[P]) with ``_warm_repair``'s acceptance
     gates.  Exhausted rows come back -1 and, being changed rows, are
@@ -1605,11 +1806,11 @@ def _warm_repair_sparse(prev, pweights, nweights, valid, stickiness, gids,
     out, exh = _solve_assign(prev, pweights, nweights, valid, stickiness,
                              gids, gid_valid, constraints, rules, "off",
                              shortlist=shortlist, carry_used=carry_used,
-                             p_real=p_real)
+                             p_real=p_real, axis=axis)
     new_used = _used_by_state(out, pweights, nweights.shape[0],
-                              prev.shape[1])
+                              prev.shape[1], axis)
     ok = _repair_ok(prev, out, new_used, carry_used, dirty, pweights,
-                    nweights, valid, constraints)
+                    nweights, valid, constraints, axis)
     return out, new_used, ok, exh
 
 
@@ -2183,9 +2384,11 @@ def _pipeline_cold_impl(prev, pweights, nweights, valid, stickiness, gids,
                         max_iterations: int = 10, fused_score: str = "off",
                         favor_min_nodes: bool = False,
                         carry_used: Optional[torch.Tensor] = None,
-                        p_real=None):
+                        p_real=None, axis=None, node_axis=None,
+                        node_shards: int = 1):
     """Cold pipeline body: the converged solve, then diff(prev, out) and
-    the decode pack on the solver's own tensors.
+    the decode pack on the solver's own tensors (row-wise, so a shard
+    diffs and packs its own rows with no further collective).
 
     Returns (assign, sweeps, prices, used, d_nodes, d_states, d_ops,
     packed, counts): tensors on prev's device, ``sweeps`` an int.
@@ -2194,8 +2397,10 @@ def _pipeline_cold_impl(prev, pweights, nweights, valid, stickiness, gids,
     fixpoint, so ``assign`` is bitwise the staged path's."""
     out, sweeps = _solve_dense_converged_impl(
         prev, pweights, nweights, valid, stickiness, gids, gid_valid,
-        constraints, rules, max_iterations, fused_score, carry_used, p_real)
-    used = _used_by_state(out, pweights, nweights.shape[0], prev.shape[1])
+        constraints, rules, max_iterations, fused_score, carry_used, p_real,
+        axis=axis, node_axis=node_axis, node_shards=node_shards)
+    used = _used_by_state(out, pweights, nweights.shape[0], prev.shape[1],
+                          axis)
     d_nodes, d_states, d_ops = diff_assignments(
         prev, out, favor_min_nodes=favor_min_nodes)
     packed, counts = pack_assignment_core(out)
@@ -2207,7 +2412,8 @@ def _pipeline_warm_impl(prev, pweights, nweights, valid, stickiness, gids,
                         gid_valid, dirty, carry_used,
                         constraints: Constraints, rules: Rules,
                         fused_score: str = "off",
-                        favor_min_nodes: bool = False, p_real=None):
+                        favor_min_nodes: bool = False, p_real=None,
+                        axis=None, node_axis=None, node_shards: int = 1):
     """Warm pipeline body: one carry-seeded repair sweep (``_warm_repair``,
     its acceptance flag included), then the diff and the pack.
 
@@ -2217,7 +2423,8 @@ def _pipeline_warm_impl(prev, pweights, nweights, valid, stickiness, gids,
     declines are the rare path."""
     out, new_used, ok = _warm_repair(
         prev, pweights, nweights, valid, stickiness, gids, gid_valid,
-        dirty, carry_used, constraints, rules, fused_score, p_real)
+        dirty, carry_used, constraints, rules, fused_score, p_real,
+        axis=axis, node_axis=node_axis, node_shards=node_shards)
     d_nodes, d_states, d_ops = diff_assignments(
         prev, out, favor_min_nodes=favor_min_nodes)
     packed, counts = pack_assignment_core(out)

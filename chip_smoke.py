@@ -51,7 +51,7 @@ nothing of jax or of the JAX package.  In order:
    and on (a warm-up call, then 5 alternating pairs: the solve stage's
    medians within 5%, the walls' within their spread);
 5. builds the sparse deployment's shortlist (the same shape at 1M
-   partitions x 10k nodes) and runs its converged sparse solve on the
+   partitions x 10k nodes) and runs its sparse solve (3 sweeps) on the
    card and on the CPU, array for array equal, then drives
    plan_next_map(backend="cuda") there with ``sparse=None``, which must
    route to the sparse engine.  Every main-path run must pass the audit
@@ -73,7 +73,7 @@ nothing of jax or of the JAX package.  In order:
    carry hit bitwise equal to a cold twin session's replan, audit-clean,
    with moves() equal to calc_all_moves, on the matrix engine (min2
    kernel) and again on the in-kernel score engine; at the sparse
-   deployment a warm repair of the converged card solve after 100 more
+   deployment a warm repair of the card's solve (3 sweeps) after 100 more
    nodes go (accepted or declined, both valid), its repair sweep on the
    card equal to the CPU's array for array, through the sparse kernel;
    and a small rebalance(session=) and RebalanceController(session=) on
@@ -153,13 +153,38 @@ nothing of jax or of the JAX package.  In order:
    ``path="harness"``, its wide layout timed beside it;
 14. runs the port's analysis gate (the ``analysis`` line):
    ``analysis.run_all(shape_audit=True, device="cuda")``, the AST lints
-   over the package on the host and the 60 shape contracts on the card
-   (then the 4 host checks), with no new finding, no stale pin and no
-   analyzer error, the audit launching min2 (unbatched and batched) and
-   the sparse kernel, all inside the phase's budget; min2 on the inputs
-   of its first unbatched and batched audit calls and the sparse kernel
-   on its first join the ``kernels`` line with ``path="analysis"``;
-15. prints one JSON line of kernel measurements, the card's name and
+   over the package on the host and the 72 shape contracts on the card
+   (then the 4 host checks; the 12 sharded ones on a 2-rank mesh on the
+   card), with no new finding, no stale pin and no analyzer error, the
+   audit launching min2 (unbatched and batched) and the sparse kernel,
+   all inside the phase's budget; min2 on the inputs of its first
+   unbatched and batched audit calls and the sparse kernel on its first
+   join the ``kernels`` line with ``path="analysis"``;
+15. shards the solves over meshes of ranks on the one card (the
+   ``sharded`` line; parallel/mesh.py, parallel/sharded.py): starts a
+   4-rank 1-D mesh, a 2x2 mesh (both gloo: the ranks share the card)
+   and a 1-rank nccl mesh, each timed on its own; solves the north star
+   on the 4-rank mesh (the engine each shard resolves, then the
+   in-kernel score) and on the 2x2 mesh, each audit-clean with nothing
+   on a removed node and no empty slot, churn and spread beside the
+   single-device plan's, the 2x2 map bitwise a 1-D 2-rank mesh's (the
+   2-D contract) and the 1-rank nccl mesh's bitwise the unsharded
+   solve; the 1M sparse deployment on 4 ranks (audit-clean, its
+   exhausted and fallback rows); a 4096 x 256 rack problem on both
+   meshes and engines bitwise the same mesh shapes on the CPU, and its
+   K = N sparse solve bitwise the dense one; PlannerSession(mesh=) at
+   the north star (the 1% delta a one-sweep carry hit equal to a cold
+   twin, replan_with_moves() equal to replan() + moves()); the
+   240-tenant wave through solve_fleet(mesh=) cold and warm and
+   PlanService(mesh=), equal to the card's unmeshed wave; every rank's
+   solve time, peak allocation, collectives (count, time, bytes) and
+   host staging copies; inside the phase's 240 s budget.  min2 on the
+   2x2 north star's rank 3, the in-kernel score on the 4-rank north
+   star's rank 1 and on the 4096 x 256 2x2 mesh's rank 3 (row and
+   column offsets non-zero) and the sparse kernel on the 1M run's rank
+   1 join the ``kernels`` line with ``path="sharded"``, each on the
+   inputs of its first call there;
+16. prints one JSON line of kernel measurements, the card's name and
    power limit, the script's wall time, and last
    ``{"ok": true, "device": {...}}``.  A kernel's ``ms`` is its device
    time per call, from back-to-back calls in a CUDA graph
@@ -792,14 +817,20 @@ def small_map_matches_cpu(dev) -> None:
         "sparse K=6); sparse K=N == matrix engine")
 
 
+# Sweeps of the sparse solve held card against CPU at 1M x 10k: the CPU's
+# sweeps cost 15 s apiece there, and the sweeps past the third run the
+# same code on the same shapes as the first three.
+SPARSE_PARITY_SWEEPS = 3
+
+
 def sparse_engine_matches_cpu(prev, nodes, removed, model, opts,
                               dev) -> dict:
     """At the sparse deployment's full size, the shortlist and then the
-    converged sparse solve (fallback included) on the card equal the
-    plain CPU path's, array for array.  The rotated window's int32
-    product wraps from row 53,021 on, so an int64 slip shows here.
-    Returns the card's and the CPU's seconds for each (device
-    synchronised)."""
+    sparse solve (its first SPARSE_PARITY_SWEEPS sweeps, fallback
+    included) on the card equal the plain CPU path's, array for array.
+    The rotated window's int32 product wraps from row 53,021 on, so an
+    int64 slip shows here.  Returns the card's and the CPU's seconds for
+    each (device synchronised)."""
     problem = bt.encode_problem(prev, prev, nodes, removed, model, opts)
     rules = tuple(tuple(problem.rules.get(si, ())) for si in range(problem.S))
     cons = tuple(int(c) for c in problem.constraints)
@@ -817,6 +848,7 @@ def sparse_engine_matches_cpu(prev, nodes, removed, model, opts,
         t1 = time.perf_counter()
         stats: dict = {}
         solved.append(T.solve_sparse(*a, cons, rules, shortlist=built[-1],
+                                     max_iterations=SPARSE_PARITY_SWEEPS,
                                      stats=stats))
         t2 = time.perf_counter()
         secs[device.type] = {"shortlist_s": t1 - t0, "solve_s": t2 - t1,
@@ -871,7 +903,8 @@ def _session_replan(session, rec) -> dict:
     out = session.replan().copy()
     torch.cuda.synchronize()
     return dict(out=out, solve_s=time.perf_counter() - t0,
-                solver_s=rec.span_totals["plan.solve.attempt"] - span0,
+                solver_s=rec.span_totals.get("plan.solve.attempt", 0.0)
+                - span0,
                 launches=launch_counts(), variants=launch_variants(),
                 counters=_plan_counts(rec.counters, before))
 
@@ -1005,12 +1038,12 @@ def warm_vs_cold_solver(s, delta_ids, mode: str, reps: int = 5) -> dict:
 
 
 def session_sparse(state, dev) -> dict:
-    """The warm repair at the sparse deployment: the converged card solve
-    as prev, its carry from carry_from_assignment, 100 more nodes gone
-    and the rows that held them dirty; solve_sparse_warm on the card
-    (accepted or declined), then the repair sweep alone on the card and
-    on the CPU, equal array for array (assignment, new_used, ok,
-    exhausted)."""
+    """The warm repair at the sparse deployment: the card's solve (the
+    parity check's sweeps) as prev, its carry from
+    carry_from_assignment, 100 more nodes gone and the rows that held
+    them dirty; solve_sparse_warm on the card (accepted or declined),
+    then the repair sweep alone on the card and on the CPU, equal array
+    for array (assignment, new_used, ok, exhausted)."""
     prev, pw, nw, valid, stick, gids, gv = state["arrays"]
     prev = state["solved"]
     cons, rules, k = state["constraints"], state["rules"], state["k"]
@@ -2767,7 +2800,9 @@ def harness_phase(dev) -> tuple:
 
 # --- the analysis gate (the ``analysis`` line) ------------------------------
 
-ANALYSIS_BUDGET_S = 30.0  # the phase's wall, kernel entries included
+# The phase's wall, kernel entries included; since the sharded contracts
+# it also starts the audit's 2-rank mesh on the card (10-11 s).
+ANALYSIS_BUDGET_S = 45.0
 
 
 def analysis_phase(dev) -> tuple:
@@ -2827,7 +2862,7 @@ def analysis_phase(dev) -> tuple:
         "no_new_findings": not res["new"],
         "no_stale_pins": not res["stale"],
         "no_errors": not res["errors"],
-        "all_contracts_ran": res["shape_entries"] == 64 and len(timings) == 60,
+        "all_contracts_ran": res["shape_entries"] == 76 and len(timings) == 72,
         "min2_launched": sum(min2.values()) - batched > 0,
         "min2_batched_launched": batched > 0,
         "sparse_launched": counts["sparse_priced_min2_cand"] > 0,
@@ -2838,6 +2873,417 @@ def analysis_phase(dev) -> tuple:
         raise AssertionError(
             f"analysis: {[k for k, v in checks.items() if not v]}")
     return res, entries
+
+
+# --- multi-GPU sharding on one card (the ``sharded`` line) -------------------
+
+SHARDED_BUDGET_S = 240.0  # the phase's wall, the meshes' start-up included
+SHARDED_MID = (4096, 256)  # the card-against-CPU rack problem
+SHARDED_NOTE = ("every mesh's ranks share the one card: these walls measure "
+                "the mesh's overhead and correctness, not scaling")
+
+
+def _dense_problem(prev, nodes, removed, model, opts):
+    """(problem, solver arrays, constraints, rules) of a PartitionMap."""
+    problem = bt.encode_problem(prev, prev, nodes, removed, model, opts)
+    return problem, (problem.prev, problem.partition_weights,
+                     problem.node_weights, problem.valid_node,
+                     problem.stickiness, problem.gids, problem.gid_valid), \
+        tuple(int(c) for c in problem.constraints), \
+        tuple(tuple(problem.rules.get(si, ())) for si in range(problem.S))
+
+
+def _mesh_stats(stats: dict) -> dict:
+    """One sharded call's per-rank numbers (parallel/mesh.py stats)."""
+    per = stats["mesh"]["stats"]
+    return dict(
+        wall_rank0_s=stats["mesh"]["wall_s"],
+        solve_s=[per[r]["solve_s"] for r in sorted(per)],
+        peak_alloc_bytes=[per[r]["peak_alloc_bytes"] for r in sorted(per)],
+        collectives=[per[r]["collectives"] for r in sorted(per)],
+        collectives_by_axis=per[0]["by_axis"],
+        collective_s=[per[r]["coll_s"] for r in sorted(per)],
+        collective_bytes=[per[r]["coll_bytes"] for r in sorted(per)],
+        staged_copies=[per[r]["staged_copies"] for r in sorted(per)],
+        launches={k: [per[r]["launches"].get(k, 0) for r in sorted(per)]
+                  for k in per[0]["launches"]})
+
+
+def _map_quality(problem, assign) -> dict:
+    """Audit, removed-node and empty-slot counts, churn and spread of a
+    solved assignment against the problem's beginning state."""
+    audit = bt.check_assignment(problem, assign)
+    removed = np.flatnonzero(~problem.valid_node)
+    held = assign[assign >= 0]
+    load = np.bincount(held, minlength=problem.N)[problem.valid_node]
+    return dict(audit=audit, on_removed=int(np.isin(assign, removed).sum()),
+                empty_slots=int((assign < 0).sum()),
+                partitions_moved=int(np.any(assign != problem.prev,
+                                            axis=(1, 2)).sum()),
+                load_spread=int(load.max() - load.min()))
+
+
+def _sharded_run(label, solve, mesh, quality_of=None, **kw) -> tuple:
+    """One sharded solve on ``mesh`` with rank 0's launch counts set to 0
+    just before it and read just after (the workers report their own);
+    returns (assign, info)."""
+    reset_launch_counts()
+    rounds0 = T._assign_slot.rounds
+    stats: dict = {}
+    out, wall = _sync_wall(lambda: solve(mesh, stats=stats, **kw))
+    assign = out[0] if isinstance(out, tuple) else out
+    info = dict(backend=mesh.backend, shape=list(mesh.devices.shape),
+                wall_s=wall, engine=stats.get("engine", "sparse"),
+                sweeps=stats.get("sweeps"),
+                rank0_auction_rounds=T._assign_slot.rounds - rounds0,
+                rank0_launches={k: v for k, v in launch_counts().items()
+                                if v},
+                **{k: stats[k] for k in ("k", "exhausted_rows",
+                                         "fallback_rows", "accepted")
+                   if k in stats},
+                **_mesh_stats(stats))
+    if quality_of is not None:
+        info.update(_map_quality(quality_of, assign))
+    log(f"sharded {label}: {json.dumps(info)}")
+    return out, info, stats
+
+
+def _captured(stats: dict, name: str, dev) -> dict:
+    """A worker's first-call kernel inputs (host tensors) back on the
+    card, as path_kernel_entry takes them."""
+    def to_dev(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(dev)
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(to_dev(v) for v in x))
+        if isinstance(x, (tuple, list)):
+            return type(x)(to_dev(v) for v in x)
+        return x
+    args, kw = stats["mesh"]["captured"][name]
+    return {"args": to_dev(args), "kw": kw}
+
+
+def _clean(info: dict) -> bool:
+    return not any(info["audit"].values()) and info["on_removed"] == 0 \
+        and info["empty_slots"] == 0
+
+
+def _mid_problem():
+    """SHARDED_MID racks of 8 under one zone, primary + 1 replica on
+    another rack, 5% of nodes removed, whole-number partition weights
+    1-3, numpy seed 3."""
+    p, n = SHARDED_MID
+    rng = np.random.default_rng(3)
+    prev = np.full((p, 2, 1), -1, np.int32)
+    prev[:, 0, 0] = rng.integers(0, n, p)
+    prev[:, 1, 0] = (prev[:, 0, 0] + 1 + rng.integers(0, n - 1, p)) % n
+    valid = np.ones(n, bool)
+    valid[rng.choice(n, n // 20, replace=False)] = False
+    arrays = (prev, rng.integers(1, 4, p).astype(np.float32),
+              np.ones(n, np.float32), valid,
+              np.full((p, 2), 1.5, np.float32),
+              np.stack([np.arange(n), np.arange(n) // 8,
+                        np.zeros(n)]).astype(np.int32),
+              np.ones((3, n), bool))
+    return arrays, (1, 1), ((), ((2, 1),))
+
+
+def sharded_phase(dev, prev, nodes, removed, model, opts, single: dict,
+                  sp_map) -> tuple:
+    """Multi-GPU sharding on the one card (the ``sharded`` line): a
+    4-rank 1-D mesh, a 2x2 mesh and a 1-rank nccl mesh, each started and
+    timed on its own; the north star on the 4-rank mesh (the engine
+    each shard resolves, then fused) and the 2x2 mesh, the 2x2 map equal
+    to a 1-D 2-rank mesh's (the 2-D contract), the 1-rank nccl mesh
+    equal to the unsharded solve; the 1M sparse deployment on 4 ranks;
+    the mid-size problem on both meshes and engines equal to the same
+    mesh shapes on the CPU, and its K = N sparse solve equal to the
+    dense one; PlannerSession(mesh=) at the north star (a warm carry
+    hit equal to its cold twin, replan_with_moves() equal to replan() +
+    moves()); the 240-tenant wave through solve_fleet(mesh=) and
+    PlanService(mesh=), equal to the card's unmeshed wave.  Returns the
+    line and the kernel entries on the inputs the sharded runs gave
+    their first calls on a worker rank."""
+    from blance_tpu_torch.parallel import sharded as S
+
+    T.set_fused_score_default("auto")
+    t_phase = time.perf_counter()
+    checks: dict = {}
+    runs: dict = {}
+    meshes: dict = {}
+    seen: dict = {}
+    try:
+        for key, make in (("1d_4", lambda: S.make_mesh(4, device=dev)),
+                          ("2x2", lambda: S.make_mesh_2d(2, 2, device=dev)),
+                          ("nccl_1", lambda: S.make_mesh(1, device=dev))):
+            meshes[key] = make()
+        meshes["1d_2"] = S.make_mesh(2, devices=meshes["1d_4"])
+        startup = {k: m.startup_s for k, m in meshes.items()}
+        backends = {k: m.backend for k, m in meshes.items()}
+        checks["backends"] = backends == {"1d_4": "gloo", "2x2": "gloo",
+                                          "nccl_1": "nccl", "1d_2": "gloo"}
+        log(f"sharded meshes: start-up {startup}, backends {backends}")
+
+        # -- the north star ------------------------------------------------
+        problem, arrays, cons, rules = _dense_problem(
+            prev, nodes, removed, model, opts)
+        dense = S.solve_dense_sharded
+        ns = {}
+        ns["1d_4"], runs["north_1d_4"], _ = _sharded_run(
+            "north star, 4 ranks", lambda m, **k: dense(
+                m, *arrays, cons, rules, **k), meshes["1d_4"], problem)
+        ns["1d_4_fused"], runs["north_1d_4_fused"], st = _sharded_run(
+            "north star, 4 ranks, fused", lambda m, **k: dense(
+                m, *arrays, cons, rules, fused_score="on", **k),
+            meshes["1d_4"], problem, capture=1)
+        seen["fused"] = _captured(st, "fused_score_min2", dev)
+        seen["fused_launches"] = runs["north_1d_4_fused"]["launches"][
+            "fused_score_min2"]
+        ns["2x2"], runs["north_2x2"], st = _sharded_run(
+            "north star, 2x2", lambda m, **k: dense(
+                m, *arrays, cons, rules, **k), meshes["2x2"], problem,
+            capture=3)
+        seen["min2"] = _captured(st, "priced_min2_argmin", dev)
+        seen["min2_launches"] = runs["north_2x2"]["launches"][
+            "priced_min2_argmin"]
+        del st
+        ns["1d_2"], runs["north_1d_2"], _ = _sharded_run(
+            "north star, 2 ranks", lambda m, **k: dense(
+                m, *arrays, cons, rules, **k), meshes["1d_2"], problem)
+        checks["north_audit_clean"] = all(
+            _clean(runs[f"north_{k}"]) for k in ns)
+        checks["north_2x2_equals_1d_2"] = bool(np.array_equal(
+            ns["2x2"], ns["1d_2"]))
+        checks["north_engines"] = \
+            runs["north_1d_4"]["engine"] == "off" and \
+            runs["north_1d_4_fused"]["engine"] == "on"
+        checks["north_kernels_every_rank"] = all(
+            min(runs[r]["launches"][k]) > 0 for r, k in (
+                ("north_1d_4", "priced_min2_argmin"),
+                ("north_1d_4_fused", "fused_score_min2"),
+                ("north_2x2", "priced_min2_argmin")))
+        one, runs["north_nccl_1"], _ = _sharded_run(
+            "north star, 1-rank nccl", lambda m, **k: dense(
+                m, *arrays, cons, rules, **k), meshes["nccl_1"], problem)
+        flat_args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in arrays]
+        flat, flat_s = _sync_wall(lambda: T.solve_dense_converged(
+            *flat_args, cons, rules, record=False).cpu().numpy())
+        runs["north_unsharded"] = dict(wall_s=flat_s)
+        checks["nccl_1_equals_unsharded"] = bool(np.array_equal(one, flat))
+        del flat_args, flat, one
+
+        # -- the sparse deployment ---------------------------------------
+        sp_problem, sp_arrays, sp_cons, sp_rules = _dense_problem(*sp_map)
+        _, runs["sparse_1d_4"], st = _sharded_run(
+            "sparse 1M, 4 ranks", lambda m, **k: S.solve_sparse_sharded(
+                m, *sp_arrays, sp_cons, sp_rules, **k), meshes["1d_4"],
+            sp_problem, capture=1)
+        seen["sparse"] = _captured(st, "sparse_priced_min2_cand", dev)
+        seen["sparse_launches"] = runs["sparse_1d_4"]["launches"][
+            "sparse_priced_min2_cand"]
+        del st, sp_problem, sp_arrays
+        checks["sparse_audit_clean"] = _clean(runs["sparse_1d_4"]) and \
+            runs["sparse_1d_4"]["k"] == 16 and min(
+                runs["sparse_1d_4"]["launches"][
+                    "sparse_priced_min2_cand"]) > 0
+
+        # -- the mid-size problem: the card against the CPU ------------------
+        mid, m_cons, m_rules = _mid_problem()
+        with S.make_mesh(4, device="cpu") as cpu4, \
+                S.make_mesh_2d(2, 2, devices=cpu4) as cpu22:
+            for key, cpu_mesh in (("1d_4", cpu4), ("2x2", cpu22)):
+                for eng in ("off", "on"):
+                    got, runs[f"mid_{key}_{eng}"], st = _sharded_run(
+                        f"{SHARDED_MID} {key} {eng}", lambda m, **k: dense(
+                            m, *mid, m_cons, m_rules, fused_score=eng, **k),
+                        meshes[key], capture=3 if key == "2x2" and
+                        eng == "on" else None)
+                    if key == "2x2" and eng == "on":
+                        seen["fused_2x2"] = _captured(
+                            st, "fused_score_min2", dev)
+                        seen["fused_2x2_launches"] = \
+                            runs[f"mid_{key}_{eng}"]["launches"][
+                                "fused_score_min2"]
+                    want, cpu_s = _sync_wall(lambda: dense(
+                        cpu_mesh, *mid, m_cons, m_rules, fused_score=eng))
+                    runs[f"mid_{key}_{eng}"]["cpu_mesh_wall_s"] = cpu_s
+                    checks[f"mid_{key}_{eng}_equals_cpu"] = bool(
+                        np.array_equal(got, want))
+        dense_mid = dense(meshes["1d_4"], *mid, m_cons, m_rules)
+        sparse_mid = S.solve_sparse_sharded(
+            meshes["1d_4"], *mid, m_cons, m_rules, k=SHARDED_MID[1])
+        checks["mid_sparse_k_equals_n_is_dense"] = bool(
+            np.array_equal(dense_mid, sparse_mid))
+        mid_flat = [torch.from_numpy(a).to(dev) for a in mid]
+        _, runs["mid_unsharded_wall_s"] = _sync_wall(
+            lambda: T.solve_dense_converged(*mid_flat, m_cons, m_rules,
+                                            record=False).cpu())
+        del mid_flat
+
+        # -- PlannerSession(mesh=) at the north star ---------------------
+        t0 = time.perf_counter()
+        session = sharded_session(prev, nodes, removed, model, opts,
+                                  meshes["1d_4"], dev)
+        session["phase_s"] = time.perf_counter() - t0
+        checks.update({f"session_{k}": v
+                       for k, v in session.pop("checks").items()})
+
+        # -- the fleet wave and the service on the mesh -------------------
+        t0 = time.perf_counter()
+        fleet_line = sharded_fleet(meshes["1d_4"], dev)
+        fleet_line["phase_s"] = time.perf_counter() - t0
+        checks.update({f"fleet_{k}": v
+                       for k, v in fleet_line.pop("checks").items()})
+    finally:
+        for m in meshes.values():
+            m.close()
+
+    # Each kernel on the inputs its first call on a worker rank got: the
+    # launches are that rank's in the run, every rank's beside them.
+    t0 = time.perf_counter()
+    entries = {}
+    for key, kind, rank, where in (
+            ("min2", "min2", 3, "the 2x2 mesh's rank 3"),
+            ("fused", "fused", 1, "the 4-rank mesh's rank 1"),
+            ("fused_2x2", "fused", 3, "the mid 2x2 mesh's rank 3"),
+            ("sparse", "sparse", 1, "the 4-rank mesh's rank 1")):
+        per_rank = seen[f"{key}_launches"]
+        entries[key] = path_kernel_entry(kind, seen[key], per_rank[rank],
+                                         where)
+        args = seen[key]["args"]
+        entries[key].update(
+            rank=rank, launches_per_rank=per_rank,
+            pbase=args[2] if kind == "fused" else None,
+            noff=args[3] if kind == "fused" else None)
+    checks["fused_offsets_nonzero"] = seen["fused"]["args"][2] > 0 and \
+        seen["fused_2x2"]["args"][2] > 0 and seen["fused_2x2"]["args"][3] > 0
+    kernels_s = time.perf_counter() - t0
+    line = dict(
+        note=SHARDED_NOTE, startup_s=startup, backends=backends,
+        single_device=dict(
+            north_matrix_solve_s=single["matrix"]["solve_s"],
+            north_fused_solve_s=single["fused"]["solve_s"],
+            sparse_solve_s=single["sparse"]["solve_s"],
+            north_moved=single["matrix"]["partitions_moved"],
+            north_spread=single["matrix"]["load_spread"]),
+        runs=runs, session=session, fleet=fleet_line,
+        kernels_s=kernels_s, phase_s=time.perf_counter() - t_phase,
+        budget_s=SHARDED_BUDGET_S)
+    checks["within_budget"] = line["phase_s"] <= SHARDED_BUDGET_S
+    line["checks"] = checks
+    log(f"sharded: {json.dumps(line)}")
+    if not all(checks.values()):
+        raise AssertionError(
+            f"sharded: {[k for k, v in checks.items() if not v]}")
+    return line, entries
+
+
+def sharded_session(prev, nodes, removed, model, opts, mesh, dev) -> dict:
+    """PlannerSession(mesh=) at the north star, two sessions in lockstep
+    (one through replan() + moves(), one through replan_with_moves()):
+    a cold replan after the 5% removal, then 1% of the surviving nodes
+    removed (seed 17) and a warm replan, which must be a one-sweep carry
+    hit on both, equal to each other and to a cold twin session's replan
+    on the same mesh, audit-clean."""
+    delta = session_delta(nodes, removed)
+    rec = Recorder()
+    out: dict = {}
+    with use_recorder(rec):
+        s, s_pipe = (bt.PlannerSession(model, nodes, list(prev), opts=opts,
+                                       mesh=mesh) for _ in range(2))
+        for x in (s, s_pipe):
+            x.load_map(prev)
+            x.remove_nodes(removed)
+        cold = _session_replan(s, rec)
+        cold_moves = s.moves()
+        cold_pipe, cold_pipe_s = _sync_wall(s_pipe.replan_with_moves)
+        s.apply()
+        s_pipe.apply()
+        base = s.current
+        s.remove_nodes(delta)
+        s_pipe.remove_nodes(delta)
+        warm = _session_replan(s, rec)
+        warm_moves = s.moves()
+        before = dict(rec.counters)
+        warm_pipe, warm_pipe_s = _sync_wall(s_pipe.replan_with_moves)
+        pipe_counts = _plan_counts(rec.counters, before)
+        twin = bt.PlannerSession(model, nodes, list(prev), opts=opts,
+                                 mesh=mesh)
+        twin.load_map(s.to_map("current")[0])
+        twin.remove_nodes(removed + delta)
+        twin_cold = _session_replan(twin, rec)
+    index = {nd: i for i, nd in enumerate(s.nodes)}
+    ids = [index[nd] for nd in removed + delta]
+    audit = bt.check_assignment(s.problem, warm["out"])
+
+    def same(a, b):
+        return bool(np.array_equal(a[0], b[0])) and all(
+            np.array_equal(x, y) for x, y in zip(a[1], b[1]))
+    out["checks"] = dict(
+        carry_hit=warm["counters"].get("plan.solve.carry_hit") == 1,
+        warm_one_sweep=warm["counters"].get("plan.solve.sweeps") == 1,
+        no_warm_fallback="plan.solve.warm_fallback" not in warm["counters"],
+        warm_equals_cold_twin=bool(np.array_equal(warm["out"],
+                                                  twin_cold["out"])),
+        pipe_carry_hit=pipe_counts.get("plan.solve.carry_hit") == 1,
+        replan_with_moves_cold=same((cold["out"], cold_moves), cold_pipe),
+        replan_with_moves_warm=same((warm["out"], warm_moves), warm_pipe),
+        audit_clean=not any(audit.values()),
+        nothing_on_removed=not bool(np.isin(warm["out"], ids).any()))
+    out.update(
+        delta_nodes=len(delta), cold=_replan_info(cold, s.problem.prev),
+        warm=_replan_info(warm, base), cold_twin=_replan_info(twin_cold,
+                                                              base),
+        replan_with_moves_s=dict(cold=cold_pipe_s, warm=warm_pipe_s),
+        warm_over_cold=warm["solve_s"] / twin_cold["solve_s"])
+    log(f"sharded session: {json.dumps(out)}")
+    return out
+
+
+def sharded_fleet(mesh, dev) -> dict:
+    """The 240-tenant wave through solve_fleet(mesh=), cold and warm,
+    each tenant bitwise the card's unmeshed solve_fleet; then
+    PlanService(mesh=) over the wave's 240 requests, results equal to
+    the meshed cold wave."""
+    tenants = wave_tenants()
+    (flat_cold, flat_cold_s) = _sync_wall(
+        lambda: fleet.solve_fleet(tenants, device=dev))
+    round2 = [delta_tenant(t, r) for t, r in zip(tenants, flat_cold)]
+    (flat_warm, flat_warm_s) = _sync_wall(
+        lambda: fleet.solve_fleet(round2, device=dev))
+    reset_launch_counts()
+    cold, cold_s = _sync_wall(lambda: fleet.solve_fleet(tenants, mesh=mesh))
+    cold_stats = _mesh_stats({"mesh": dict(mesh.last_call)})
+    round2m = [delta_tenant(t, r) for t, r in zip(tenants, cold)]
+    warm, warm_s = _sync_wall(lambda: fleet.solve_fleet(round2m, mesh=mesh))
+    rank0 = launch_counts()
+    rec = Recorder()
+
+    async def drive():
+        svc = plan_service.PlanService(recorder=rec, mesh=mesh)
+        await svc.start()
+        res = await asyncio.gather(*[svc.submit(t) for t in tenants])
+        await svc.stop()
+        return res
+
+    service, service_s = _sync_wall(lambda: asyncio.run(drive()))
+
+    def equal(a, b):
+        return all(np.array_equal(x.assign, y.assign) and x.warm == y.warm
+                   for x, y in zip(a, b))
+    return dict(
+        tenants=len(tenants), wall_s=dict(cold=cold_s, warm=warm_s,
+                                          service=service_s),
+        unmeshed_wall_s=dict(cold=flat_cold_s, warm=flat_warm_s),
+        warm_accepted=sum(r.warm for r in warm),
+        last_cold_batch=cold_stats, rank0_launches={
+            k: v for k, v in rank0.items() if v},
+        service_batches=int(rec.counters["fleet.batches"]),
+        checks=dict(cold_equals_unmeshed=equal(cold, flat_cold),
+                    warm_equals_unmeshed=equal(warm, flat_warm),
+                    service_equals_wave=equal(service, cold),
+                    min2_launched=rank0.get("priced_min2_argmin", 0) > 0))
 
 
 # --- the device observatory (the ``obs`` line) -------------------------------
@@ -3351,6 +3797,9 @@ def main() -> int:
     fleet_line["phase_s"] = time.perf_counter() - t0
     harness, harness_kernels = harness_phase(dev)
     analysis, analysis_kernels = analysis_phase(dev)
+    sharded, sharded_kernels = sharded_phase(
+        dev, prev, nodes, removed, model, ns_opts,
+        {"matrix": auto, "fused": on, "sparse": sp}, sp_map)
 
     kernels = [
         dict(name="priced_min2_argmin", route="cuda",
@@ -3412,6 +3861,17 @@ def main() -> int:
             name=entry["name"], route="cuda", source=entry["source"],
             replaces=entry["replaces"], path="analysis", call=key,
             bitwise=True, **analysis_kernels[key]))
+    # The sharded path: min2 on the 2x2 north star's rank 3 (its
+    # [P/2, N/2] block), the in-kernel score on the 4-rank north star's
+    # rank 1 (pbase != 0) and the mid 2x2's rank 3 (pbase and noff != 0),
+    # the sparse kernel on the 1M deployment's rank 1; launches: that
+    # rank's in the phase's run.
+    for entry, key in zip((kernels[0], kernels[1], kernels[1], kernels[2]),
+                          ("min2", "fused", "fused_2x2", "sparse")):
+        kernels.append(dict(
+            name=entry["name"], route="cuda", source=entry["source"],
+            replaces=entry["replaces"], path="sharded", call=key,
+            bitwise=True, **sharded_kernels[key]))
     prof = [profile_main_path(m, prev, nodes, removed, model, opts)
             for m in ("off", "on")]
     prof.append(profile_main_path("auto", *sp_map))
@@ -3429,6 +3889,7 @@ def main() -> int:
     print(json.dumps({"obs": obs}))
     print(json.dumps({"harness": harness}))
     print(json.dumps({"analysis": analysis}))
+    print(json.dumps({"sharded": sharded}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

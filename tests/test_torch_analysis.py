@@ -1043,7 +1043,7 @@ def test_cli_stale_baseline_warns_by_default_fails_under_ci(tmp_path,
     out = capsys.readouterr().out
     assert rc == 1
     assert "ERROR: stale baseline entry" in out and "FAIL" in out
-    assert "60 shape contracts + 4 host checks" in out
+    assert "72 shape contracts + 4 host checks" in out
 
 
 def test_cli_device_defaults_to_the_card(monkeypatch, capsys):

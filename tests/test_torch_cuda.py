@@ -223,6 +223,67 @@ def test_sparse_min2_cand_kernel_matches_plain(dev, shape, offset):
     _same(got, sparse2.sparse_min2_cand_reference(score, cand, price_n))
 
 
+# -- the kernels at shard offsets (parallel/sharded.py) ------------------------
+
+
+@pytest.mark.parametrize("nrules", [0, 1])
+@pytest.mark.parametrize("pbase,noff", [(512, 0), (0, 96), (4096, 130)])
+def test_fused_kernel_at_shard_offsets_matches_plain(dev, nrules, pbase,
+                                                     noff, layout):
+    """The in-kernel score of a shard: the jitter hashes GLOBAL row ids
+    (pbase + row) and column ids (noff + column), bitwise the plain
+    version at the same offsets; and the offsets do move the result."""
+    price, si = _fused_inputs(dev, 11 + nrules, 300, 133, 1, 2, 2, nrules)
+    kw = dict(nrules=nrules, jitter_scale=1e-5)
+    got = score_fused.fused_score_min2(price, si, pbase, noff, **kw)
+    _same(got, score_fused.fused_score_min2_reference(
+        price, si, pbase, noff, **kw))
+    at_zero = score_fused.fused_score_min2_reference(price, si, 0, 0, **kw)
+    assert not torch.equal(got[0], at_zero[0])
+
+
+@pytest.mark.parametrize("noff", [0, 100, 4000])
+def test_min2_on_a_column_block_shifted_matches_plain(dev, noff, layout):
+    """min2 on one node shard's column block of a wider score: the
+    kernel's local choice shifted by the block's first column is the
+    plain version's, and where the block holds the row's global best
+    it is the global argmin."""
+    g = torch.Generator().manual_seed(5)
+    full = torch.floor(torch.randn(257, 8000, generator=g) * 4) * 0.25
+    n_l = 2000 if noff < 4000 else 4000
+    block = full[:, noff:noff + n_l].contiguous().to(dev)
+    price = torch.linspace(0, 1, 8000)[noff:noff + n_l].to(dev)
+    b, c, s2 = reduce2.priced_min2_argmin(block, price)
+    wb, wc, ws2 = reduce2.min2_argmin_reference(block + price[None, :])
+    _same((b, c + noff, s2), (wb, wc + noff, ws2))
+    eff = full + torch.linspace(0, 1, 8000)[None, :]
+    gb, gc = eff.min(dim=1)
+    here = (gc >= noff) & (gc < noff + n_l)
+    first = (eff[:, noff:noff + n_l] == gb[:, None]).float().argmax(dim=1)
+    np.testing.assert_array_equal(
+        (c.cpu() + noff)[here].numpy(), (first + noff)[here].numpy())
+
+
+def test_two_rank_mesh_on_card_equals_cpu_mesh(dev):
+    """A 2-rank mesh on the one card (gloo: the ranks share it) solves
+    the rack-rule problem bitwise as the 2-rank CPU mesh does, through
+    min2 on both ranks."""
+    from blance_tpu_torch.parallel.sharded import (make_mesh,
+                                                   solve_dense_sharded)
+
+    arrays, statics = _rack_rule_arrays()
+    with make_mesh(2, device="cpu") as cpu:
+        want = solve_dense_sharded(cpu, *arrays, *statics)
+    with make_mesh(2, device=dev) as card:
+        assert card.backend == "gloo"
+        stats = {}
+        got = solve_dense_sharded(card, *arrays, *statics, stats=stats)
+    np.testing.assert_array_equal(got, want)
+    per = stats["mesh"]["stats"]
+    assert all(per[r]["launches"]["priced_min2_argmin"] > 0 for r in (0, 1))
+    assert all(per[r]["staged_copies"] > 0 for r in (0, 1))
+
+
 def _rack_rule_arrays():
     rng = np.random.default_rng(0)
     P, N = 1024, 64
@@ -866,16 +927,17 @@ def test_harness_replays_committed_trace_on_card(dev, name, tmp_path,
 
 
 def test_shape_audit_passes_on_card(dev):
-    """The 60 shape contracts and 4 host checks pass with device="cuda";
-    the dense, pipeline and fleet contracts launch min2 (unbatched and
-    batched) and the sparse ones the sparse kernel's gathered entry."""
+    """The 72 shape contracts (the 12 sharded ones on a 2-rank mesh on
+    the card) and 4 host checks pass with device="cuda"; the dense,
+    pipeline and fleet contracts launch min2 (unbatched and batched) and
+    the sparse ones the sparse kernel's gathered entry."""
     from blance_tpu_torch.analysis.shape_audit import run_shape_audit
     from blance_tpu_torch.ops import launch_variants
 
     reset_launch_counts()
     findings, entries = run_shape_audit(device="cuda")
     assert findings == [], "\n".join(f.render() for f in findings)
-    assert entries == 64
+    assert entries == 76
     variants = launch_variants()["priced_min2_argmin"]
     assert any(v.startswith("batched") for v in variants), variants
     assert any(not v.startswith("batched") for v in variants), variants

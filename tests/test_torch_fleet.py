@@ -336,11 +336,25 @@ def test_fused_on_matches_reference_interpret():
 
 
 def test_mesh_raises_naming_a9():
+    """``mesh=`` takes a port Mesh: anything else is rejected with a
+    clear error (as is a 2-D mesh, the batch axis being the only one),
+    and a real 2-rank CPU mesh solves the tenant as the unmeshed batch
+    does."""
+    from blance_tpu_torch.parallel.sharded import make_mesh, make_mesh_2d
+
     t = _port(make_tenant(17, 8, 0))
-    with pytest.raises(NotImplementedError, match="A.9"):
+    with pytest.raises(TypeError, match="must be a blance_tpu_torch"):
         tfleet.solve_fleet([t], mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="A.9"):
+    with pytest.raises(TypeError, match="must be a blance_tpu_torch"):
         PlanService(mesh=object(), device=CPU)
+    with make_mesh(2, device="cpu") as mesh:
+        with make_mesh_2d(1, 2, devices=mesh) as grid, \
+                pytest.raises(ValueError, match="1-D mesh"):
+            tfleet.solve_fleet([t], mesh=grid)
+        got = tfleet.solve_fleet([t], mesh=mesh)
+    want = tfleet.solve_fleet([t], device=CPU)
+    assert np.array_equal(got[0].assign, want[0].assign)
+    assert got[0].sweeps == want[0].sweeps
 
 
 def test_fleet_asks_for_the_card(monkeypatch):

@@ -230,6 +230,53 @@ def test_analysis_modules_export_the_reference_surface(mod):
     assert not missing, sorted(missing)
 
 
+PARALLEL_MODULES = ["parallel", "parallel.mesh", "parallel.sharded"]
+
+
+def test_parallel_imports_leave_jax_out():
+    """The sharded solves and the mesh, imported alone in a fresh
+    interpreter, pull in neither jax nor the JAX package."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {PARALLEL_MODULES!r}:\n"
+        "    importlib.import_module('blance_tpu_torch.' + m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'blance_tpu' or "
+        "m.startswith('blance_tpu.'))\n"
+        "print('BAD', bad)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("mod", ["parallel", "parallel.sharded"])
+def test_parallel_modules_export_the_reference_surface(mod):
+    import importlib
+
+    assert f"blance_tpu_torch.{mod}" in _port_modules()
+    port = importlib.import_module(f"blance_tpu_torch.{mod}")
+    pytest.importorskip("jax")  # the reference needs it
+    ref = importlib.import_module(f"blance_tpu.{mod}")
+    missing = set(getattr(ref, "__all__", ())) - \
+        set(getattr(port, "__all__", ()))
+    assert not missing, sorted(missing)
+
+
+def test_mesh_workers_import_neither_jax_nor_the_reference():
+    """A mesh's worker ranks are fresh interpreters that import torch and
+    the port only, even when rank 0 (this process) has jax loaded."""
+    import numpy as np
+
+    from blance_tpu_torch.parallel.sharded import make_mesh
+
+    with make_mesh(3, device="cpu") as mesh:
+        out, = mesh.shard_map("probe.imports", (np.zeros(3, np.int64),),
+                              (("x", "parts"),), (("x", "parts"),))
+    assert out.tolist()[1:] == [0, 0]
+
+
 HARNESS_MODULES = ["testing", "testing.sched", "testing.scenarios",
                    "testing.vis", "testing.simulate", "testing.crashsim",
                    "testing.fleetsim", "analysis.schedule"]

@@ -13,8 +13,10 @@ counters must be equal, exactly (the fixtures use whole-number weights).
 The reference's donation test (``test_donated_buffers_invalidated_after_
 dispatch``) is not ported: torch has no buffer donation, and the port
 uses the uploaded ``prev`` tensor as the diff's beginning state without
-copying it.  Its sharded-pipeline and mesh tests wait for ROADMAP A.9,
-and its bucketed and exact-fallback tests are held against the port's in
+copying it.  Its sharded-pipeline and mesh tests are held against the
+port's in tests/test_torch_sharded_paths.py and
+tests/test_torch_sharded.py, and its bucketed and exact-fallback tests
+are held against the port's in
 tests/test_torch_bucketing.py and tests/test_torch_exact.py (and here,
 once each).
 """

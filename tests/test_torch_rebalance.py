@@ -196,16 +196,28 @@ def test_checkpoint_round_trip(tmp_path):
 
 
 def test_session_is_not_ported():
-    """The part of a PlannerSession the port does not have yet raises and
-    names its ROADMAP item: the sharded session (mesh=, A.9).  The fused
-    replan (replan_with_moves) runs: on a one-partition session it
-    returns the proposal and its move arrays (the session itself in
+    """A PlannerSession's ``mesh=`` takes a port Mesh: anything else is
+    rejected with a clear error, and a real 2-rank CPU mesh solves (the
+    sharded session against the reference's in
+    tests/test_torch_sharded_paths.py).  The fused replan
+    (replan_with_moves) runs: on a one-partition session it returns the
+    proposal and its move arrays (the session itself in
     tests/test_torch_session.py, the pipeline in
     tests/test_torch_pipeline.py)."""
+    from blance_tpu_torch.parallel.sharded import make_mesh
+
     m = bt.model(primary=(0, 1))
-    with pytest.raises(NotImplementedError, match="A.9"):
+    with pytest.raises(TypeError, match="must be a blance_tpu_torch"):
         bt.PlannerSession(m, ["a", "b"], ["p0"], mesh=object(),
                           device="cpu")
+    with make_mesh(2, device="cpu") as mesh:
+        sm = bt.PlannerSession(m, ["a", "b", "c"], ["p0", "p1", "p2"],
+                               mesh=mesh)
+        got = sm.replan()
+    flat = bt.PlannerSession(m, ["a", "b", "c"], ["p0", "p1", "p2"],
+                             device="cpu").replan()
+    assert got.shape == flat.shape and (got >= 0).all()
+    assert sorted(got[:, 0, 0].tolist()) == [0, 1, 2]
     s = bt.PlannerSession(m, ["a", "b"], ["p0"], device="cpu")
     assign, (nodes, states, ops) = s.replan_with_moves()
     assert assign.shape == (1, 1, 1) and assign[0, 0, 0] in (0, 1)

@@ -1,11 +1,12 @@
 """The port's shape audit (blance_tpu_torch.analysis.shape_audit).
 
-Its contract table is the reference's less the twelve sharded contracts
-(ROADMAP A.9): the same labels and the same expected output trees.  The
-reference's ``expect()`` is numpy only, so the comparison never runs its
-``run_shape_audit`` (which needs a multi-device mesh).  The port runs
-each contract on a small concrete problem, here on the CPU; on the card
-``tests/test_torch_cuda.py`` runs it with ``device="cuda"``.
+Its contract table is the reference's whole table, the twelve sharded
+contracts included: the same labels and the same expected output trees.
+The reference's ``expect()`` is numpy only, so the comparison never runs
+its ``run_shape_audit``.  The port runs each contract on a small
+concrete problem, here on the CPU (the sharded ones on a 2-rank CPU
+mesh); on the card ``tests/test_torch_cuda.py`` runs it with
+``device="cuda"``.
 """
 
 import pytest
@@ -22,15 +23,17 @@ def _labels(contracts):
 
 
 def test_table_is_the_reference_less_its_sharded_contracts():
+    """The table is the reference's, in its order, now with the twelve
+    sharded contracts it once left out."""
     pytest.importorskip("jax")  # the reference package imports it
     from blance_tpu.analysis import shape_audit as ref
 
-    kept = [c for c in ref.CONTRACTS if c.entry not in _SHARDED]
-    assert len(ref.CONTRACTS) - len(kept) == 12
-    assert _labels(sa.CONTRACTS) == _labels(kept)
-    for mine, theirs in zip(sa.CONTRACTS, kept):
+    sharded = [c for c in ref.CONTRACTS if c.entry in _SHARDED]
+    assert len(sharded) == 12
+    assert _labels(sa.CONTRACTS) == _labels(ref.CONTRACTS)
+    for mine, theirs in zip(sa.CONTRACTS, ref.CONTRACTS):
         assert mine.expect() == theirs.expect(), mine.entry
-    assert len(sa.CONTRACTS) == 60 and len(sa.HOST_CHECKS) == 4
+    assert len(sa.CONTRACTS) == 72 and len(sa.HOST_CHECKS) == 4
 
 
 def test_audit_passes_on_the_cpu():
@@ -38,12 +41,13 @@ def test_audit_passes_on_the_cpu():
     findings, entries = sa.run_shape_audit(device="cpu", timings=timings)
     rendered = "\n".join(f.render() for f in findings)
     assert findings == [], f"shape contract violations:\n{rendered}"
-    assert entries == 60 + 4
+    assert entries == 72 + 4
     assert sorted(timings) == sorted(_labels(sa.CONTRACTS))
     entry_names = {c.entry for c in sa.CONTRACTS}
     assert {"solve_dense", "solve_dense_converged", "solve_dense_warm",
             "carry_from_assignment", "fleet_cold_batch", "solve_sparse",
-            "plan_pipeline", "sched_rank_levels"} <= entry_names
+            "plan_pipeline", "sched_rank_levels"} | _SHARDED <= entry_names
+    assert sa._MESHES == {}  # the audit's mesh is closed after the run
 
 
 def test_audit_catches_drift(monkeypatch):
