@@ -32,6 +32,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..obs import get_recorder
 from . import marshal as _marshal
 from .hierarchy import find_ancestor, level_group_ids
 from .order import sort_state_names, sorted_by_partition_name
@@ -289,13 +290,18 @@ def encode_problem(
     model: PartitionModel,
     opts: PlanOptions,
 ) -> DenseProblem:
-    """Intern and pack a planning problem into dense arrays."""
-    nodes = list(nodes_all)
-    node_index = {n: i for i, n in enumerate(nodes)}
+    """Intern and pack a planning problem into dense arrays.
 
-    partitions = sorted_by_partition_name(partitions_to_assign.keys())
-    states = sort_state_names(model)
-    state_index = {s: i for i, s in enumerate(states)}
+    Its stages run in the spans ``plan.encode.order`` (the name orders),
+    ``plan.encode.prev`` (the [P, S, R] fill) and
+    ``plan.encode.hierarchy`` (the group ids)."""
+    rec = get_recorder()
+    with rec.span("plan.encode.order"):
+        nodes = list(nodes_all)
+        node_index = {n: i for i, n in enumerate(nodes)}
+        partitions = sorted_by_partition_name(partitions_to_assign.keys())
+        states = sort_state_names(model)
+        state_index = {s: i for i, s in enumerate(states)}
 
     constraints = np.zeros(len(states), dtype=np.int32)
     for s, st in model.items():
@@ -304,55 +310,59 @@ def encode_problem(
             c = opts.model_state_constraints.get(s, c)
         constraints[state_index[s]] = c
 
-    # Slot depth: enough for the widest constraint and the widest prev row.
-    r_max = int(constraints.max()) if len(constraints) else 0
-    # The R scan and the [P, S, R] fill each touch every cell once; at 100k
-    # partitions that dict/list traversal dominates the encode, so both run
-    # in the native marshalling layer when it is available
-    # (native/marshal.c), with this pure-Python path as the fallback.  The
-    # C fast path is stricter about shapes (real dicts, real lists); any
-    # structural surprise raises TypeError there and we fall back to this
-    # loop, which tolerates arbitrary Mappings/Sequences.
-    native = _marshal.get()
-    filled = None
-    if native is not None:
-        try:
-            r_max = max(r_max, native.max_slots(
-                partitions, prev_map, partitions_to_assign, state_index))
+    with rec.span("plan.encode.prev"):
+        # Slot depth: enough for the widest constraint and the widest
+        # prev row.
+        r_max = int(constraints.max()) if len(constraints) else 0
+        # The R scan and the [P, S, R] fill each touch every cell once; at
+        # 100k partitions that dict/list traversal dominates the encode, so
+        # both run in the native marshalling layer when it is available
+        # (native/marshal.c), with this pure-Python path as the fallback.
+        # The C fast path is stricter about shapes (real dicts, real
+        # lists); any structural surprise raises TypeError there and we
+        # fall back to this loop, which tolerates arbitrary
+        # Mappings/Sequences.
+        native = _marshal.get()
+        filled = None
+        if native is not None:
+            try:
+                r_max = max(r_max, native.max_slots(
+                    partitions, prev_map, partitions_to_assign, state_index))
+                r_max = max(r_max, 1)
+                P, S = len(partitions), len(states)
+                filled = np.empty((P, S, r_max), dtype=np.int32)
+                native.fill_prev(filled, P, S, r_max, partitions,
+                                 prev_map, partitions_to_assign, state_index,
+                                 node_index)
+            except (TypeError, AttributeError):
+                # AttributeError: a None/falsy entry in prev_map reaches
+                # .nodes_by_state in C; the Python loop below tolerates it
+                # via the `or partitions_to_assign[...]` fallthrough.
+                filled = None
+                r_max = int(constraints.max()) if len(constraints) else 0
+        if filled is None:
+            for pname in partitions:
+                src = prev_map.get(pname) or partitions_to_assign[pname]
+                for s, ns in src.nodes_by_state.items():
+                    if s in state_index:
+                        r_max = max(r_max, len(ns))
             r_max = max(r_max, 1)
-            P, S = len(partitions), len(states)
-            filled = np.empty((P, S, r_max), dtype=np.int32)
-            native.fill_prev(filled, P, S, r_max, partitions, prev_map,
-                             partitions_to_assign, state_index, node_index)
-        except (TypeError, AttributeError):
-            # AttributeError: a None/falsy entry in prev_map reaches
-            # .nodes_by_state in C; the Python loop below tolerates it
-            # via the `or partitions_to_assign[...]` fallthrough.
-            filled = None
-            r_max = int(constraints.max()) if len(constraints) else 0
-    if filled is None:
-        for pname in partitions:
-            src = prev_map.get(pname) or partitions_to_assign[pname]
-            for s, ns in src.nodes_by_state.items():
-                if s in state_index:
-                    r_max = max(r_max, len(ns))
-        r_max = max(r_max, 1)
 
-    P, S, N = len(partitions), len(states), len(nodes)
-    if filled is not None:
-        prev = filled
-    else:
-        prev = np.full((P, S, r_max), -1, dtype=np.int32)
-        for pi, pname in enumerate(partitions):
-            src = prev_map.get(pname) or partitions_to_assign.get(pname)
-            if src is None:
-                continue
-            for s, ns in src.nodes_by_state.items():
-                si = state_index.get(s)
-                if si is None:
+        P, S, N = len(partitions), len(states), len(nodes)
+        if filled is not None:
+            prev = filled
+        else:
+            prev = np.full((P, S, r_max), -1, dtype=np.int32)
+            for pi, pname in enumerate(partitions):
+                src = prev_map.get(pname) or partitions_to_assign.get(pname)
+                if src is None:
                     continue
-                for ri, node in enumerate(ns[:r_max]):
-                    prev[pi, si, ri] = node_index.get(node, -1)
+                for s, ns in src.nodes_by_state.items():
+                    si = state_index.get(s)
+                    if si is None:
+                        continue
+                    for ri, node in enumerate(ns[:r_max]):
+                        prev[pi, si, ri] = node_index.get(node, -1)
 
     pweights = np.ones(P, dtype=np.float32)
     if opts.partition_weights:
@@ -402,13 +412,15 @@ def encode_problem(
             for r in rl:
                 max_level = max(max_level, r.include_level, r.exclude_level)
 
-    gid_rows = level_group_ids(nodes, opts.node_hierarchy, max_level)
-    gids = np.asarray(gid_rows, dtype=np.int32).reshape(max_level + 1, N) \
-        if N else np.zeros((max_level + 1, 0), np.int32)
-    gid_valid = np.ones((max_level + 1, N), dtype=bool)
-    for level in range(max_level + 1):
-        for ni, n in enumerate(nodes):
-            gid_valid[level, ni] = find_ancestor(n, opts.node_hierarchy, level) != ""
+    with rec.span("plan.encode.hierarchy"):
+        gid_rows = level_group_ids(nodes, opts.node_hierarchy, max_level)
+        gids = np.asarray(gid_rows, dtype=np.int32).reshape(
+            max_level + 1, N) if N else np.zeros((max_level + 1, 0), np.int32)
+        gid_valid = np.ones((max_level + 1, N), dtype=bool)
+        for level in range(max_level + 1):
+            for ni, n in enumerate(nodes):
+                gid_valid[level, ni] = \
+                    find_ancestor(n, opts.node_hierarchy, level) != ""
 
     return DenseProblem(
         nodes=nodes,
@@ -446,7 +458,11 @@ def decode_assignment(
     the fused plan pipeline computes them on the device
     (:func:`pack_assignment_core`) and brings them back with the
     assignment, leaving only the id->name gather and list building here.
+
+    The rows run in the span ``plan.decode.rows`` (pack, name gather,
+    list building) and the map in ``plan.decode.build``.
     """
+    rec = get_recorder()
     if (packed is None) != (counts is None):
         raise ValueError("decode_assignment: packed and counts must be "
                          "passed together")
@@ -454,39 +470,40 @@ def decode_assignment(
     warnings: dict[str, list[str]] = {}
     P = problem.P
 
-    # Per modeled state with constraints > 0: pack non-empty slots left
-    # (stable, preserving slot order), gather names in one shot, and convert
-    # to nested Python lists at C speed.
-    names_arr = np.asarray(problem.nodes, dtype=object) \
-        if problem.nodes else np.zeros(0, dtype=object)
-    per_state_rows: dict[int, list[list[str]]] = {}
-    per_state_counts: dict[int, np.ndarray] = {}
-    for si, sname in enumerate(problem.states):
-        want = int(problem.constraints[si])
-        if want <= 0:
-            continue
-        if P == 0 or not problem.nodes:
-            # Degenerate: nothing assignable; every slot is a shortfall.
-            per_state_rows[si] = [[] for _ in range(P)]
-            per_state_counts[si] = np.zeros(P, dtype=np.int64)
-            continue
-        if packed is not None and counts is not None:
-            row_ids = np.asarray(packed)[:, si, :]
-            row_counts = np.asarray(counts)[:, si].astype(np.int64)
-        else:
-            ids = assign[:, si, :]
-            mask = ids >= 0
-            row_counts = mask.sum(axis=1)
-            order = np.argsort(~mask, axis=1, kind="stable")
-            row_ids = np.take_along_axis(ids, order, axis=1)
-        names = names_arr[np.maximum(row_ids, 0)]
-        nested = names.tolist()
-        if row_counts.min() == row_ids.shape[1]:  # all slots filled
-            per_state_rows[si] = nested
-        else:
-            per_state_rows[si] = [
-                row[:c] for row, c in zip(nested, row_counts.tolist())]
-        per_state_counts[si] = row_counts
+    with rec.span("plan.decode.rows"):
+        # Per modeled state with constraints > 0: pack non-empty slots
+        # left (stable, preserving slot order), gather names in one shot,
+        # and convert to nested Python lists at C speed.
+        names_arr = np.asarray(problem.nodes, dtype=object) \
+            if problem.nodes else np.zeros(0, dtype=object)
+        per_state_rows: dict[int, list[list[str]]] = {}
+        per_state_counts: dict[int, np.ndarray] = {}
+        for si, sname in enumerate(problem.states):
+            want = int(problem.constraints[si])
+            if want <= 0:
+                continue
+            if P == 0 or not problem.nodes:
+                # Degenerate: nothing assignable; every slot is a shortfall.
+                per_state_rows[si] = [[] for _ in range(P)]
+                per_state_counts[si] = np.zeros(P, dtype=np.int64)
+                continue
+            if packed is not None and counts is not None:
+                row_ids = np.asarray(packed)[:, si, :]
+                row_counts = np.asarray(counts)[:, si].astype(np.int64)
+            else:
+                ids = assign[:, si, :]
+                mask = ids >= 0
+                row_counts = mask.sum(axis=1)
+                order = np.argsort(~mask, axis=1, kind="stable")
+                row_ids = np.take_along_axis(ids, order, axis=1)
+            names = names_arr[np.maximum(row_ids, 0)]
+            nested = names.tolist()
+            if row_counts.min() == row_ids.shape[1]:  # all slots filled
+                per_state_rows[si] = nested
+            else:
+                per_state_rows[si] = [
+                    row[:c] for row, c in zip(nested, row_counts.tolist())]
+            per_state_counts[si] = row_counts
 
     # Partitions needing the slow path: source has unmodeled or
     # zero-constraint states to pass through (rare in practice).
@@ -499,35 +516,36 @@ def decode_assignment(
     mod_names = [s for _, s in modeled]
     rows_per_state = [per_state_rows[si] for si, _ in modeled]
     removed = nodes_to_remove or []
-    native = _marshal.get()
-    next_map = None
-    if native is not None:
-        try:
-            next_map = native.build_map(
-                Partition, problem.partitions, mod_names, rows_per_state,
-                partitions_to_assign, solved_states, set(removed))
-        except (TypeError, AttributeError):
-            next_map = None  # structural surprise: pure-Python fallback
-    if next_map is None:
-        next_map = {}
-        rows_iter = zip(*rows_per_state) if rows_per_state \
-            else (() for _ in range(P))
-        get_src = partitions_to_assign.get
-        for pname, vals in zip(problem.partitions, rows_iter):
-            src = get_src(pname)
-            # keys() <= set is a C-level check; the passthrough branch
-            # (source carries unmodeled / zero-constraint states) is rare
-            # in practice.
-            if src is None or src.nodes_by_state.keys() <= solved_states:
-                nbs = dict(zip(mod_names, vals))
-            else:
-                nbs = {}
-                for s, ns in src.nodes_by_state.items():
-                    if s not in solved_states:
-                        nbs[s] = strings_remove(ns, removed)
-                for s, v in zip(mod_names, vals):
-                    nbs[s] = v
-            next_map[pname] = Partition(pname, nbs)
+    with rec.span("plan.decode.build"):
+        native = _marshal.get()
+        next_map = None
+        if native is not None:
+            try:
+                next_map = native.build_map(
+                    Partition, problem.partitions, mod_names, rows_per_state,
+                    partitions_to_assign, solved_states, set(removed))
+            except (TypeError, AttributeError):
+                next_map = None  # structural surprise: pure-Python fallback
+        if next_map is None:
+            next_map = {}
+            rows_iter = zip(*rows_per_state) if rows_per_state \
+                else (() for _ in range(P))
+            get_src = partitions_to_assign.get
+            for pname, vals in zip(problem.partitions, rows_iter):
+                src = get_src(pname)
+                # keys() <= set is a C-level check; the passthrough branch
+                # (source carries unmodeled / zero-constraint states) is rare
+                # in practice.
+                if src is None or src.nodes_by_state.keys() <= solved_states:
+                    nbs = dict(zip(mod_names, vals))
+                else:
+                    nbs = {}
+                    for s, ns in src.nodes_by_state.items():
+                        if s not in solved_states:
+                            nbs[s] = strings_remove(ns, removed)
+                    for s, v in zip(mod_names, vals):
+                        nbs[s] = v
+                next_map[pname] = Partition(pname, nbs)
 
     for si, sname in modeled:
         want = int(constraints[si])

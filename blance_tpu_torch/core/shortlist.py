@@ -29,6 +29,8 @@ from typing import Optional
 
 import torch
 
+from ..obs import counts_recorder
+
 __all__ = ["auto_shortlist_k", "build_shortlist_core", "shortlist_rules_nest"]
 
 
@@ -183,6 +185,8 @@ def build_shortlist_core(prev, pweights, nweights, valid, gids, gid_valid,
     cols.append(order[:g_top].expand(p, g_top))
     k_cov = k_glob - g_top
     if k_cov > 0:
+        # One host read (plan.solve.host_syncs, as plan/tensor.py counts).
+        counts_recorder().count("plan.solve.host_syncs")
         n_valid = max(int(valid.to(torch.int32).sum()), 1)
         # int32 on purpose: the product wraps from row 53,021 on, as the
         # reference's does; torch.remainder is Python's (floor) modulo.

@@ -19,8 +19,9 @@ into a chrome://tracing / Perfetto-loadable file, with
 ``utils.trace.device_profile`` (torch.profiler) over the same interval
 when given a log dir.  ``expo.MetricsServer`` serves Prometheus text
 format from Recorder snapshots (``expo.default_registry()`` is the one
-declarative table of every metric).  ``tracectx`` stamps plan-service
-requests.
+declarative table of every metric; ``PORT_ONLY_TELEMETRY`` names the
+spans and counters the port records beyond the reference's).
+``tracectx`` stamps plan-service requests.
 
 The DEVICE side has its own observatory (``device``, opt-in via
 ``device.enable()``): kernel-library and extension builds counted per
@@ -33,6 +34,9 @@ from . import device
 from .chrome import ChromeTraceSink, trace, write_chrome_trace
 from .costmodel import CostModel
 from .expo import (
+    PORT_ONLY_COUNTERS,
+    PORT_ONLY_SPANS,
+    PORT_ONLY_TELEMETRY,
     Metric,
     MetricsRegistry,
     MetricsServer,
@@ -45,6 +49,8 @@ from .recorder import (
     DEFAULT_BUCKETS,
     Recorder,
     Span,
+    counting_to,
+    counts_recorder,
     get_recorder,
     percentile,
     phase_span,
@@ -77,6 +83,8 @@ __all__ = [
     "set_recorder",
     "use_recorder",
     "phase_span",
+    "counts_recorder",
+    "counting_to",
     "percentile",
     "InMemorySink",
     "JsonlSink",
@@ -84,6 +92,9 @@ __all__ = [
     "ChromeTraceSink",
     "write_chrome_trace",
     "trace",
+    "PORT_ONLY_SPANS",
+    "PORT_ONLY_COUNTERS",
+    "PORT_ONLY_TELEMETRY",
     "Metric",
     "MetricsRegistry",
     "MetricsServer",

@@ -23,10 +23,13 @@ object format (the stable subset both viewers load):
 
 ``trace(...)`` is the one-call wrapper (``obs.device_check --trace-out``
 uses it): it attaches the sink, runs the body under ``device_profile``
-when a log dir is given — both captures cover the same wall-clock
-window, so host spans and the torch.profiler trace (opened side by side
-in Perfetto) line up — and
-writes the JSON on exit.
+when a log dir is given, and writes the JSON on exit.  With the log dir
+it also writes a merged file (``x.json`` -> ``x.merged.json``): the
+profiler's trace with the recorder's spans and counter samples moved
+onto the profiler's clock by the anchor taken as the profiler started,
+so one file in Perfetto shows the spans above the card's kernels.  The
+spans are never ``record_function`` ranges: the profiler would put
+those on the card's timeline too.
 """
 
 from __future__ import annotations
@@ -47,6 +50,9 @@ class ChromeTraceSink:
 
     def __init__(self, recorder: Optional[Recorder] = None) -> None:
         self._t0 = (recorder or get_recorder()).t0
+        # Set by trace() once it has merged a device profile.
+        self.merged_path: Optional[str] = None
+        self.clock_drift_s: Optional[float] = None
         self._spans: list[Span] = []
         self._counter_samples: list[tuple[float, str, float]] = []
         self._lock = threading.Lock()
@@ -142,16 +148,56 @@ def write_chrome_trace(path: str, sink: ChromeTraceSink,
     sink.write(path, counters=dict(rec.counters))
 
 
+def _merged_path(path: str) -> str:
+    """Where ``trace(path, device_log_dir=...)`` writes the merged file:
+    ``x.json`` -> ``x.merged.json``."""
+    root, ext = os.path.splitext(path)
+    return f"{root}.merged{ext or '.json'}"
+
+
+def _write_merged(path: str, profile, sink: ChromeTraceSink,
+                       counters: Optional[dict] = None) -> float:
+    """Write the profiler's trace (``profile``, a finished
+    ``utils.trace.DeviceProfile``) with ``sink``'s events added, each
+    time moved from the recorder's clock onto the profiler's by the
+    start anchor: a recorder time t lands at the anchor's ``ts`` plus
+    (t - the anchor's recorder time).  Returns the clocks' drift over
+    the profile, the profiler's time between its two anchors less the
+    recorder's, in seconds; the file keeps it as ``hostClockDrift_s``."""
+    from ..utils.trace import ANCHOR_END, ANCHOR_START
+
+    with open(profile.path) as f:
+        doc = json.load(f)
+    events = doc["traceEvents"]
+    at = {e["name"]: e["ts"] for e in events
+          if e.get("ph") == "X" and e.get("name") in profile.anchors}
+    t_start = profile.anchors[ANCHOR_START]
+    shift = at[ANCHOR_START] - (t_start - sink._t0) * 1e6
+    for ev in sink.events(counters):
+        if "ts" in ev:
+            ev["ts"] += shift
+        events.append(ev)
+    drift = (at[ANCHOR_END] - at[ANCHOR_START]) * 1e-6 \
+        - (profile.anchors[ANCHOR_END] - t_start)
+    doc["hostClockDrift_s"] = drift
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(doc, f, default=str)
+    os.replace(tmp, path)
+    return drift
+
+
 @contextlib.contextmanager
 def trace(path: str, recorder: Optional[Recorder] = None,
           device_log_dir: Optional[str] = None) -> Iterator[ChromeTraceSink]:
     """Capture every span finished inside the body into a Chrome trace at
     ``path``.  With ``device_log_dir``, the body also runs under
-    ``utils.trace.device_profile`` (torch.profiler) so the device profile
-    covers the same
-    interval as the host spans (open both in Perfetto to correlate).
-    The file is written even when the body raises — a crashed run's trace
-    is exactly the one worth reading."""
+    ``utils.trace.device_profile`` (torch.profiler), whose trace goes to
+    that directory, and the spans and the profile are merged onto the
+    profiler's clock in ``path``'s ``.merged.json`` twin
+    (``_write_merged``; the sink's ``merged_path`` and ``clock_drift_s``
+    hold the file and the drift).  The files are written even when the body raises — a
+    crashed run's trace is exactly the one worth reading."""
     from ..utils.trace import device_profile
 
     rec = recorder or get_recorder()
@@ -161,9 +207,15 @@ def trace(path: str, recorder: Optional[Recorder] = None,
     # (where it would also mask the body's own exception).
     sink.write(path)
     rec.add_sink(sink)
+    profile = None
     try:
-        with device_profile(device_log_dir):
+        with device_profile(device_log_dir, clock=rec.now) as profile:
             yield sink
     finally:
         rec.remove_sink(sink)
-        sink.write(path, counters=dict(rec.counters))
+        counters = dict(rec.counters)
+        sink.write(path, counters=counters)
+        if profile is not None and profile.path is not None:
+            sink.merged_path = _merged_path(path)
+            sink.clock_drift_s = _write_merged(
+                sink.merged_path, profile, sink, counters)

@@ -57,6 +57,9 @@ from typing import Callable, Iterable, Optional, Sequence
 from .recorder import Recorder, get_recorder
 
 __all__ = [
+    "PORT_ONLY_SPANS",
+    "PORT_ONLY_COUNTERS",
+    "PORT_ONLY_TELEMETRY",
     "Metric",
     "MetricsRegistry",
     "default_registry",
@@ -68,6 +71,29 @@ __all__ = [
 ]
 
 _KINDS = ("counter", "gauge", "histogram")
+
+# Telemetry the port records and the reference does not.  The spans
+# split the plan's host stages (encode, decode), time the audit and the
+# release of the encoded problem at the end of plan_next_map_cuda; the
+# counters count the solver's auction rounds and its deliberate reads of
+# a device value back to the host (plan/tensor.py).  The counters are
+# declared (the drift guard accepts them) but never rendered, so an
+# exposition stays the reference's byte for byte: the simulators'
+# replays compare it.
+PORT_ONLY_SPANS = (
+    "plan.audit",
+    "plan.encode.order",
+    "plan.encode.prev",
+    "plan.encode.hierarchy",
+    "plan.decode.rows",
+    "plan.decode.build",
+    "plan.release",
+)
+PORT_ONLY_COUNTERS = (
+    "plan.solve.auction_rounds",
+    "plan.solve.host_syncs",
+)
+PORT_ONLY_TELEMETRY = PORT_ONLY_SPANS + PORT_ONLY_COUNTERS
 
 
 @dataclass(frozen=True)
@@ -95,9 +121,15 @@ class MetricsRegistry:
     One entry per (name, kind) — ``plan.solve.sweeps`` is legitimately
     both a counter (total passes) and a histogram (passes per solve),
     and the two render under distinct Prometheus names (``_total`` vs
-    ``_bucket``/``_sum``/``_count``)."""
+    ``_bucket``/``_sum``/``_count``).
 
-    def __init__(self, metrics: Iterable[Metric]) -> None:
+    ``unrendered`` names (name, kind) pairs that count as declared but
+    are left out of every rendering (the port's own counters,
+    ``PORT_ONLY_COUNTERS``)."""
+
+    def __init__(self, metrics: Iterable[Metric],
+                 unrendered: Iterable[tuple[str, str]] = ()) -> None:
+        self._unrendered = frozenset(unrendered)
         self._by_key: dict[tuple[str, str], Metric] = {}
         seen_prom: dict[str, tuple[str, str]] = {}
         for m in metrics:
@@ -116,7 +148,8 @@ class MetricsRegistry:
         return sorted(self._by_key.values(), key=lambda m: (m.name, m.kind))
 
     def declared(self, name: str, kind: str) -> bool:
-        return (name, kind) in self._by_key
+        return (name, kind) in self._by_key or \
+            (name, kind) in self._unrendered
 
     @staticmethod
     def prom_name(metric: Metric) -> str:
@@ -485,7 +518,8 @@ def default_registry() -> MetricsRegistry:
                f"progress counter mirror of OrchestratorProgress.{name}")
         for name in OrchestratorProgress().__dict__
         if name != "errors")
-    _REGISTRY = MetricsRegistry(metrics)
+    _REGISTRY = MetricsRegistry(
+        metrics, unrendered=[(n, "counter") for n in PORT_ONLY_COUNTERS])
     return _REGISTRY
 
 

@@ -67,6 +67,8 @@ __all__ = [
     "set_recorder",
     "use_recorder",
     "phase_span",
+    "counts_recorder",
+    "counting_to",
     "percentile",
     "escape_label_value",
 ]
@@ -429,6 +431,37 @@ def use_recorder(recorder: Recorder) -> Iterator[Recorder]:
         yield recorder
     finally:
         set_recorder(prev)
+
+
+class _Dropped:
+    """Takes counts and keeps none."""
+
+    def count(self, name: str, value: float = 1) -> None:
+        pass
+
+
+# Context-local: a solve running in a worker thread of the plan service
+# counts where its caller asked, whatever the process recorder is.
+_counts_to: contextvars.ContextVar = contextvars.ContextVar(
+    "obs_counts_to", default=None)
+
+
+def counts_recorder():
+    """Where the solver counts its own work (its auction rounds and host
+    syncs): the recorder ``counting_to`` names in this context, else the
+    process recorder."""
+    return _counts_to.get() or _global_recorder
+
+
+@contextlib.contextmanager
+def counting_to(recorder: Optional[Recorder]) -> Iterator[None]:
+    """Send the solver's counts inside the body to ``recorder``, or drop
+    them when it is None (a solve asked to record nothing)."""
+    token = _counts_to.set(_Dropped() if recorder is None else recorder)
+    try:
+        yield
+    finally:
+        _counts_to.reset(token)
 
 
 @contextlib.contextmanager

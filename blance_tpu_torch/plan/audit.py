@@ -9,6 +9,7 @@ from typing import Optional
 import numpy as np
 
 from ..core.encode import DenseProblem, NPArray
+from ..obs import get_recorder
 
 __all__ = ["check_assignment", "maybe_validate"]
 
@@ -303,8 +304,15 @@ def check_assignment(
     seconds at 100k x 10k), which stays behind the auto-validation
     ceiling unless explicitly requested.  See the
     ``validate_assignment`` wiring in plan_next_map_tpu /
-    PlannerSession.replan."""
-    assign = np.asarray(assign)
+    PlannerSession.replan.
+
+    Every audit runs inside a ``plan.audit`` span."""
+    with get_recorder().span("plan.audit"):
+        return _audit_counts(problem, np.asarray(assign))
+
+
+def _audit_counts(problem: DenseProblem, assign: NPArray) -> dict[str, int]:
+    """check_assignment's counts."""
     P, S, R = assign.shape
     n_valid = int(problem.valid_node.sum())
     if P == 0:

@@ -60,7 +60,7 @@ from ..core.encode import (
     stack_problem_arrays,
 )
 from ..obs import device as _device
-from ..obs import get_recorder
+from ..obs import counting_to, get_recorder
 from .carry import capacity_shrank, effective_dirty
 from .tensor import (
     Constraints,
@@ -384,16 +384,19 @@ def _dispatch(fn_args: list[NPArray], warm: bool, k: BatchClass,
     fn_args, b_padded = _pad_batch(fn_args, b_target)
     statics = dict(constraints=k.constraints, rules=k.rules,
                    fused_score=fused_score)
+    # The solver's own counts (rounds, host syncs) go where the fleet's
+    # do, and nowhere when it records nothing.
+    counts = counting_to(rec if record else None)
     if mesh is not None:
         fn = _mesh_callable(mesh, warm, k.constraints, k.rules,
                             max_iterations, fused_score)
-        with _device.entry(ent):
+        with _device.entry(ent), counts:
             outs = fn(*fn_args)
     else:
         dev_args = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
                     for a in fn_args]
         with _device.entry(ent), _device.measure(
-                ent, f"{k.p}x{k.n}xB{b_padded}", device, dev_args):
+                ent, f"{k.p}x{k.n}xB{b_padded}", device, dev_args), counts:
             if warm:
                 outs = _fleet_warm_batch(*dev_args, **statics)
             else:

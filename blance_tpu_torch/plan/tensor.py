@@ -69,6 +69,7 @@ rank issues a collective the others never reach.
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
 import warnings as _warnings
 from typing import Callable, NamedTuple, Optional
@@ -99,7 +100,7 @@ from ..ops.score_fused import (
 )
 from ..moves.batch import diff_assignments, moves_from_arrays
 from ..obs import device as _device
-from ..obs import get_recorder
+from ..obs import counting_to, counts_recorder, get_recorder
 from ..obs.recorder import phase_span
 from ..utils.trace import PhaseTimer
 from .audit import maybe_validate
@@ -125,6 +126,26 @@ _TIER_BAND_HEADROOM = 0.45  # max allowed within-tier mass, in tiers
 _tier_scale_memo: dict[tuple[object, ...], object] = {}
 _MAX_AUCTION_ROUNDS = 16
 _JITTER = 1.0e-5
+
+# The solver's two port-only counters (obs.PORT_ONLY_COUNTERS): rounds
+# of the auction (_assign_slot), and each deliberate read of a device
+# value back to the host (a loop's exit flag, a branch flag, a result
+# copy, an explicit synchronise on the card).  On the CPU the reads cost
+# nothing but count the same.  They go to ``obs.counts_recorder()``: the
+# process recorder, or the one a caller names with ``obs.counting_to``.
+_ROUNDS = "plan.solve.auction_rounds"
+_HOST_SYNCS = "plan.solve.host_syncs"
+
+
+def _quiet_unless_recorded(fn):
+    """``record=False`` drops the solver's counters too."""
+    @functools.wraps(fn)
+    def wrapper(*args, record: bool = True, **kw):
+        if record:
+            return fn(*args, record=True, **kw)
+        with counting_to(None):
+            return fn(*args, record=False, **kw)
+    return wrapper
 
 # Score-engine default for plan_next_map_cuda: "off" = matrix engine,
 # "on" = in-kernel score, "auto" = resolved per problem size by
@@ -668,6 +689,7 @@ def _pin_prev_holders(
         if n else inf
 
     need = (node_w > cap).any(dim=-1)
+    counts_recorder().count(_HOST_SYNCS)
     if not bool(need.any()):
         # Common case (caps only grew): every eligible holder fits.
         return pin_ok
@@ -775,7 +797,8 @@ def _assign_slot(
     ``vmap`` gives a ``while_loop`` with a batched predicate); the force
     step runs when any element has an unassigned row and adds 0.0 to the
     others' fill, which leaves it bitwise unchanged.  Rounds run are
-    counted in ``_assign_slot.rounds``.
+    counted in the recorder's ``plan.solve.auction_rounds``, and each
+    flag read in ``plan.solve.host_syncs``.
 
     Partition axis: the rounds are shard-local (the caller hands each
     shard its share of capacity and psums the returned usage), so shards
@@ -789,6 +812,7 @@ def _assign_slot(
     nb = cap.dim() - 1
     dev = pweights.device
     zeros_n = torch.zeros_like(cap)
+    counts = counts_recorder()
 
     if has_rules:
         raw_best_all, _, _, _ = min2_fn(zeros_n)
@@ -813,6 +837,7 @@ def _assign_slot(
 
     while it < _MAX_AUCTION_ROUNDS:
         run = unassigned.any(dim=-1) & progress
+        counts.count(_HOST_SYNCS)
         if not bool(run.any().item()):
             break
         carry0 = (slot_assign, unassigned, rem_cap, used, progress)
@@ -906,12 +931,13 @@ def _assign_slot(
             for new, old in zip((slot_assign, unassigned, rem_cap, used,
                                  progress), carry0))
         it += 1
-        _assign_slot.rounds += 1
+        counts.count(_ROUNDS)
 
     # Force step: remaining partitions take their best feasible node,
     # ignoring capacity, priced on the global usage; skipped when the
     # rounds assigned everyone.
     used_global = _psum(used, axis)
+    counts.count(_HOST_SYNCS)
     if bool(unassigned.any()):
         best, choice, _second, _raw = min2_fn(used_global * price_scale)
         forced = unassigned & (best < _INF / 2)
@@ -921,9 +947,6 @@ def _assign_slot(
         used = used + _scatter_add(n, choice, torch.where(forced, pweights,
                                                           0.0), nb)
     return slot_assign, used
-
-
-_assign_slot.rounds = 0
 
 
 def _matrix_score(total, total_p, w_div, neg_boost, valid, stick_si,
@@ -1163,6 +1186,7 @@ def _solve_assign(
             # common case): no score, no auction.  The flag is psum'd, so
             # all shards agree; the auction's collectives are node-axis
             # only, over rows every node shard holds alike.
+            counts_recorder().count(_HOST_SYNCS)
             if not bool(_flag_any(~(init_assign >= 0).all(), axis)):
                 slot_assign, used = init_assign, pin_used
             else:
@@ -1379,9 +1403,12 @@ def _solve_dense_converged_impl(prev, pweights, nweights, valid, stickiness,
         if trace_sweeps:
             return _traced_fixpoint(solve, prev, carry_used, max_iterations,
                                     p_real)
+        counts = counts_recorder()
         out, prev_i, it = solve(prev, carry_used), prev, 1
-        while it < max_iterations and \
-                bool(_flag_any((out != prev_i).any(), axis)):
+        while it < max_iterations:
+            counts.count(_HOST_SYNCS)
+            if not bool(_flag_any((out != prev_i).any(), axis)):
+                break
             out, prev_i, it = solve(out), out, it + 1
         return out, it
 
@@ -1405,6 +1432,7 @@ def _solve_dense_converged_impl(prev, pweights, nweights, valid, stickiness,
         last_in[live] = x
         out = out.clone()
         out[live] = y
+        counts_recorder().count(_HOST_SYNCS)
         sweeps[live.cpu()] += 1
     return out, sweeps
 
@@ -1421,9 +1449,13 @@ def _traced_fixpoint(solve, prev, carry_used, max_iterations: int, p_real):
     def changed_rows(a, b):
         return (a != b).any(dim=2).any(dim=1).sum()
 
+    syncs = counts_recorder()
     out, prev_i, it = solve(prev, carry_used), prev, 1
     counts = [changed_rows(out, prev_i)]
-    while it < max_iterations and bool((out != prev_i).any()):
+    while it < max_iterations:
+        syncs.count(_HOST_SYNCS)
+        if not bool((out != prev_i).any()):
+            break
         out, prev_i, it = solve(out), out, it + 1
         counts.append(changed_rows(out, prev_i))
     total = torch.stack(counts).to(torch.float32)
@@ -1433,6 +1465,7 @@ def _traced_fixpoint(solve, prev, carry_used, max_iterations: int, p_real):
         fracs = total / torch.clamp(torch.as_tensor(
             p_real, dtype=torch.float32, device=prev.device), min=1.0)
     full = np.zeros(max_iterations, np.float32)
+    syncs.count(_HOST_SYNCS)
     full[:it] = fracs.cpu().numpy()
     return out, it, full
 
@@ -1500,6 +1533,7 @@ def _check_tier_band_scale(prev, pweights, nweights, valid, stickiness,
     _tier_scale_memo[key] = fingerprint
 
 
+@_quiet_unless_recorded
 def solve_dense_converged(prev, pweights, nweights, valid, stickiness,
                           gids, gid_valid, constraints: Constraints,
                           rules: Rules, max_iterations: int = 10,
@@ -1592,6 +1626,7 @@ def solve_converged_resilient(
                 gid_valid, constraints, rules, max_iterations=max_iterations,
                 fused_score=m, carry_used=carry_used, stats=stats,
                 p_real=p_real)
+            counts_recorder().count(_HOST_SYNCS)
             return out, out.cpu().numpy()
 
     try:
@@ -1698,6 +1733,7 @@ def _warm_declined(record: bool) -> tuple[None, None]:
     return None, None
 
 
+@_quiet_unless_recorded
 def solve_dense_warm(
     prev, pweights, nweights, valid, stickiness, gids, gid_valid,
     constraints, rules, *, dirty, carry: SolveCarry,
@@ -1742,12 +1778,14 @@ def solve_dense_warm(
         out, new_used, ok = _warm_repair(
             prev, pweights, nweights, valid, stickiness, gids, gid_valid,
             dirty_t, used, constraints, rules, fused_score, p_real)
+        counts_recorder().count(_HOST_SYNCS)
         accepted = bool(ok)
     if not accepted:
         return _warm_declined(record)
     if record:
         _record_sweeps(1)
         rec.set_attr("warm", True)
+    counts_recorder().count(_HOST_SYNCS)
     return out.cpu().numpy(), SolveCarry(prices=new_used.sum(0), assign=out,
                                          used=new_used)
 
@@ -1786,9 +1824,12 @@ def _solve_sparse_converged_impl(prev, pweights, nweights, valid,
                              shortlist=shortlist, carry_used=cu,
                              p_real=p_real, axis=axis)
 
+    counts = counts_recorder()
     (out, exh), prev_i, it = solve(prev, carry_used), prev, 1
-    while it < max_iterations and \
-            bool(_flag_any((out != prev_i).any(), axis)):
+    while it < max_iterations:
+        counts.count(_HOST_SYNCS)
+        if not bool(_flag_any((out != prev_i).any(), axis)):
+            break
         (new, exh), prev_i, it = solve(out), out, it + 1
         out = new
     return out, it, exh
@@ -1962,7 +2003,10 @@ def _sparse_fallback_rows(
 
 
 def _np(x) -> NPArray:
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x)
+    counts_recorder().count(_HOST_SYNCS)
+    return x.cpu().numpy()
 
 
 def _apply_sparse_fallback(assign: NPArray, exhausted: NPArray, prev,
@@ -2034,6 +2078,7 @@ def _sparse_statics(prev, pweights, nweights, valid, stickiness,
     return constraints, rules
 
 
+@_quiet_unless_recorded
 def solve_sparse(
     prev, pweights, nweights, valid, stickiness, gids, gid_valid,
     constraints, rules, *, shortlist=None, k: Optional[int] = None,
@@ -2077,6 +2122,7 @@ def solve_sparse(
                 prev, pweights, nweights, valid, stickiness, gids,
                 gid_valid, shortlist, constraints, rules,
                 max(int(max_iterations), 1), carry_used, p_real)
+            counts_recorder().count(_HOST_SYNCS, 2)
             out_np = out.cpu().numpy()
             exh_np = exh.cpu().numpy()
     if record:
@@ -2094,6 +2140,7 @@ def solve_sparse(
     return out_np
 
 
+@_quiet_unless_recorded
 def solve_sparse_warm(
     prev, pweights, nweights, valid, stickiness, gids, gid_valid,
     constraints, rules, *, dirty, carry: SolveCarry, shortlist=None,
@@ -2133,8 +2180,10 @@ def solve_sparse_warm(
                 prev, pweights, nweights, valid, stickiness, gids,
                 gid_valid, shortlist, dirty_t, used, constraints, rules,
                 p_real)
+            counts_recorder().count(_HOST_SYNCS)
             accepted = bool(ok)
     if stats is not None:
+        counts_recorder().count(_HOST_SYNCS)
         stats.update(k=int(shortlist.shape[1]), shortlist_s=shortlist_s,
                      accepted=accepted, exhausted_rows=int(exh.sum()),
                      fallback_rows=0)
@@ -2143,6 +2192,7 @@ def solve_sparse_warm(
     if record:
         _record_sweeps(1)
         rec.set_attr("warm", True)
+    counts_recorder().count(_HOST_SYNCS, 2)
     patched, replaced = _apply_sparse_fallback(
         out.cpu().numpy(), exh.cpu().numpy(), prev, pweights, nweights,
         valid, stickiness, gids, gid_valid, constraints, rules, record)
@@ -2187,6 +2237,7 @@ def _opts_shortlist_k(opts: PlanOptions, n: int, constraints: Constraints,
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
+        counts_recorder().count(_HOST_SYNCS)
         torch.cuda.synchronize(device)
 
 
@@ -2253,12 +2304,13 @@ def plan_next_map_cuda(
     outputs as the reference's plan_next_map_tpu, and the same
     ``plan.encode`` / ``plan.solve`` / ``plan.decode`` spans, which also
     accumulate into ``timer`` (a PhaseTimer) when one is given.
-    ``timings``, when given, receives encode_s / solve_s / audit_s /
-    decode_s wall times (the device synchronised before each clock
-    read), the engine that ran ("matrix", "fused" or "sparse"), the
-    sweep count and the kernel launches of the solve; on the sparse
-    engine also k, shortlist_s, exhausted_rows and fallback_rows (see
-    solve_sparse).
+    ``timings``, when given, receives encode_s / solve_s / decode_s, the
+    durations of those three spans (the device synchronised inside the
+    solve's), audit_s, the time from the solve's end to the decode's
+    start (the audit), the engine that ran ("matrix", "fused" or
+    "sparse"), the sweep count and the kernel launches of the solve; on
+    the sparse engine also k, shortlist_s, exhausted_rows and
+    fallback_rows (see solve_sparse).
 
     Custom placement hooks the device score cannot express
     (``_cuda_supported``) run the exact native planner (the Python greedy
@@ -2281,11 +2333,9 @@ def plan_next_map_cuda(
                 prev_map, partitions_to_assign, nodes_all,
                 nodes_to_remove, nodes_to_add, model, opts)
     del nodes_to_add
-    stamps = {"t0": time.perf_counter()}
-    with phase_span("plan.encode", timer=timer):
+    with phase_span("plan.encode", timer=timer) as enc:
         problem = encode_problem(prev_map, partitions_to_assign, nodes_all,
                                  nodes_to_remove, model, opts)
-    stamps["t1"] = time.perf_counter()
     if problem.P == 0 or problem.N == 0 or problem.S == 0:
         return decode_assignment(
             problem,
@@ -2309,8 +2359,8 @@ def plan_next_map_cuda(
                     nodes=problem.N,
                     engine=("sparse" if use_sparse else None),
                     bucketed_shape=((solve_p, solve_n)
-                                    if opts.shape_bucketing else None)), \
-            obs_entry:
+                                    if opts.shape_bucketing else None)) \
+            as sol, obs_entry:
         args = problem_to_torch(*arrays, device=device)
         if use_sparse:
             assign = solve_sparse(
@@ -2329,24 +2379,23 @@ def plan_next_map_cuda(
             engine = _ENGINE_NAMES[mode]
         _sync(device)
     assign = assign[:problem.P]  # bucketing's pad rows are not real work
-    stamps["t2"] = time.perf_counter()
     maybe_validate(problem, assign, opts.validate_assignment,
                    "plan_next_map_cuda")
-    stamps["t2a"] = time.perf_counter()
-    with phase_span("plan.decode", timer=timer):
+    with phase_span("plan.decode", timer=timer) as dec:
         result = decode_assignment(problem, assign, partitions_to_assign,
                                    nodes_to_remove)
-    stamps["t3"] = time.perf_counter()
     if timings is not None:
         timings.update(
-            encode_s=stamps["t1"] - stamps["t0"],
-            solve_s=stamps["t2"] - stamps["t1"],
-            audit_s=stamps["t2a"] - stamps["t2"],
-            decode_s=stamps["t3"] - stamps["t2a"],
+            encode_s=enc.duration_s, solve_s=sol.duration_s,
+            audit_s=dec.t_start - sol.t_end, decode_s=dec.duration_s,
             engine=engine,
             launches={name: c - launches0[name]
                       for name, c in launch_counts().items()},
             **stats)
+    # Dropping the encoded problem (its [P] name list, the solver's
+    # tensors) takes a millisecond or more at 100k partitions.
+    with get_recorder().span("plan.release"):
+        del problem, assign, args
     return result
 
 
@@ -2369,6 +2418,7 @@ def _fetch(*tensors: torch.Tensor) -> list[NPArray]:
     """Bring ``tensors`` (int32 or bool, on one device) to the host in one
     copy: flattened into one int32 buffer on their device, copied once,
     and split into numpy arrays of their shapes (bool ones as bool)."""
+    counts_recorder().count(_HOST_SYNCS)
     flat = torch.cat([t.reshape(-1).to(torch.int32)
                       for t in tensors]).cpu().numpy()
     out, off = [], 0

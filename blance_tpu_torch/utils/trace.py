@@ -13,7 +13,10 @@ framework exposes:
   while ``report()`` output stays byte-identical to the pre-obs shape.
 - ``device_profile``: context manager around torch.profiler (the card's
   kernels and copies beside the host's operations), exported as a
-  Chrome trace viewable in Perfetto.
+  Chrome trace viewable in Perfetto.  It marks the profile at its start
+  and end with two clock anchors (``ANCHOR_START``, ``ANCHOR_END``), so
+  a host clock's times can be moved onto the profiler's (``obs.chrome``
+  merges the recorder's spans so).
 """
 
 from __future__ import annotations
@@ -22,12 +25,13 @@ import contextlib
 import itertools
 import os
 from dataclasses import dataclass, field
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 from ..obs import get_recorder
 from .hostclock import perf_now
 
-__all__ = ["PhaseTimer", "device_profile"]
+__all__ = ["PhaseTimer", "DeviceProfile", "device_profile", "ANCHOR_START",
+           "ANCHOR_END"]
 
 
 @dataclass
@@ -82,27 +86,57 @@ class PhaseTimer:
 
 _PROFILES = itertools.count()
 
+# The profile's clock anchors: ``record_function`` ranges opened right
+# after a read of the host clock, as the profiler starts and as it stops.
+ANCHOR_START = "obs.anchor.start"
+ANCHOR_END = "obs.anchor.end"
+
+
+@dataclass
+class DeviceProfile:
+    """What ``device_profile`` yields.  Once the body has run: ``path``,
+    the exported trace (None when nothing was profiled), and
+    ``anchors``, the host clock's reading at each anchor by name."""
+
+    path: Optional[str] = None
+    anchors: dict[str, float] = field(default_factory=dict)
+
+
+def _anchor(into: DeviceProfile, name: str,
+            clock: Callable[[], float]) -> None:
+    import torch
+
+    t = clock()
+    with torch.profiler.record_function(name):
+        pass
+    into.anchors[name] = t
+
 
 @contextlib.contextmanager
-def device_profile(log_dir: Optional[str]) -> Iterator[None]:
+def device_profile(log_dir: Optional[str],
+                   clock: Callable[[], float] = perf_now
+                   ) -> Iterator[DeviceProfile]:
     """torch.profiler over the body: CPU and CUDA activities when a card
     is present (CPU only without one), exported on exit — also when the
     body raises — as a Chrome trace ``trace.<pid>.<n>.json`` in
-    ``log_dir``.
+    ``log_dir``.  Yields a ``DeviceProfile``: the trace's path and the
+    ``clock``'s reading at the two anchors the profile holds (its first
+    and last ranges), which place that clock's times on the profile's.
 
     Inert when ``log_dir`` is None or a profiler is already active (the
     documented no-op cases).  Any other failure to start raises on a
     machine with a card, so a run that was asked for a device trace
     never passes without one; without a card it warns and the body runs
     unprofiled."""
+    out = DeviceProfile()
     if not log_dir:
-        yield
+        yield out
         return
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     if torch.autograd.profiler._is_profiler_enabled:
-        yield
+        yield out
         return
     cuda = torch.cuda.is_available()
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
@@ -121,14 +155,22 @@ def device_profile(log_dir: Optional[str]) -> Iterator[None]:
             f"device_profile: profiler failed to start "
             f"({type(e).__name__}: {e}); continuing without a trace",
             RuntimeWarning, stacklevel=3)
+    if prof is not None:
+        # The first range pays the profiler's set-up; the anchor is the
+        # range after it.
+        with torch.profiler.record_function("obs.anchor.warmup"):
+            pass
+        _anchor(out, ANCHOR_START, clock)
     # Guard only profiler startup: the body's own exceptions propagate
     # unchanged.
     try:
-        yield
+        yield out
     finally:
         if prof is not None:
             if cuda:
                 torch.cuda.synchronize()
+            _anchor(out, ANCHOR_END, clock)
             prof.__exit__(None, None, None)
-            prof.export_chrome_trace(os.path.join(
-                log_dir, f"trace.{os.getpid()}.{next(_PROFILES)}.json"))
+            out.path = os.path.join(
+                log_dir, f"trace.{os.getpid()}.{next(_PROFILES)}.json")
+            prof.export_chrome_trace(out.path)

@@ -229,7 +229,8 @@ from blance_tpu_torch.core.encode import bucket_size, pad_problem_arrays
 from blance_tpu_torch.core.order import sort_state_names
 from blance_tpu_torch.core.shortlist import build_shortlist_core
 from blance_tpu_torch.moves import batch as moves_batch
-from blance_tpu_torch.obs import Recorder, parse_prometheus, use_recorder
+from blance_tpu_torch.obs import (Recorder, get_recorder, parse_prometheus,
+                                  use_recorder)
 from blance_tpu_torch.obs.sinks import InMemorySink
 from blance_tpu_torch.ops import cost, reduce2, score_fused, sparse2
 from blance_tpu_torch.ops.cost import LANE_INSTR_PER_S, fused_ops_per_cell
@@ -2193,12 +2194,17 @@ def _variants_since(before: dict) -> dict:
                 if c > before[k].get(v, 0)} for k in now}
 
 
+def _auction_rounds() -> int:
+    """The process recorder's ``plan.solve.auction_rounds`` so far."""
+    return int(get_recorder().counters.get("plan.solve.auction_rounds", 0))
+
+
 def _fleet_run(tenants, dev, engine=None):
     """solve_fleet with the kernels' batched launches and the auction
-    rounds counted: (results, wall s, info).  The counts are this run's,
-    read as a difference: the fleet phase's own totals keep running."""
+    rounds counted: (results, wall s, info).  The launch counts are this
+    run's, read as a difference: the fleet phase's own totals keep
+    running; the rounds go to the run's own recorder."""
     before = launch_variants()
-    rounds0 = T._assign_slot.rounds
     rec = Recorder()
     res, wall = _sync_wall(lambda: fleet.solve_fleet(
         tenants, fused_score=engine, recorder=rec, device=dev))
@@ -2206,7 +2212,7 @@ def _fleet_run(tenants, dev, engine=None):
     info = dict(wall_s=wall, batches=int(rec.counters["fleet.batches"]),
                 launches={k: sum(v.values()) for k, v in variants.items()},
                 variants=variants,
-                rounds=T._assign_slot.rounds - rounds0,
+                rounds=int(rec.counters.get("plan.solve.auction_rounds", 0)),
                 max_sweeps=max(r.sweeps for r in res),
                 warm=sum(r.warm for r in res))
     return res, info
@@ -2928,14 +2934,14 @@ def _sharded_run(label, solve, mesh, quality_of=None, **kw) -> tuple:
     just before it and read just after (the workers report their own);
     returns (assign, info)."""
     reset_launch_counts()
-    rounds0 = T._assign_slot.rounds
+    rounds0 = _auction_rounds()
     stats: dict = {}
     out, wall = _sync_wall(lambda: solve(mesh, stats=stats, **kw))
     assign = out[0] if isinstance(out, tuple) else out
     info = dict(backend=mesh.backend, shape=list(mesh.devices.shape),
                 wall_s=wall, engine=stats.get("engine", "sparse"),
                 sweeps=stats.get("sweeps"),
-                rank0_auction_rounds=T._assign_slot.rounds - rounds0,
+                rank0_auction_rounds=_auction_rounds() - rounds0,
                 rank0_launches={k: v for k, v in launch_counts().items()
                                 if v},
                 **{k: stats[k] for k in ("k", "exhausted_rows",

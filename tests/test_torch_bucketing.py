@@ -38,6 +38,7 @@ from blance_tpu_torch.obs.sinks import InMemorySink as TSink  # noqa: E402
 from blance_tpu_torch.plan import tensor as ttensor  # noqa: E402
 from test_fleet import make_tenant  # noqa: E402
 from test_torch_sparse import _dense_args  # noqa: E402
+from _port_telemetry import SOLVER, port_names, ref_view  # noqa: E402
 
 STATES = dict(primary=(0, 1), replica=(1, 1))
 
@@ -328,7 +329,8 @@ def test_solve_dense_warm_with_p_real_matches_reference(seed, engine,
             carry=bt.carry_to_torch(jc, "cpu"), p_real=tp,
             fused_score=engine)
     assert (got is None) == (want is None)
-    assert trec.counters == jrec.counters
+    assert ref_view(trec.counters) == jrec.counters
+    assert port_names(trec.counters) == SOLVER
     if want is not None:
         np.testing.assert_array_equal(got, want, _first_diff(got, want))
         np.testing.assert_array_equal(got_carry.used.numpy(),

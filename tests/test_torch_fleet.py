@@ -40,6 +40,7 @@ from blance_tpu_torch.plan.service import (  # noqa: E402
 )
 
 from test_fleet import delta_tenant, make_tenant  # noqa: E402
+from _port_telemetry import SOLVER, port_names, ref_view  # noqa: E402
 
 CPU = torch.device("cpu")
 
@@ -202,7 +203,8 @@ def test_warm_decline_falls_back_to_cold_identically(rounds, monkeypatch):
     assert np.array_equal(g.assign, r.assign)
     assert g.sweeps == r.sweeps
     assert np.array_equal(g.assign, single_cold(t2)[0])
-    assert _solve_counters(trec) == _solve_counters(jrec)
+    assert ref_view(_solve_counters(trec)) == _solve_counters(jrec)
+    assert port_names(trec.counters) == SOLVER
 
 
 # -- counters -----------------------------------------------------------------
@@ -219,7 +221,8 @@ def _hist(rec, name):
 
 def test_fleet_counters_equal_reference(rounds):
     jrec, trec = rounds["jrec"], rounds["trec"]
-    assert _solve_counters(trec) == _solve_counters(jrec)
+    assert ref_view(_solve_counters(trec)) == _solve_counters(jrec)
+    assert port_names(trec.counters) == SOLVER
     assert _solve_counters(trec)["fleet.batches"] == 4
     for name in ("fleet.batch_tenants", "fleet.batch_occupancy",
                  "plan.solve.sweeps", "plan.solve.dirty_fraction"):

@@ -52,6 +52,7 @@ from blance_tpu_torch.testing import sched as tsched  # noqa: E402
 import test_encode_resident as ref_resident  # noqa: E402
 import test_fleet_loop as ref_loop  # noqa: E402
 from test_torch_durability import call_with_fixtures, rebind  # noqa: E402
+from _port_telemetry import SOLVER, port_names, ref_view  # noqa: E402
 
 # The module, not the package's ``rebalance`` function of the same name.
 t_rebalance = importlib.import_module("blance_tpu_torch.rebalance")
@@ -290,7 +291,8 @@ def test_fleet_controller_maps_and_ops_equal_reference(both_fleets):
 
 def test_fleet_controller_counters_equal_reference(both_fleets):
     (_rm, _rl, rcount, _rs), (_pm, _pl, pcount, _ps) = both_fleets
-    assert pcount == rcount
+    assert ref_view(pcount) == rcount
+    assert port_names(pcount) == SOLVER
     # Coalescing engaged: fewer batches than plan requests, and the
     # resident encode and the warm carry both ran.
     assert pcount["fleet.batches"] < pcount["fleet.requests"]
@@ -363,5 +365,7 @@ def test_service_planner_dirty_protocol_equals_reference():
             maps = loop.run_until_complete(drive())
         out[name] = (maps, {k: v for k, v in rec.counters.items()
                             if k.startswith(("fleet.", "plan.solve."))})
-    assert out["port"] == out["ref"]
+    assert out["port"][0] == out["ref"][0]
+    assert ref_view(out["port"][1]) == out["ref"][1]
+    assert port_names(out["port"][1]) == SOLVER
     assert out["port"][1].get("plan.solve.carry_hit", 0) > 0

@@ -39,6 +39,8 @@ from blance_tpu.plan import tensor as jtensor  # noqa: E402
 from blance_tpu.plan.session import PlannerSession as JSession  # noqa: E402
 from blance_tpu_torch.core import encode as tencode  # noqa: E402
 from blance_tpu_torch.plan import tensor as ttensor  # noqa: E402
+from _port_telemetry import (  # noqa: E402
+    PLAN_SPANS, SOLVER, STAGED_SPANS, port_names, ref_view)
 
 REF = dict(lib=blance_tpu, obs=jobs, session=JSession, kw={},
            pipeline=jtensor.plan_pipeline)
@@ -139,8 +141,11 @@ def test_plan_pipeline_identical_to_staged(opts_fn):
     ref = _pipeline(REF, 96, 12, 1, [3], opts_fn)
     port = _pipeline(PORT, 96, 12, 1, [3], opts_fn)
     _assert_same(ref, port, _staged(96, 12, 1, [3], opts_fn))
-    assert _plan_counters(port[3]) == _plan_counters(ref[3])
-    assert sorted(port[3].span_counts) == sorted(ref[3].span_counts)
+    assert ref_view(_plan_counters(port[3])) == _plan_counters(ref[3])
+    assert port_names(port[3].counters) == SOLVER
+    assert sorted(ref_view(port[3].span_counts)) == \
+        sorted(ref[3].span_counts)
+    assert port_names(port[3].span_counts) == PLAN_SPANS
     assert port[3].counters["plan.pipeline.calls"] == 1
 
 
@@ -226,7 +231,8 @@ def test_sparse_pipeline_matches_reference_and_staged(opts_fn, k):
     ref = _pipeline(REF, 128, 16, 3, [2, 9], opts)
     port = _pipeline(PORT, 128, 16, 3, [2, 9], opts)
     _assert_same(ref, port, _staged(128, 16, 3, [2, 9], opts))
-    assert _plan_counters(port[3]) == _plan_counters(ref[3])
+    assert ref_view(_plan_counters(port[3])) == _plan_counters(ref[3])
+    assert port_names(port[3].counters) == SOLVER
     assert port[3].gauges["plan.sparse.k_effective"] == k
 
 
@@ -241,7 +247,8 @@ def test_sparse_pipeline_exhaustion_rederives_diff():
     ref = _pipeline(REF, 96, 20, 5, [4], opts)
     port = _pipeline(PORT, 96, 20, 5, [4], opts)
     _assert_same(ref, port, _staged(96, 20, 5, [4], opts))
-    assert _plan_counters(port[3]) == _plan_counters(ref[3])
+    assert ref_view(_plan_counters(port[3])) == _plan_counters(ref[3])
+    assert port_names(port[3].counters) == SOLVER
     assert port[3].counters["plan.sparse.dense_fallback_rows"] > 10
 
 
@@ -268,7 +275,8 @@ def test_plan_pipeline_node_in_two_states_matches_reference():
                                   lib.model(**STATES), None, **pkg["kw"])
         out.append((*res, rec))
     _assert_same(*out)
-    assert _plan_counters(out[1][3]) == _plan_counters(out[0][3])
+    assert ref_view(_plan_counters(out[1][3])) == _plan_counters(out[0][3])
+    assert port_names(out[1][3].counters) == SOLVER
     assert _ops(out[1][2])["3"]  # the doubled partition does move
 
 
@@ -371,7 +379,8 @@ def test_session_fast_path_cold_warm_identity(opts_fn):
     staged, _ = _session_script(PORT, 96, 12, 11, COLD_WARM, False, opts_fn)
     _same_outs(port, ref)
     _same_outs(port, staged)
-    assert port_c == ref_c
+    assert ref_view(port_c) == ref_c
+    assert port_names(port_c) == SOLVER
     assert port_c["plan.pipeline.calls"] == 3
 
 
@@ -382,7 +391,8 @@ def test_session_fast_path_warm_counters():
     ref, ref_c = _session_script(REF, 96, 12, 13, steps, True)
     port, port_c = _session_script(PORT, 96, 12, 13, steps, True)
     _same_outs(port, ref)
-    assert port_c == ref_c
+    assert ref_view(port_c) == ref_c
+    assert port_names(port_c) == SOLVER
     assert port_c["plan.solve.carry_hit"] == 1
     assert port_c["plan.pipeline.warm"] == 1
     assert port_c["plan.solve.sweeps"] == ref_c["plan.solve.sweeps"]
@@ -395,7 +405,8 @@ def test_session_fast_path_add_nodes_delta():
     staged, _ = _session_script(PORT, 48, 8, 17, steps, False)
     _same_outs(port, ref)
     _same_outs(port, staged)
-    assert port_c == ref_c
+    assert ref_view(port_c) == ref_c
+    assert port_names(port_c) == SOLVER
 
 
 def test_session_fast_path_fused_engine():
@@ -414,7 +425,8 @@ def test_session_fast_path_fused_engine():
     matrix, _ = _session_script(PORT, 96, 12, 13, steps, True)
     _same_outs(port, ref)
     _same_outs(port, matrix)
-    assert port_c == ref_c and port_c["plan.pipeline.warm"] == 1
+    assert ref_view(port_c) == ref_c and port_c["plan.pipeline.warm"] == 1
+    assert port_names(port_c) == SOLVER
 
 
 def _dense(P, N, seed=0):
@@ -477,7 +489,7 @@ def test_pipeline_emissions_match_reference():
     """The reference's emission script (a session cold and warm, then a
     plan_pipeline) on each package's recorder: the same counters, span
     names and histograms, every one declared in the reference's metric
-    table."""
+    table, and besides them the port's own, declared in the port's."""
     from blance_tpu.obs.expo import default_registry
 
     recs = []
@@ -499,9 +511,15 @@ def test_pipeline_emissions_match_reference():
                             **pkg["kw"])
         recs.append(rec)
     ref, port = recs
-    assert default_registry().undeclared(port) == []
-    assert port.counters == ref.counters
-    assert sorted(port.span_counts) == sorted(ref.span_counts)
+    # The reference's table lacks exactly the port's own counters, which
+    # the port's table declares.
+    assert default_registry().undeclared(port) == sorted(
+        f"counter:{n}" for n in SOLVER)
+    assert tobs.default_registry().undeclared(port) == []
+    assert ref_view(port.counters) == ref.counters
+    assert port_names(port.counters) == SOLVER
+    assert sorted(ref_view(port.span_counts)) == sorted(ref.span_counts)
+    assert port_names(port.span_counts) == PLAN_SPANS
     assert sorted(port.histograms) == sorted(ref.histograms)
     assert port.counters["plan.pipeline.calls"] == 3
     assert port.counters["plan.pipeline.warm"] == 1
@@ -540,11 +558,15 @@ def test_plan_spans_match_reference(through):
     plan.encode, plan.solve (with plan.solve.attempt inside) and
     plan.decode, through plan_next_map and through rebalance()."""
     ref, port = (_span_drive(pkg, through) for pkg in (REF, PORT))
-    assert sorted(port.span_counts) == sorted(ref.span_counts)
+    assert sorted(ref_view(port.span_counts)) == sorted(ref.span_counts)
     for name in ("plan.plan_next_map", "plan.encode", "plan.solve",
                  "plan.solve.attempt", "plan.decode"):
         assert port.span_counts[name] == ref.span_counts[name] == 1
-    assert _plan_counters(port) == _plan_counters(ref)
+    # The port's audit, stage and release spans, once each in the plan.
+    assert {n: port.span_counts[n] for n in port_names(port.span_counts)} \
+        == dict.fromkeys(STAGED_SPANS, 1)
+    assert ref_view(_plan_counters(port)) == _plan_counters(ref)
+    assert port_names(port.counters) == SOLVER
 
 
 def test_plan_next_map_timer_phases():

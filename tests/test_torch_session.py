@@ -32,6 +32,7 @@ from blance_tpu_torch.plan import session as tsession  # noqa: E402
 from blance_tpu_torch.plan import tensor as ttensor  # noqa: E402
 from blance_tpu_torch.plan.audit import check_assignment  # noqa: E402
 from blance_tpu_torch.testing.sched import DeterministicLoop as TLoop  # noqa: E402
+from _port_telemetry import SOLVER, port_names, ref_view  # noqa: E402
 
 jreb = importlib.import_module("blance_tpu.rebalance")
 treb = importlib.import_module("blance_tpu_torch.rebalance")
@@ -140,7 +141,8 @@ def test_session_script_matches_jax(name, opts_fn):
     for i, (g, w) in enumerate(zip(got[0], want[0])):
         np.testing.assert_array_equal(g, w, f"step output {i}")
     np.testing.assert_array_equal(got[1], want[1])
-    assert got[2] == want[2]
+    assert ref_view(got[2]) == want[2]
+    assert port_names(got[2]) == SOLVER
     assert got[3] == want[3]
     s = got[4]
     last = s.proposed if s.proposed is not None else s.current
@@ -439,7 +441,8 @@ def test_rebalance_session_recovery_matches_jax():
     got, log, counters, session = _recovery(PORT)
     assert _result_view(bt, got) == _result_view(blance_tpu, want)
     assert log == want_log
-    assert counters == want_c
+    assert ref_view(counters) == want_c
+    assert port_names(counters) == SOLVER
     np.testing.assert_array_equal(session.current, jsess.current)
     assert got.quarantined_nodes == ["e"] and got.rounds[-1].failures == 0
     # The session adopted the recovery proposal as its current state.
@@ -479,7 +482,8 @@ def test_repeat_rebalance_through_session_matches_jax():
     g1, g2, log, counters, promoted, session = _repeat(PORT)
     assert _result_view(bt, g1) == _result_view(blance_tpu, w1)
     assert _result_view(bt, g2) == _result_view(blance_tpu, w2)
-    assert log == want_log and counters == want_c
+    assert log == want_log and ref_view(counters) == want_c
+    assert port_names(counters) == SOLVER
     np.testing.assert_array_equal(session.current, jsess.current)
     assert promoted, "clean pass did not promote the carry"
     assert counters["plan.solve.carry_hit"] == 1
@@ -519,7 +523,8 @@ def test_controller_with_session_matches_jax():
     want_ctl, want_maps, want_log, want_c, jsess = _controller(REF)
     ctl, maps, log, counters, session = _controller(PORT)
     assert maps == want_maps and log == want_log
-    assert counters == want_c
+    assert ref_view(counters) == want_c
+    assert port_names(counters) == SOLVER
     assert (ctl.cycles, ctl.passes, ctl.failures) == \
         (want_ctl.cycles, want_ctl.passes, [])
     np.testing.assert_array_equal(session.current, jsess.current)

@@ -39,6 +39,7 @@ from blance_tpu_torch.plan.service import PlanService  # noqa: E402
 from test_fleet import delta_tenant, make_tenant  # noqa: E402
 from test_pipeline import _dense  # noqa: E402
 from test_torch_fleet import _port  # noqa: E402
+from _port_telemetry import SOLVER, port_names, ref_view  # noqa: E402
 
 NODES = [f"n{i}" for i in range(8)]
 PARTS = [str(i) for i in range(64)]
@@ -153,7 +154,8 @@ def test_session_on_mesh_full_loop_matches_reference(pool):
     assert np.array_equal(ta1, ja1) and np.array_equal(ta2, ja2)
     assert not (ta2 == 0).any()
     assert not warn
-    assert _counters(trec) == _counters(jrec)
+    assert ref_view(_counters(trec)) == _counters(jrec)
+    assert port_names(trec.counters) == SOLVER
     assert trec.counters.get("plan.solve.carry_hit") == 1
 
 

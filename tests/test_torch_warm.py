@@ -30,6 +30,7 @@ from blance_tpu.plan.session import PlannerSession as JSession  # noqa: E402
 from blance_tpu_torch.plan import carry as tcarry  # noqa: E402
 from blance_tpu_torch.plan import tensor as ttensor  # noqa: E402
 from test_torch_sparse import _dense_args  # noqa: E402
+from _port_telemetry import SOLVER, port_names, ref_view  # noqa: E402
 
 MODEL_STATES = dict(primary=(0, 1), replica=(1, 1))
 NODES = [f"n{i}" for i in range(8)]
@@ -159,7 +160,8 @@ def test_sweeps_and_engine_recorded_like_jax():
         ttensor.solve_converged_resilient(
             *_t(arrays), cons, rules, max_iterations=10, mode="off",
             allow_fallback=False, context="test")
-    assert _plan_counters(trec) == _plan_counters(jrec)
+    assert ref_view(_plan_counters(trec)) == _plan_counters(jrec)
+    assert port_names(trec.counters) == SOLVER
     assert trec.counters["plan.solve.sweeps"] >= 2
     assert tsp.attrs["engine"] == jsp.attrs["engine"] == "matrix"
     assert trec.span_counts["plan.solve.attempt"] == 1
@@ -211,7 +213,10 @@ def test_solve_dense_warm_matches_jax(delta, rack, engine, ref_engine):
             *_t(arrays), cons, rules, dirty=dirty,
             carry=bt.carry_to_torch(carry, "cpu"), fused_score=engine)
     assert (got is None) == (want is None)
-    assert _plan_counters(trec) == _plan_counters(jrec)
+    assert ref_view(_plan_counters(trec)) == _plan_counters(jrec)
+    # When nodes only join, every copy stays pinned: no auction round.
+    assert port_names(trec.counters) == (
+        SOLVER if "remove" in delta else {"plan.solve.host_syncs"})
     assert trec.histogram_summary("plan.solve.dirty_fraction") == \
         jrec.histogram_summary("plan.solve.dirty_fraction")
     if want is None:
@@ -307,8 +312,10 @@ def test_solve_sparse_warm_matches_jax(seed, k):
     assert (got is None) == (want is None) == (not stats["accepted"])
     keep = ("plan.solve.", "plan.sparse.shortlist_exhausted",
             "plan.sparse.dense_fallback_rows")
-    assert {k_: v for k_, v in trec.counters.items() if k_.startswith(keep)} \
+    assert ref_view({k_: v for k_, v in trec.counters.items()
+                     if k_.startswith(keep)}) \
         == {k_: v for k_, v in jrec.counters.items() if k_.startswith(keep)}
+    assert port_names(trec.counters) == SOLVER
     assert trec.gauges["plan.sparse.k_effective"] == \
         jrec.gauges["plan.sparse.k_effective"] == kk
     if want is None:
