@@ -460,7 +460,9 @@ def decode_assignment(
     assignment, leaving only the id->name gather and list building here.
 
     The rows run in the span ``plan.decode.rows`` (pack, name gather,
-    list building) and the map in ``plan.decode.build``.
+    list building) and the map in ``plan.decode.build``; the counter
+    ``plan.decode.rows_trimmed`` counts the rows shorter than their
+    state's widest filled row (recorded only when there are some).
     """
     rec = get_recorder()
     if (packed is None) != (counts is None):
@@ -472,12 +474,18 @@ def decode_assignment(
 
     with rec.span("plan.decode.rows"):
         # Per modeled state with constraints > 0: pack non-empty slots
-        # left (stable, preserving slot order), gather names in one shot,
-        # and convert to nested Python lists at C speed.
+        # left (stable, preserving slot order), cut the rows to the
+        # state's widest filled row while they are still arrays, gather
+        # names in one shot, and convert to nested Python lists at C
+        # speed.  Only rows shorter than that width (constraint
+        # shortfalls, in a sound plan none) are trimmed one by one: a
+        # Python loop over every row would make a new list per row and
+        # wake the cyclic collector hundreds of times a decode.
         names_arr = np.asarray(problem.nodes, dtype=object) \
             if problem.nodes else np.zeros(0, dtype=object)
         per_state_rows: dict[int, list[list[str]]] = {}
         per_state_counts: dict[int, np.ndarray] = {}
+        trimmed = 0
         for si, sname in enumerate(problem.states):
             want = int(problem.constraints[si])
             if want <= 0:
@@ -496,14 +504,16 @@ def decode_assignment(
                 row_counts = mask.sum(axis=1)
                 order = np.argsort(~mask, axis=1, kind="stable")
                 row_ids = np.take_along_axis(ids, order, axis=1)
-            names = names_arr[np.maximum(row_ids, 0)]
-            nested = names.tolist()
-            if row_counts.min() == row_ids.shape[1]:  # all slots filled
-                per_state_rows[si] = nested
-            else:
-                per_state_rows[si] = [
-                    row[:c] for row, c in zip(nested, row_counts.tolist())]
+            width = int(row_counts.max())
+            nested = names_arr[np.maximum(row_ids[:, :width], 0)].tolist()
+            short = np.nonzero(row_counts < width)[0]
+            for pi, c in zip(short.tolist(), row_counts[short].tolist()):
+                del nested[pi][c:]
+            trimmed += short.size
+            per_state_rows[si] = nested
             per_state_counts[si] = row_counts
+        if trimmed:
+            rec.count("plan.decode.rows_trimmed", trimmed)
 
     # Partitions needing the slow path: source has unmodeled or
     # zero-constraint states to pass through (rare in practice).

@@ -76,7 +76,8 @@ _KINDS = ("counter", "gauge", "histogram")
 # split the plan's host stages (encode, decode), time the audit and the
 # release of the encoded problem at the end of plan_next_map_cuda; the
 # counters count the solver's auction rounds and its deliberate reads of
-# a device value back to the host (plan/tensor.py).  The counters are
+# a device value back to the host (plan/tensor.py), and the decoded rows
+# trimmed one by one (core/encode.py).  The counters are
 # declared (the drift guard accepts them) but never rendered, so an
 # exposition stays the reference's byte for byte: the simulators'
 # replays compare it.
@@ -92,6 +93,7 @@ PORT_ONLY_SPANS = (
 PORT_ONLY_COUNTERS = (
     "plan.solve.auction_rounds",
     "plan.solve.host_syncs",
+    "plan.decode.rows_trimmed",
 )
 PORT_ONLY_TELEMETRY = PORT_ONLY_SPANS + PORT_ONLY_COUNTERS
 

@@ -27,6 +27,7 @@ import blance_tpu_torch.core.marshal as marshal  # noqa: E402
 import blance_tpu_torch.core.types as ttypes  # noqa: E402
 from blance_tpu_torch.core.types import (  # noqa: E402
     Partition, PartitionModelState, PlanOptions)
+from _multi_width import multi_width_assign, multiprimary_problem  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -113,16 +114,25 @@ def test_encode_parity(native, seed):
     _same_problem(a, ref)
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("seed", [0, 1, 2, "multi-full", "multi-short",
+                                  "multi-over"])
 def test_decode_parity(native, seed):
-    prev, nodes, model = _random_problem(jtypes, seed)
-    tprev, _, tmodel = _random_problem(ttypes, seed)
+    if isinstance(seed, int):
+        prev, nodes, model = _random_problem(jtypes, seed)
+        tprev, _, tmodel = _random_problem(ttypes, seed)
+    else:
+        prev, nodes, model = multiprimary_problem(jtypes)
+        tprev, _, tmodel = multiprimary_problem(ttypes)
     removed = [nodes[2]]
     problem = enc.encode_problem(tprev, tprev, nodes, removed, tmodel,
                                  PlanOptions())
-    # Decode the previous assignment itself (plus some -1 holes).
-    assign = problem.prev.copy()
-    assign[::7, 0, -1] = -1
+    if isinstance(seed, int):
+        # Decode the previous assignment itself (plus some -1 holes).
+        assign = problem.prev.copy()
+        assign[::7, 0, -1] = -1
+    else:
+        assert problem.prev.shape[1:] == (3, 2)
+        assign = multi_width_assign(problem.prev, seed[len("multi-"):])
     (map_n, warn_n), (map_p, warn_p) = _both_paths(
         lambda: enc.decode_assignment(problem, assign, tprev, removed))
     assert warn_n == warn_p
@@ -133,6 +143,10 @@ def test_decode_parity(native, seed):
     map_r, warn_r = jenc.decode_assignment(jproblem, assign, prev, removed)
     assert warn_n == warn_r
     assert _nbs(map_n) == _nbs(map_r)
+    if seed == "multi-full":
+        assert not warn_n
+    elif seed == "multi-over":
+        assert len(map_n["4"].nodes_by_state["replica"]) == 2
 
 
 def test_empty_problem(native):

@@ -39,6 +39,7 @@ from blance_tpu.plan import tensor as jtensor  # noqa: E402
 from blance_tpu.plan.session import PlannerSession as JSession  # noqa: E402
 from blance_tpu_torch.core import encode as tencode  # noqa: E402
 from blance_tpu_torch.plan import tensor as ttensor  # noqa: E402
+from _multi_width import multi_width_assign, multiprimary_problem  # noqa: E402
 from _port_telemetry import (  # noqa: E402
     PLAN_SPANS, SOLVER, STAGED_SPANS, port_names, ref_view)
 
@@ -299,20 +300,55 @@ def test_plan_pipeline_engine_failure_degrades_to_staged(monkeypatch):
 # --- decode with a device pack --------------------------------------------------------
 
 
-def test_decode_with_device_pack_equals_host_pack():
-    prev, nodes = _mk_map(bt, 61, 9, seed=6)
-    model = bt.model(primary=(0, 1), replica=(1, 2))
+def _decode_both_packs(prev, nodes, model, assign_of):
+    """decode_assignment of ``assign_of(problem.prev)`` with the host pack
+    and with the device pack: (host's, device's) (map, warnings)."""
     problem = tencode.encode_problem(prev, prev, nodes, [nodes[0]], model,
                                      bt.PlanOptions())
-    rng = np.random.default_rng(6)
-    assign = rng.integers(-1, 9, (61, 2, 2)).astype(np.int32)
+    assign = assign_of(problem.prev)
     packed, counts = (t.numpy() for t in
                       tencode.pack_assignment(assign, device="cpu"))
     want = tencode.decode_assignment(problem, assign, prev, [nodes[0]])
     got = tencode.decode_assignment(problem, assign, prev, [nodes[0]],
                                     packed=packed, counts=counts)
     assert _nbs(got[0]) == _nbs(want[0])
+    return want, got
+
+
+def test_decode_with_device_pack_equals_host_pack():
+    prev, nodes = _mk_map(bt, 61, 9, seed=6)
+    rng = np.random.default_rng(6)
+    want, got = _decode_both_packs(
+        prev, nodes, bt.model(primary=(0, 1), replica=(1, 2)),
+        lambda _: rng.integers(-1, 9, (61, 2, 2)).astype(np.int32))
     assert got[1] == want[1] and want[1]  # shortfalls warn the same
+
+
+@pytest.mark.parametrize("case", ["full", "short", "over"])
+def test_decode_with_device_pack_equals_host_pack_multi_width(case):
+    want, got = _decode_both_packs(
+        *multiprimary_problem(bt),
+        lambda prev: multi_width_assign(prev, case))
+    assert got[1] == want[1] and bool(want[1]) == (case != "full")
+
+
+@pytest.mark.parametrize("case", ["full", "short", "over"])
+def test_decode_counts_rows_trimmed(case):
+    """``plan.decode.rows_trimmed``: none on a fully filled multi-width
+    decode; each row short of its constraint otherwise, and with one
+    replica row filled to two, also every replica row holding one."""
+    prev, nodes, model = multiprimary_problem(bt)
+    problem = tencode.encode_problem(prev, prev, nodes, [], model,
+                                     bt.PlanOptions())
+    assign = multi_width_assign(problem.prev, case)
+    rec = tobs.Recorder()
+    with tobs.use_recorder(rec):
+        _, warnings = tencode.decode_assignment(problem, assign, prev, [])
+    want = sum(len(w) for w in warnings.values())
+    if case == "over":
+        want += int(((assign[:, 1, :] >= 0).sum(axis=1) == 1).sum())
+    assert want > 0 or case == "full"
+    assert rec.counters.get("plan.decode.rows_trimmed", 0) == want
 
 
 @pytest.mark.parametrize("which", ["packed", "counts"])

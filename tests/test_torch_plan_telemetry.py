@@ -26,6 +26,7 @@ import pytest
 import torch
 
 import blance_tpu_torch as bt
+from blance_tpu_torch.core import encode as tencode
 from blance_tpu_torch.obs import (PORT_ONLY_COUNTERS, PORT_ONLY_SPANS,
                                   PORT_ONLY_TELEMETRY, InMemorySink,
                                   Recorder, chrome, default_registry,
@@ -103,7 +104,8 @@ def test_the_declared_tuple():
     assert set(PORT_ONLY_SPANS) == {"plan.audit", "plan.release", *ENCODE,
                                     *DECODE}
     assert set(PORT_ONLY_COUNTERS) == {"plan.solve.auction_rounds",
-                                       "plan.solve.host_syncs"}
+                                       "plan.solve.host_syncs",
+                                       "plan.decode.rows_trimmed"}
 
 
 @pytest.mark.parametrize("kind", ["rack", "multi"])
@@ -241,8 +243,13 @@ def test_counters_equal_the_spy(kind, path, monkeypatch):
 def test_counters_declared_but_not_rendered():
     beg, nodes, model, opts = _fixture("rack")
     rec = Recorder()
+    problem = tencode.encode_problem(beg, beg, nodes, [], model,
+                                     bt.PlanOptions())
+    short = problem.prev.copy()
+    short[0, 0, :] = -1  # one row short of its state's copies
     with use_recorder(rec):
         _drive("plan_next_map", beg, nodes, model, opts)
+        tencode.decode_assignment(problem, short, beg, [])
     assert set(PORT_ONLY_COUNTERS) <= set(rec.counters)
     assert default_registry().undeclared(rec) == []
     text = render_prometheus(rec)
