@@ -9,7 +9,13 @@ are, in priority order:
    exclude group ("rack") inside the previous primary's include group
    ("zone");
 3. a few globally least-loaded valid nodes shared by every row, plus a
-   per-row rotated window over the valid-node ranking.
+   per-row rotated window over the valid-node ranking.  Where more of
+   the valid nodes are empty than that block is wide, a wider block
+   spreads the rows that must move over the empty nodes instead
+   (``_empty_node_block``).  That is the one departure from the
+   reference, whose shared block leaves the nodes a failover brings back
+   at about a twentieth of their share; with no more empty nodes than
+   the block's width the shortlist is the reference's bit for bit.
 
 Rows are deduplicated (keep-first), truncated to K and returned sorted
 ascending with -1 padding at the tail; a saturating K >= N is the
@@ -178,16 +184,25 @@ def build_shortlist_core(prev, pweights, nweights, valid, gids, gid_valid,
 
     n_fixed = sum(c.shape[1] for c in cols)
     k_glob = max(k - min(n_fixed, k - 1), 1)
-    # A few true least-loaded nodes shared by every row, then a per-row
-    # rotated window over the valid-node ranking (coverage for rows with
-    # no sticky node or anchor).
+    # A few true least-loaded nodes, then a per-row rotated window over
+    # the valid-node ranking (coverage for rows with no sticky node or
+    # anchor).  One host read (plan.solve.host_syncs, as plan/tensor.py
+    # counts): the valid nodes, and those that hold nothing while the
+    # cluster holds copies.
+    counts_recorder().count("plan.solve.host_syncs")
+    empty = valid & (load == 0) & (load.sum() > 0)
+    n_valid, n_empty = torch.stack([valid.sum(), empty.sum()]).tolist()
+    n_valid = max(n_valid, 1)
     g_top = min(4, k_glob)
-    cols.append(order[:g_top].expand(p, g_top))
-    k_cov = k_glob - g_top
+    if n_empty > g_top:
+        block = _empty_node_block(
+            order, prev, valid, constraints, n_empty,
+            max(g_top, min(2 * g_top, k_glob - 1, n_empty)))
+    else:
+        block = order[:g_top].expand(p, g_top)
+    cols.append(block)
+    k_cov = k_glob - block.shape[1]
     if k_cov > 0:
-        # One host read (plan.solve.host_syncs, as plan/tensor.py counts).
-        counts_recorder().count("plan.solve.host_syncs")
-        n_valid = max(int(valid.to(torch.int32).sum()), 1)
         # int32 on purpose: the product wraps from row 53,021 on, as the
         # reference's does; torch.remainder is Python's (floor) modulo.
         rowpos = torch.remainder(
@@ -198,3 +213,35 @@ def build_shortlist_core(prev, pweights, nweights, valid, gids, gid_valid,
 
     cand = torch.cat([c.to(torch.int32) for c in cols], dim=1)
     return _dedup_truncate_sort(cand, k, n)
+
+
+def _empty_node_block(order: torch.Tensor, prev: torch.Tensor,
+                      valid: torch.Tensor, constraints: tuple, m: int,
+                      g: int) -> torch.Tensor:
+    """[P, g] candidates from the ``m`` empty valid nodes, the first ``m``
+    of the load ranking ``order``, where the reference gives every row the
+    same four least-loaded nodes.
+
+    After a failover the rows that must move (a copy on a node that is
+    out, or a slot unfilled) are the ones that bid for the empty nodes,
+    and together they fill about as many places as the empty nodes have.
+    A shared block lets them reach four of those nodes, so the others
+    are filled short (a twentieth of their share at 100 000 x 1 000).
+    Here the rows that must move are ranked among themselves, the other
+    rows after them, and the row of rank q takes ranks q·g .. q·g + g - 1
+    of the empty nodes, modulo ``m``: each empty node meets the same
+    number of bidders.  The block is twice the shared one, up to ``m``,
+    and the rotated window keeps the columns left, so a row whose empty
+    nodes fill still reaches nodes with room."""
+    dev = order.device
+    p, _, r = prev.shape
+    n = valid.shape[0]
+    slot = torch.arange(r, device=dev)[None, :] < torch.tensor(
+        [int(c) for c in constraints], device=dev)[:, None]  # [S, R]
+    gone = (prev < 0) | ~valid[prev.clamp(0, n - 1).long()]
+    need = (gone & slot).reshape(p, -1).any(dim=1).to(torch.int64)
+    rank = torch.where(need > 0, torch.cumsum(need, 0),
+                       need.sum() + torch.cumsum(1 - need, 0)) - 1
+    pos = torch.remainder(
+        rank[:, None] * g + torch.arange(g, device=dev)[None, :], m)
+    return order[pos]

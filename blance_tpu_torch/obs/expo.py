@@ -74,10 +74,12 @@ _KINDS = ("counter", "gauge", "histogram")
 
 # Telemetry the port records and the reference does not.  The spans
 # split the plan's host stages (encode, decode), time the audit and the
-# release of the encoded problem at the end of plan_next_map_cuda; the
+# release of the encoded problem at the end of plan_next_map_cuda, and on
+# the sparse engine the shortlist build and the host dense fallback; the
 # counters count the solver's auction rounds and its deliberate reads of
-# a device value back to the host (plan/tensor.py), and the decoded rows
-# trimmed one by one (core/encode.py).  The counters are
+# a device value back to the host (plan/tensor.py), the decoded rows
+# trimmed one by one (core/encode.py), and the work of each sparse min2
+# call (ops/sparse2.py).  The counters are
 # declared (the drift guard accepts them) but never rendered, so an
 # exposition stays the reference's byte for byte: the simulators'
 # replays compare it.
@@ -89,11 +91,16 @@ PORT_ONLY_SPANS = (
     "plan.decode.rows",
     "plan.decode.build",
     "plan.release",
+    "plan.sparse.shortlist",
+    "plan.sparse.fallback",
 )
 PORT_ONLY_COUNTERS = (
     "plan.solve.auction_rounds",
     "plan.solve.host_syncs",
     "plan.decode.rows_trimmed",
+    "ops.sparse_min2.cells",
+    "ops.sparse_min2.price_cells",
+    "ops.sparse_min2.out_cells",
 )
 PORT_ONLY_TELEMETRY = PORT_ONLY_SPANS + PORT_ONLY_COUNTERS
 

@@ -23,6 +23,12 @@ version on a CPU tensor; on any other device it raises.  There is no
 fallback from the kernel to the plain version.  Each wrapper's
 ``launches`` counts its kernel launches, and ``variants`` counts them by
 instantiation ("vec4": 16-byte loads, "scalar": 4-byte loads).
+
+Every call, on either device, also counts its work on the solver's
+recorder (``obs.counts_recorder``), the facts ``cost.sparse_work`` and
+``cost.sparse_cand_work`` price: ``ops.sparse_min2.cells`` (P·K),
+``ops.sparse_min2.price_cells`` (N for the gathered entry, 0 for the
+[P, K]-price one) and ``ops.sparse_min2.out_cells`` (5·P or 4·P).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import ctypes
 
 import torch
 
+from ..obs import counts_recorder
 from . import cost as _cost
 
 __all__ = ["sparse_min2_reference", "sparse_min2_cand_reference",
@@ -62,6 +69,13 @@ def sparse_min2_cand_reference(score: torch.Tensor, cand: torch.Tensor,
         score, price_n[cand.clamp(0, n - 1).long()])
     choice = cand.gather(1, kidx.long()[:, None])[:, 0].clamp(min=0)
     return best, kidx, second, raw, choice
+
+
+def _count_work(cells: int, price_cells: int, out_cells: int) -> None:
+    rec = counts_recorder()
+    rec.count("ops.sparse_min2.cells", cells)
+    rec.count("ops.sparse_min2.price_cells", price_cells)
+    rec.count("ops.sparse_min2.out_cells", out_cells)
 
 
 def load_variant(k: int, *operands: torch.Tensor) -> str:
@@ -127,6 +141,7 @@ def sparse_priced_min2(score: torch.Tensor, price: torch.Tensor):
     [P, K].  Bitwise equal to :func:`sparse_min2_reference`."""
     _check_rows("sparse_priced_min2", score, price, "price")
     _cost.note(_cost.sparse_work, score, price)
+    _count_work(score.numel(), 0, 4 * score.shape[0])
     if _device_kind("sparse_priced_min2", score, price) == "cpu":
         return sparse_min2_reference(score, price)
     if score.dtype != torch.float32 or price.dtype != torch.float32:
@@ -162,6 +177,7 @@ def sparse_priced_min2_cand(score: torch.Tensor, cand: torch.Tensor,
         raise ValueError(f"{what} takes a non-empty 1-D price_n, got shape "
                          f"{tuple(price_n.shape)}")
     _cost.note(_cost.sparse_cand_work, score, cand, price_n)
+    _count_work(score.numel(), price_n.shape[0], 5 * score.shape[0])
     if _device_kind(what, score, cand, price_n) == "cpu":
         return sparse_min2_cand_reference(score, cand, price_n)
     if score.dtype != torch.float32 or price_n.dtype != torch.float32:

@@ -2015,21 +2015,38 @@ def _apply_sparse_fallback(assign: NPArray, exhausted: NPArray, prev,
                            record: bool = True) -> tuple[NPArray, int]:
     """Route flagged rows through the dense fallback; returns (patched
     assign, rows whose placement the fallback changed), counted as
-    ``plan.sparse.shortlist_exhausted`` / ``dense_fallback_rows``."""
+    ``plan.sparse.shortlist_exhausted`` / ``dense_fallback_rows``.  The
+    fallback, the host copies of its inputs included, runs in the span
+    ``plan.sparse.fallback``, opened only when a row is flagged."""
     rows = np.nonzero(np.asarray(exhausted))[0]
     if rows.size == 0:
         return np.asarray(assign), 0
     rec = get_recorder()
     if record:
         rec.count("plan.sparse.shortlist_exhausted", int(rows.size))
-    patched = _sparse_fallback_rows(
-        assign, rows, _np(prev), _np(pweights), _np(nweights), _np(valid),
-        _np(stickiness), _np(gids), _np(gid_valid), constraints, rules)
-    replaced = int(np.any(
-        patched[rows] != np.asarray(assign)[rows], axis=(1, 2)).sum())
+    with rec.span("plan.sparse.fallback"):
+        patched = _sparse_fallback_rows(
+            assign, rows, _np(prev), _np(pweights), _np(nweights),
+            _np(valid), _np(stickiness), _np(gids), _np(gid_valid),
+            constraints, rules)
+        replaced = int(np.any(
+            patched[rows] != np.asarray(assign)[rows], axis=(1, 2)).sum())
     if record and replaced:
         rec.count("plan.sparse.dense_fallback_rows", replaced)
     return patched, replaced
+
+
+def _build_shortlist(prev, pweights, nweights, valid, gids, gid_valid,
+                     constraints, rules, k: int) -> torch.Tensor:
+    """The [P, K] shortlist with ``k`` columns, built in the span
+    ``plan.sparse.shortlist`` with the device synchronised at its end:
+    every sparse entry that builds rather than adopts one."""
+    with get_recorder().span("plan.sparse.shortlist"):
+        shortlist = build_shortlist_core(prev, pweights, nweights, valid,
+                                         gids, gid_valid, constraints,
+                                         rules, k)
+        _sync(prev.device)
+    return shortlist
 
 
 def _build_or_adopt_shortlist(prev, pweights, nweights, valid, gids,
@@ -2047,10 +2064,8 @@ def _build_or_adopt_shortlist(prev, pweights, nweights, valid, gids,
         n = nweights.shape[-1]
         kk = int(k) if k is not None \
             else auto_shortlist_k(n, constraints, rules)
-        shortlist = build_shortlist_core(prev, pweights, nweights, valid,
-                                         gids, gid_valid, constraints,
-                                         rules, kk)
-        _sync(prev.device)
+        shortlist = _build_shortlist(prev, pweights, nweights, valid, gids,
+                                     gid_valid, constraints, rules, kk)
         built_s = time.perf_counter() - t0
         if record:
             rec.observe("plan.sparse.shortlist_build_s", built_s)
@@ -2488,14 +2503,16 @@ def _pipeline_sparse_cold_impl(prev, pweights, nweights, valid, stickiness,
                                shortlist_k: int = 16,
                                favor_min_nodes: bool = False,
                                carry_used: Optional[torch.Tensor] = None,
-                               p_real=None):
-    """Sparse pipeline body: shortlist build, the sparse converged solve,
-    the diff and the pack.  Returns the cold pipeline's tuple plus the
-    exhaustion flags; the dispatcher re-places flagged rows on the host
-    and re-derives the diff and the pack for them."""
-    shortlist = build_shortlist_core(prev, pweights, nweights, valid, gids,
-                                     gid_valid, constraints, rules,
-                                     shortlist_k)
+                               p_real=None, shortlist=None):
+    """Sparse pipeline body: shortlist build (unless ``shortlist`` gives
+    the dispatcher's), the sparse converged solve, the diff and the pack.
+    Returns the cold pipeline's tuple plus the exhaustion flags; the
+    dispatcher re-places flagged rows on the host and re-derives the diff
+    and the pack for them."""
+    if shortlist is None:
+        shortlist = build_shortlist_core(prev, pweights, nweights, valid,
+                                         gids, gid_valid, constraints, rules,
+                                         shortlist_k)
     out, sweeps, exh = _solve_sparse_converged_impl(
         prev, pweights, nweights, valid, stickiness, gids, gid_valid,
         shortlist, constraints, rules, max_iterations, carry_used, p_real)
@@ -2732,11 +2749,14 @@ def _dispatch_pipeline_sparse(
                 device):
         args = problem_to_torch(prev_a, pw_a, nw_a, valid_a, stick_a,
                                 gids_a, gv_a, device=device)
+        shortlist = _build_shortlist(args[0], args[1], args[2], args[3],
+                                     args[5], args[6], constraints, rules,
+                                     shortlist_k)
         (assign, sweeps, prices, used, d_nodes, d_states, d_ops, packed,
          counts, exh) = _pipeline_sparse_cold_impl(
             *args, constraints, rules, max_iterations=max_iterations,
             shortlist_k=shortlist_k, favor_min_nodes=favor_min_nodes,
-            p_real=p_real)
+            p_real=p_real, shortlist=shortlist)
         host = _fetch(assign, d_nodes, d_states, d_ops, packed, counts, exh)
     rec.observe("plan.pipeline.dispatch_s", rec.now() - t0)
     rec.set_gauge("plan.sparse.k_effective", float(shortlist_k))

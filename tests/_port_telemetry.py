@@ -11,6 +11,13 @@ from blance_tpu_torch.obs import PORT_ONLY_TELEMETRY
 
 # The solver's counters: every path that runs the auction counts both.
 SOLVER = {"plan.solve.auction_rounds", "plan.solve.host_syncs"}
+# The work of each sparse min2 call: every path on the sparse engine
+# counts the three besides the solver's.
+SPARSE_MIN2 = {"ops.sparse_min2.cells", "ops.sparse_min2.price_cells",
+               "ops.sparse_min2.out_cells"}
+# The sparse engine's spans: the shortlist build, and the host dense
+# fallback where a row is flagged.
+SPARSE_SPANS = {"plan.sparse.shortlist", "plan.sparse.fallback"}
 ENCODE = {"plan.encode.order", "plan.encode.prev", "plan.encode.hierarchy"}
 DECODE = {"plan.decode.rows", "plan.decode.build"}
 # A plan that encodes, solves, audits and decodes; plan_next_map's

@@ -41,7 +41,7 @@ from blance_tpu_torch.core import encode as tencode  # noqa: E402
 from blance_tpu_torch.plan import tensor as ttensor  # noqa: E402
 from _multi_width import multi_width_assign, multiprimary_problem  # noqa: E402
 from _port_telemetry import (  # noqa: E402
-    PLAN_SPANS, SOLVER, STAGED_SPANS, port_names, ref_view)
+    PLAN_SPANS, SOLVER, SPARSE_MIN2, STAGED_SPANS, port_names, ref_view)
 
 REF = dict(lib=blance_tpu, obs=jobs, session=JSession, kw={},
            pipeline=jtensor.plan_pipeline)
@@ -233,7 +233,8 @@ def test_sparse_pipeline_matches_reference_and_staged(opts_fn, k):
     port = _pipeline(PORT, 128, 16, 3, [2, 9], opts)
     _assert_same(ref, port, _staged(128, 16, 3, [2, 9], opts))
     assert ref_view(_plan_counters(port[3])) == _plan_counters(ref[3])
-    assert port_names(port[3].counters) == SOLVER
+    assert port_names(port[3].counters) == SOLVER | SPARSE_MIN2
+    assert port[3].span_counts["plan.sparse.shortlist"] == 1
     assert port[3].gauges["plan.sparse.k_effective"] == k
 
 
@@ -249,7 +250,8 @@ def test_sparse_pipeline_exhaustion_rederives_diff():
     port = _pipeline(PORT, 96, 20, 5, [4], opts)
     _assert_same(ref, port, _staged(96, 20, 5, [4], opts))
     assert ref_view(_plan_counters(port[3])) == _plan_counters(ref[3])
-    assert port_names(port[3].counters) == SOLVER
+    assert port_names(port[3].counters) == SOLVER | SPARSE_MIN2
+    assert port[3].span_counts["plan.sparse.fallback"] == 1
     assert port[3].counters["plan.sparse.dense_fallback_rows"] > 10
 
 

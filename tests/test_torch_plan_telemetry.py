@@ -32,7 +32,7 @@ from blance_tpu_torch.obs import (PORT_ONLY_COUNTERS, PORT_ONLY_SPANS,
                                   Recorder, chrome, default_registry,
                                   render_prometheus, use_recorder)
 from blance_tpu_torch.plan import tensor as ttensor
-from _port_telemetry import port_names
+from _port_telemetry import SPARSE_MIN2, SPARSE_SPANS, port_names
 
 RACK = dict(primary=(0, 1), replica=(1, 1))
 MULTI = dict(primary=(0, 2), replica=(1, 1), readonly=(2, 1))
@@ -102,10 +102,11 @@ def _assert_nested(spans, by_id, want):
 def test_the_declared_tuple():
     assert PORT_ONLY_TELEMETRY == PORT_ONLY_SPANS + PORT_ONLY_COUNTERS
     assert set(PORT_ONLY_SPANS) == {"plan.audit", "plan.release", *ENCODE,
-                                    *DECODE}
+                                    *DECODE, *SPARSE_SPANS}
     assert set(PORT_ONLY_COUNTERS) == {"plan.solve.auction_rounds",
                                        "plan.solve.host_syncs",
-                                       "plan.decode.rows_trimmed"}
+                                       "plan.decode.rows_trimmed",
+                                       *SPARSE_MIN2}
 
 
 @pytest.mark.parametrize("kind", ["rack", "multi"])
@@ -119,7 +120,9 @@ def test_plan_next_map_spans_nest(kind):
     want["plan.audit"] = want["plan.release"] = "plan.plan_next_map"
     _assert_nested(spans, by_id, want)
     for name in PORT_ONLY_SPANS:
-        assert rec.span_counts[name] == 1, name
+        # The matrix route opens none of the sparse engine's spans.
+        assert rec.span_counts.get(name, 0) == \
+            (name not in SPARSE_SPANS), name
     # The release is the plan's last stage, after the decode.
     by_name = {sp.name: sp for sp in spans}
     assert by_name["plan.decode"].t_end <= by_name["plan.release"].t_start
@@ -141,7 +144,7 @@ def test_pipeline_spans_nest():
     _assert_nested(spans, by_id, want)
     for name in PORT_ONLY_SPANS:
         assert rec.span_counts.get(name, 0) == \
-            (name != "plan.release"), name
+            (name != "plan.release" and name not in SPARSE_SPANS), name
 
 
 def test_session_spans():
@@ -249,6 +252,7 @@ def test_counters_declared_but_not_rendered():
     short[0, 0, :] = -1  # one row short of its state's copies
     with use_recorder(rec):
         _drive("plan_next_map", beg, nodes, model, opts)
+        _drive("sparse", beg, nodes, model, opts)
         tencode.decode_assignment(problem, short, beg, [])
     assert set(PORT_ONLY_COUNTERS) <= set(rec.counters)
     assert default_registry().undeclared(rec) == []

@@ -30,7 +30,8 @@ from blance_tpu.plan.session import PlannerSession as JSession  # noqa: E402
 from blance_tpu_torch.plan import carry as tcarry  # noqa: E402
 from blance_tpu_torch.plan import tensor as ttensor  # noqa: E402
 from test_torch_sparse import _dense_args  # noqa: E402
-from _port_telemetry import SOLVER, port_names, ref_view  # noqa: E402
+from _port_telemetry import (  # noqa: E402
+    SOLVER, SPARSE_MIN2, port_names, ref_view)
 
 MODEL_STATES = dict(primary=(0, 1), replica=(1, 1))
 NODES = [f"n{i}" for i in range(8)]
@@ -315,7 +316,7 @@ def test_solve_sparse_warm_matches_jax(seed, k):
     assert ref_view({k_: v for k_, v in trec.counters.items()
                      if k_.startswith(keep)}) \
         == {k_: v for k_, v in jrec.counters.items() if k_.startswith(keep)}
-    assert port_names(trec.counters) == SOLVER
+    assert port_names(trec.counters) == SOLVER | SPARSE_MIN2
     assert trec.gauges["plan.sparse.k_effective"] == \
         jrec.gauges["plan.sparse.k_effective"] == kk
     if want is None:
