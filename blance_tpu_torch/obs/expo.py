@@ -78,8 +78,9 @@ _KINDS = ("counter", "gauge", "histogram")
 # the sparse engine the shortlist build and the host dense fallback; the
 # counters count the solver's auction rounds and its deliberate reads of
 # a device value back to the host (plan/tensor.py), the decoded rows
-# trimmed one by one (core/encode.py), and the work of each sparse min2
-# call (ops/sparse2.py).  The counters are
+# trimmed one by one (core/encode.py), the work of each sparse min2
+# call (ops/sparse2.py) and the cells of each score write on the card
+# (ops/score_fused.py).  The counters are
 # declared (the drift guard accepts them) but never rendered, so an
 # exposition stays the reference's byte for byte: the simulators'
 # replays compare it.
@@ -101,6 +102,7 @@ PORT_ONLY_COUNTERS = (
     "ops.sparse_min2.cells",
     "ops.sparse_min2.price_cells",
     "ops.sparse_min2.out_cells",
+    "ops.score_write.cells",
 )
 PORT_ONLY_TELEMETRY = PORT_ONLY_SPANS + PORT_ONLY_COUNTERS
 

@@ -2,12 +2,14 @@
 their plain PyTorch versions."""
 
 from .reduce2 import min2_argmin, min2_argmin_reference, priced_min2_argmin
-from .score_fused import fused_score_min2, fused_score_min2_reference
+from .score_fused import (fused_score_min2, fused_score_min2_reference,
+                          score_write, score_write_reference)
 from .sparse2 import (sparse_min2_cand_reference, sparse_min2_reference,
                       sparse_priced_min2, sparse_priced_min2_cand)
 
 __all__ = ["min2_argmin", "min2_argmin_reference", "priced_min2_argmin",
            "fused_score_min2", "fused_score_min2_reference",
+           "score_write", "score_write_reference",
            "sparse_min2_reference", "sparse_priced_min2",
            "sparse_min2_cand_reference", "sparse_priced_min2_cand",
            "KERNEL_WRAPPERS", "reset_launch_counts", "launch_counts",
@@ -18,6 +20,7 @@ __all__ = ["min2_argmin", "min2_argmin_reference", "priced_min2_argmin",
 # ``variants`` Counter of the same launches by kernel instantiation.
 KERNEL_WRAPPERS = {"priced_min2_argmin": priced_min2_argmin,
                    "fused_score_min2": fused_score_min2,
+                   "score_write": score_write,
                    "sparse_priced_min2": sparse_priced_min2,
                    "sparse_priced_min2_cand": sparse_priced_min2_cand}
 

@@ -16,7 +16,8 @@ tie-break jitter, which XLA contracts in the reference) as ``fmaf``.
 
 A build failure raises; nothing here falls back to the plain version.
 ``build_all`` starts every ``nvcc`` at once, so a cold start costs the
-slowest kernel's build, not the sum.
+slowest kernel's build, not the sum; ``load(name, beside=...)`` builds
+the libraries its caller needs next in the same wave.
 
 Each build, and each first load of a library no build of this process
 made, is one event for the device observatory's build accounting
@@ -102,12 +103,13 @@ def _finish(name: str, out: str,
     return log
 
 
-def build_all() -> dict[str, str]:
-    """Compile every kernel whose library is missing, all nvcc processes
-    in parallel; returns name -> ptxas log ("" for a cached build)."""
+def _build_missing(names) -> dict[str, str]:
+    """Compile each of ``names`` whose library is missing, all nvcc
+    processes in parallel; returns name -> ptxas log ("" for a cached
+    build)."""
     logs: dict[str, str] = {}
     procs = {}
-    for name in kernel_sources():
+    for name in names:
         out = _lib_path(name)
         if os.path.exists(out):
             logs[name] = ""
@@ -118,8 +120,16 @@ def build_all() -> dict[str, str]:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name``, built first if needed."""
+def build_all() -> dict[str, str]:
+    """Compile every kernel whose library is missing, all nvcc processes
+    in parallel; returns name -> ptxas log ("" for a cached build)."""
+    return _build_missing(kernel_sources())
+
+
+def load(name: str, beside: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built first if needed; a
+    build of it also builds, in parallel, those of the libraries
+    ``beside`` that are missing (loaded later, by their own callers)."""
     lib: Optional[ctypes.CDLL] = _LIBS.get(name)
     if lib is not None:
         return lib
@@ -127,7 +137,7 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _LIBS:
             out = _lib_path(name)
             if not os.path.exists(out):
-                _finish(name, out, _compile(name, out))
+                _build_missing((name,) + tuple(beside))
             t0 = time.perf_counter()
             _LIBS[name] = ctypes.CDLL(out)
             if name not in _BUILT:

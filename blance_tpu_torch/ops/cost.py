@@ -24,8 +24,9 @@ from typing import Callable, Iterator, Optional
 import torch
 
 __all__ = ["HBM_BYTES_PER_S", "F32_OPS_PER_S", "LANE_INSTR_PER_S", "bound",
-           "fused_ops_per_cell", "min2_work", "fused_work", "sparse_work",
-           "sparse_cand_work", "tally", "note"]
+           "fused_ops_per_cell", "min2_work", "fused_work",
+           "score_write_work", "sparse_work", "sparse_cand_work", "tally",
+           "note"]
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12      # float32 outside the tensor cores, same sheet
@@ -72,6 +73,20 @@ def fused_work(price: torch.Tensor, si, nrules: int) -> tuple[int, int]:
                                      si.taken.shape[-1],
                                      si.present.shape[-1], nrules)
     return in_bytes + rows * 16, ops
+
+
+def score_write_work(si) -> tuple[int, int]:
+    """score_write on the packed ScoreInputs: the [P, N] (or [B, P, N])
+    score written, 4 bytes a cell, its inputs' bytes beside it; the
+    score's operations a cell, :func:`fused_ops_per_cell` without the
+    priced min2's 3."""
+    cells = si.stick.numel() * si.base.shape[-1]
+    in_bytes = sum(x.numel() * x.element_size() for x in si)
+    ops = cells * (fused_ops_per_cell(si.prev_state.shape[-1],
+                                      si.taken.shape[-1],
+                                      si.present.shape[-1],
+                                      si.cand_g.shape[-2] // 2) - 3)
+    return in_bytes + cells * 4, ops
 
 
 def sparse_work(score: torch.Tensor, price: torch.Tensor) -> tuple[int, int]:

@@ -83,6 +83,9 @@
 // batched kernel in either layout, the problem on blockIdx.y
 // (for_problem); the one-problem launches are separate kernels over the
 // same code.
+//
+// The score of a cell and what feeds it are score_cell.cuh's, shared
+// with score_write.cu (the matrix engine's [P, N] score).
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -92,121 +95,17 @@
 namespace {
 
 #include "min2_block.cuh"
+#include "score_cell.cuh"
 
 constexpr int kRowsPerTile = 16;
 constexpr int kColsPerThread = 2;
-constexpr int kDyn = -1;  // template width read from Args at run time
 
-struct Args {
-  const float* price;      // [n]
-  const float* base;       // [n]
-  const float* neg_boost;  // [n]
-  const float* validf;     // [n]
-  const int* cand_g;       // [2*nrules or 1, n]
-  const float* stick;      // [p]
-  const int* prev_slot;    // [p]
-  const int* prev_state;   // [p, r_width]
-  const int* taken;        // [p, t_width]
-  const float* present;    // [p, a_width]
-  const int* a_inc_g;      // [p, g_width]
-  const int* a_exc_g;      // [p, g_width]
-  const float* any_anchor; // [p]
-  float* best;
-  int* idx;
-  float* second;
-  float* raw;
-  float jitter_scale;
-  int p, n, nrules, r_width, t_width, a_width, g_width, pbase, noff;
-};
-
-// A row's staged terms, in 32-bit words: stick and stick * 0 (float
-// bits), prev_slot, the hash's row term, the rule gate, then R prev_state
-// ids, T taken ids, nrules * A include ids and as many exclude ids
-// (anchor-major), padded to whole 16-byte words.
-constexpr int kHead = 5;
-__host__ __device__ constexpr int row_words(int nr, int r, int t, int a) {
-  return (kHead + r + t + 2 * nr * a + 3) / 4 * 4;
-}
-
-// One column's terms, loaded once per chunk.
-template <int kNR>
-struct Col {
-  float base, nb, price;
-  float badv;     // 1e9 where validf == 0, else 0: the forbidden term
-  int g;
-  uint32_t hcol;  // g * 40503, the hash's column term
-  int cinc[kNR > 0 ? kNR : 1];
-  int cexc[kNR > 0 ? kNR : 1];
-};
-
-template <int kNR>
-__device__ __forceinline__ Col<kNR> load_col(const Args& a, int j) {
-  Col<kNR> c;
-  c.base = __ldg(a.base + j);
-  c.nb = __ldg(a.neg_boost + j);
-  c.price = __ldg(a.price + j);
-  c.badv = __ldg(a.validf + j) == 0.0f ? 1.0e9f : 0.0f;
-  c.g = a.noff + j;
-  c.hcol = (uint32_t)c.g * 40503u;
-  if constexpr (kNR > 0) {
-#pragma unroll
-    for (int i = 0; i < kNR; ++i) {
-      c.cinc[i] = __ldg(a.cand_g + i * a.n + j);
-      c.cexc[i] = __ldg(a.cand_g + (kNR + i) * a.n + j);
-    }
-  }
-  return c;
-}
-
-// The score of one cell, term order as the reference kernel; w is the
-// row's staged words (registers in a fixed-width instantiation, shared
-// memory in the runtime one).
+// The fused kernel's priced score of one cell.
 template <int kNR>
 __device__ __forceinline__ float cell(const Args& a, const int* w,
                                       const Col<kNR>& c, int j, int nr,
                                       int rw, int tw, int aw) {
-  const float stick = __int_as_float(w[0]);
-  float s = c.base + (c.nb > 0.0f ? fmaxf(c.nb, stick) : 0.0f);
-  s = s - 0.01f * (w[2] == c.g ? 1.0f : 0.0f);
-  bool sticky = false;
-#pragma unroll
-  for (int r = 0; r < rw; ++r) sticky |= (w[kHead + r] == c.g);
-  // stick * (0 or 1), the product taken once per row
-  s = s - (sticky ? stick : __int_as_float(w[1]));
-  if (nr > 0) {
-    const int* inc = w + kHead + rw + tw;
-    const int* exc = inc + nr * aw;
-    float pen = 1.0e6f;
-#pragma unroll
-    for (int i = 0; i < nr; ++i) {
-      int ci, ce;
-      if constexpr (kNR > 0) {
-        ci = c.cinc[i];
-        ce = c.cexc[i];
-      } else {
-        ci = __ldg(a.cand_g + i * a.n + j);
-        ce = __ldg(a.cand_g + (nr + i) * a.n + j);
-      }
-      bool sat = true;
-#pragma unroll
-      for (int ai = 0; ai < aw; ++ai)
-        sat = sat && inc[ai * nr + i] == ci && exc[ai * nr + i] != ce;
-      if (sat) pen = fminf(pen, (float)i * 1.0e4f);
-    }
-    s = s + (w[4] ? pen : 0.0f);
-  }
-  bool tk = false;
-#pragma unroll
-  for (int t = 0; t < tw; ++t) tk |= (w[kHead + rw + t] == c.g);
-  s = s + (tk ? 1.0e9f : c.badv);  // = 1e9 * (tk || invalid), exactly
-  // h / 65536 for the 16-bit hash h, exactly and without a conversion:
-  // the float 128 + h * 2^-16 (h in the low mantissa bits: one byte
-  // permute), minus 128.
-  const uint32_t sum = (uint32_t)w[3] + c.hcol;
-  const float frac = __uint_as_float(__byte_perm(sum, 0x43000000u, 0x7610))
-                     - 128.0f;
-  s = fmaf(a.jitter_scale, frac, s);
-  return s + c.price;
+  return score<false>(a, w, c, j, nr, rw, tw, aw) + c.price;
 }
 
 // push without the first-column test, as two compares and four selects
@@ -225,67 +124,6 @@ __device__ __forceinline__ void push_finite(Min2& m, float x, int j) {
       "selp.f32 %0, %3, %0, lt;\n\t}"
       : "+f"(m.best), "+r"(m.idx), "+f"(m.second)
       : "f"(x), "r"(j));
-}
-
-// Thread e < kRowsPerTile writes row0 + e's words (zeros past the end).
-__device__ void stage_row(const Args& a, int* w, int row, int nr, int rw,
-                          int tw, int aw, int nwords) {
-  for (int k = 0; k < nwords; ++k) w[k] = 0;
-  if (row >= a.p) return;
-  w[0] = __float_as_int(a.stick[row]);
-  w[1] = __float_as_int(a.stick[row] * 0.0f);
-  w[2] = a.prev_slot[row];
-  w[3] = (int)((uint32_t)(a.pbase + row) * 2654435761u);
-  for (int r = 0; r < rw; ++r) w[kHead + r] = a.prev_state[row * rw + r];
-  for (int t = 0; t < tw; ++t) w[kHead + rw + t] = a.taken[row * tw + t];
-  if (nr == 0) return;
-  int* inc = w + kHead + rw + tw;
-  int* exc = inc + nr * aw;
-  int np = 0;
-  for (int ai = 0; ai < a.a_width; ++ai) {
-    if (a.present[row * a.a_width + ai] <= 0.0f) continue;
-    for (int i = 0; i < nr; ++i) {
-      inc[np * nr + i] = a.a_inc_g[row * a.g_width + ai * nr + i];
-      exc[np * nr + i] = a.a_exc_g[row * a.g_width + ai * nr + i];
-    }
-    ++np;
-  }
-  for (int ai = np; ai < aw && np > 0; ++ai) {
-    for (int i = 0; i < nr; ++i) {
-      inc[ai * nr + i] = inc[i];
-      exc[ai * nr + i] = exc[i];
-    }
-  }
-  w[4] = (a.any_anchor[row] > 0.0f && np > 0) ? 1 : 0;
-}
-
-// A batch of problems (the fleet tier) stacks B same-shaped problems in
-// every array, and the launch puts the problem on blockIdx.y: problem b's
-// block reads its own [n] vectors and [p, ...] row terms and writes its
-// own [p] outputs, so a row tile never straddles two problems, and the
-// hash sees the problem's own row and column ids.  The one-problem launch
-// is its own kernel, which never offsets.
-__device__ __forceinline__ Args for_problem(Args a, long long b) {
-  const long long n = a.n, p = a.p;
-  const long long cand_rows = a.nrules > 0 ? 2LL * a.nrules : 1;
-  a.price += b * n;
-  a.base += b * n;
-  a.neg_boost += b * n;
-  a.validf += b * n;
-  a.cand_g += b * cand_rows * n;
-  a.stick += b * p;
-  a.prev_slot += b * p;
-  a.prev_state += b * p * a.r_width;
-  a.taken += b * p * a.t_width;
-  a.present += b * p * a.a_width;
-  a.a_inc_g += b * p * a.g_width;
-  a.a_exc_g += b * p * a.g_width;
-  a.any_anchor += b * p;
-  a.best += b * p;
-  a.idx += b * p;
-  a.second += b * p;
-  a.raw += b * p;
-  return a;
 }
 
 // One block's tile of rows of one problem.
@@ -511,12 +349,7 @@ int launch_variant(const float* price, const float* base,
                    int noff, int variant, long long batch, int lanes,
                    void* stream) {
   if (p <= 0 || batch == 0) return 0;
-  long long widest = 1;
-  const int widths[] = {r_width, t_width, a_width, g_width};
-  for (int w : widths) widest = w > widest ? w : widest;
-  if (n <= 0 || n > INT_MAX || p > INT_MAX || nrules < 0 ||
-      p * widest > INT_MAX || (2LL * nrules + 1) * n > INT_MAX ||
-      batch > 65535)
+  if (!shapes_fit(p, n, nrules, r_width, t_width, a_width, g_width, batch))
     return (int)cudaErrorInvalidValue;
   Args a{price, base, neg_boost, validf, cand_g, stick, prev_slot,
          prev_state, taken, present, a_inc_g, a_exc_g, any_anchor,

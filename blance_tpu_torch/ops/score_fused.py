@@ -23,28 +23,40 @@ on the CPU (XLA):
   fused multiply-add; the port rounds it once too (:func:`jitter_add`),
   and the kernel spells it ``fmaf``.
 
+A second kernel, :func:`score_write` (``csrc/score_write.cu`` and, for
+runtime widths, ``csrc/score_write_any.cu``, which share the per-cell
+score ``csrc/score_cell.cuh`` with the fused one),
+writes the matrix engine's unpriced [P, N] score from the same packed
+inputs, in that engine's term order, for the priced min2 kernel to
+reduce (``plan/tensor.py`` ``_matrix_score`` on the card).
+
 On a CPU tensor ``fused_score_min2`` runs the plain PyTorch version
 (:func:`fused_score_min2_reference`); on a CUDA tensor it launches the
-kernel or raises.  ``fused_score_min2.launches`` counts launches, and
-``fused_score_min2.variants`` counts them by kernel instantiation (the
-name :func:`fused_variant` gives, prefixed ``batched_`` for a launch over
-a batch of problems, and suffixed ``_rows_per_warp`` where the narrow-row
-layout that :func:`fused_lanes` picks for narrow rows ran it).
+kernel or raises; so does ``score_write``
+(:func:`score_write_reference`).  ``fused_score_min2.launches`` counts
+launches, and ``fused_score_min2.variants`` counts them by kernel
+instantiation (the name :func:`fused_variant` gives, prefixed
+``batched_`` for a launch over a batch of problems, and suffixed
+``_rows_per_warp`` where the narrow-row layout that :func:`fused_lanes`
+picks for narrow rows ran it).
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..obs import counts_recorder
 from . import cost as _cost
 
 __all__ = ["fused_score_min2", "fused_score_min2_reference",
-           "batched_fused_reference", "ScoreInputs",
+           "batched_fused_reference", "score_write",
+           "score_write_reference", "ScoreInputs",
            "pack_score_inputs", "score_at_columns", "jitter_hash",
            "jitter_add", "fill_scale", "fill_term", "FUSED_VARIANTS",
            "fused_variant", "fused_lanes", "FUSED_LANES_BY_N"]
@@ -214,17 +226,23 @@ def pack_score_inputs(
 
 
 def _score_rows(si: ScoreInputs, lo: int, hi: int, pbase: int, noff: int,
-                nrules: int, jitter_scale: float) -> torch.Tensor:
-    """The kernel's score for rows [lo, hi), in the kernel's term order."""
+                nrules: int, jitter_scale: float,
+                matrix_order: bool = False) -> torch.Tensor:
+    """The kernels' unpriced score for rows [lo, hi), in the fused
+    kernel's term order, or with ``matrix_order`` in the matrix engine's
+    (``plan/tensor.py`` ``_matrix_score``: the same-ordinal bonus is
+    subtracted before the boost is added, which rounds differently where
+    both are nonzero)."""
     n = si.base.shape[0]
     dev = si.base.device
     cols = torch.arange(n, dtype=torch.int32, device=dev)[None, :] + noff
     base = si.base[None, :]
     nb = si.neg_boost[None, :]
     stick = si.stick[lo:hi, None]
-    score = base + torch.where(nb > 0, torch.maximum(nb, stick), 0.0)
-    score = score - 0.01 * (si.prev_slot[lo:hi, None] == cols) \
-        .to(torch.float32)
+    boost = torch.where(nb > 0, torch.maximum(nb, stick), 0.0)
+    bonus = 0.01 * (si.prev_slot[lo:hi, None] == cols).to(torch.float32)
+    score = (base - bonus) + boost if matrix_order else \
+        (base + boost) - bonus
     pstate = si.prev_state[lo:hi]
     sticky = pstate[:, 0:1] == cols
     for r in range(1, pstate.shape[1]):
@@ -281,6 +299,26 @@ def fused_score_min2_reference(price: torch.Tensor, si: ScoreInputs,
         e = torch.empty(0, dtype=torch.float32, device=price.device)
         return e, e.to(torch.int32), e, e
     return tuple(torch.cat(t) for t in zip(*outs))
+
+
+def score_write_reference(si: ScoreInputs, pbase: int, noff: int, *,
+                          nrules: int, jitter_scale: float) -> torch.Tensor:
+    """Plain PyTorch version of the score write: the unpriced score
+    [P, N] ([B, P, N] for inputs with a leading [B]) in the matrix
+    engine's term order, built in row chunks."""
+    if si.stick.dim() == 2:
+        return torch.stack([score_write_reference(
+            ScoreInputs(*(t[b] for t in si)), pbase, noff, nrules=nrules,
+            jitter_scale=jitter_scale) for b in range(si.stick.shape[0])])
+    p = si.stick.shape[0]
+    n = si.base.shape[0]
+    out = torch.empty((p, n), dtype=torch.float32, device=si.base.device)
+    step = max(1, _ROW_CELLS // max(n, 1))
+    for lo in range(0, p, step):
+        hi = min(p, lo + step)
+        out[lo:hi] = _score_rows(si, lo, hi, pbase, noff, nrules,
+                                 jitter_scale, matrix_order=True)
+    return out
 
 
 def batched_fused_reference(price: torch.Tensor, si: ScoreInputs,
@@ -375,7 +413,51 @@ def _kernel():
     return _C_FN
 
 
-_F32 = ("base", "neg_boost", "validf", "stick", "present", "any_anchor")
+@functools.cache
+def _write_kernel(runtime_widths: bool):
+    """The score write's launcher for the fixed-width instantiations
+    (``csrc/score_write.cu``) or the runtime-width one
+    (``csrc/score_write_any.cu``), each a library of its own, apart from
+    the fused kernel's: a matrix plan builds only the one its widths
+    need, and min2's library in the same build, since the engine reduces
+    the score with it next."""
+    from ._build import load
+
+    name = "score_write_any" if runtime_widths else "score_write"
+    fw = getattr(load(name, beside=("min2",)), f"blance_{name}")
+    fw.argtypes = [ctypes.c_void_p] * 13 + [
+        ctypes.c_float, ctypes.c_longlong, ctypes.c_longlong] + \
+        [ctypes.c_int] * 8 + [ctypes.c_longlong, ctypes.c_void_p]
+    fw.restype = ctypes.c_int
+    return fw
+
+
+_F32 = ("price", "base", "neg_boost", "validf", "stick", "present",
+        "any_anchor")
+
+
+def _checked(what: str, si: ScoreInputs, lead, dev, nrules: int,
+             price=None) -> ScoreInputs:
+    """``si`` (and ``price``) checked for the kernels' dtypes, device,
+    batch and rule columns, made contiguous; raises on what a launch
+    does not take."""
+    n = si.base.shape[-1]
+    named = list(si._asdict().items())
+    if price is not None:
+        named.insert(0, ("price", price))
+    for name, t in named:
+        want = torch.float32 if name in _F32 else torch.int32
+        if t.dtype != want or t.device != dev:
+            raise TypeError(f"{what}: {name} must be {want} on "
+                            f"{dev}, got {t.dtype} on {t.device}")
+        if t.shape[:len(lead)] != lead:
+            raise ValueError(f"{what}: {name} has shape "
+                             f"{tuple(t.shape)}, not a batch of {lead}")
+    if nrules and (si.cand_g.shape[-2:] != (2 * nrules, n)
+                   or si.a_inc_g.shape[-1] != si.present.shape[-1] * nrules):
+        raise ValueError(f"{what}: rule columns do not match "
+                         f"nrules={nrules}")
+    return ScoreInputs(*(t.contiguous() for t in si))
 
 
 def _launch(price, si: ScoreInputs, pbase: int, noff: int, nrules: int,
@@ -388,26 +470,12 @@ def _launch(price, si: ScoreInputs, pbase: int, noff: int, nrules: int,
     p = si.stick.shape[-1]
     n = price.shape[-1]
     dev = price.device
-    fields = si._asdict()
-    for name, t in [("price", price)] + list(fields.items()):
-        want = torch.float32 if name in _F32 or name == "price" \
-            else torch.int32
-        if t.dtype != want or t.device != dev:
-            raise TypeError(f"fused_score_min2: {name} must be {want} on "
-                            f"{dev}, got {t.dtype} on {t.device}")
-        if t.shape[:len(lead)] != lead:
-            raise ValueError(f"fused_score_min2: {name} has shape "
-                             f"{tuple(t.shape)}, not a batch of {lead}")
-    si = ScoreInputs(*(t.contiguous() for t in si))
+    si = _checked("fused_score_min2", si, lead, dev, nrules, price)
     price = price.contiguous()
     r_width = si.prev_state.shape[-1]
     t_width = si.taken.shape[-1]
     a_width = si.present.shape[-1]
     g_width = si.a_inc_g.shape[-1]
-    if nrules and (si.cand_g.shape[-2:] != (2 * nrules, n)
-                   or g_width != a_width * nrules):
-        raise ValueError("fused_score_min2: rule columns do not match "
-                         f"nrules={nrules}")
     variant = fused_variant(nrules, r_width, t_width, a_width)
     best = torch.empty(lead + (p,), dtype=torch.float32, device=dev)
     choice = torch.empty(lead + (p,), dtype=torch.int32, device=dev)
@@ -466,6 +534,61 @@ def fused_score_min2(price: torch.Tensor, si: ScoreInputs, pbase: int,
 
 fused_score_min2.launches = 0
 fused_score_min2.variants = collections.Counter()
+
+
+def score_write(si: ScoreInputs, pbase: int, noff: int, *, nrules: int,
+                jitter_scale: float) -> torch.Tensor:
+    """The matrix engine's unpriced score [P, N] from the packed inputs,
+    in its term order (:func:`score_write_reference`), written by the
+    kernel ``score_write_kernel`` (``csrc/score_write.cu``) in one pass;
+    [B, P, N] in one launch for fields with a leading [B].  Columns are
+    local, the jitter hashes ``pbase + row`` and ``noff + column``.
+
+    Each launch adds its cells (B·P·N) to the counter
+    ``ops.score_write.cells`` of ``obs.counts_recorder()``, and raises
+    ``launches`` and ``variants[<instantiation>]`` (``batched_`` before
+    it for a batch) by one; a CPU call runs the plain version and counts
+    none of them."""
+    _cost.note(_cost.score_write_work, si)
+    dev = si.base.device
+    if dev.type == "cpu":
+        return score_write_reference(si, pbase, noff, nrules=nrules,
+                                     jitter_scale=jitter_scale)
+    if dev.type != "cuda":
+        raise RuntimeError(f"score_write: no kernel for device {dev}")
+    lead = si.base.shape[:-1]
+    p = si.stick.shape[-1]
+    n = si.base.shape[-1]
+    si = _checked("score_write", si, lead, dev, nrules)
+    out = torch.empty(lead + (p, n), dtype=torch.float32, device=dev)
+    batch = int(np.prod(lead, dtype=np.int64))
+    if out.numel() == 0:
+        return out
+    r_width = si.prev_state.shape[-1]
+    t_width = si.taken.shape[-1]
+    a_width = si.present.shape[-1]
+    variant = fused_variant(nrules, r_width, t_width, a_width)
+    err = _write_kernel(variant == "generic")(
+        si.base.data_ptr(), si.neg_boost.data_ptr(), si.validf.data_ptr(),
+        si.cand_g.data_ptr(), si.stick.data_ptr(), si.prev_slot.data_ptr(),
+        si.prev_state.data_ptr(), si.taken.data_ptr(),
+        si.present.data_ptr(), si.a_inc_g.data_ptr(),
+        si.a_exc_g.data_ptr(), si.any_anchor.data_ptr(), out.data_ptr(),
+        float(jitter_scale), p, n, int(nrules), r_width, t_width, a_width,
+        si.a_inc_g.shape[-1], int(pbase), int(noff),
+        _VARIANT_IDS.get(variant, -1), batch,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"score_write kernel launch failed: CUDA error "
+                           f"{err}")
+    counts_recorder().count("ops.score_write.cells", out.numel())
+    score_write.launches += 1
+    score_write.variants[f"batched_{variant}" if lead else variant] += 1
+    return out
+
+
+score_write.launches = 0
+score_write.variants = collections.Counter()
 
 
 def score_at_columns(

@@ -296,7 +296,7 @@ class _RankMesh:
 
 
 _CAPTURED_KERNELS = ("priced_min2_argmin", "fused_score_min2",
-                     "sparse_priced_min2_cand")
+                     "sparse_priced_min2_cand", "score_write")
 
 
 class _HostArray(NamedTuple):

@@ -97,6 +97,7 @@ from ..ops.score_fused import (
     jitter_add,
     pack_score_inputs,
     score_at_columns,
+    score_write,
 )
 from ..moves.batch import diff_assignments, moves_from_arrays
 from ..obs import device as _device
@@ -962,11 +963,23 @@ def _matrix_score(total, total_p, w_div, neg_boost, valid, stick_si,
     GLOBAL row and column ids: under sharding ``total``, ``w_div``,
     ``neg_boost`` and ``valid`` are this node shard's [N_l] slices,
     ``gids_cand`` its [L, N_l] candidate gids, ``noff`` its first column
-    and ``pbase`` the global index of local row 0."""
+    and ``pbase`` the global index of local row 0.  On the card one
+    kernel writes the same bits (``score_write``, from the inputs
+    ``pack_score_inputs`` packs)."""
     p = prev_slot.shape[-1]
     n = total.shape[-1]
     lead = total.shape[:-1]
     dev = total.device
+    if dev.type == "cuda":
+        si = pack_score_inputs(
+            total_l=total, total_p=total_p, w_div_l=w_div,
+            neg_boost_l=neg_boost, valid_l=valid, stickiness_si=stick_si,
+            prev_slot=prev_slot, prev_state=prev_state_ids,
+            taken_ids=list(taken_ids), anchors=anchors,
+            gids_l=gids if gids_cand is None else gids_cand,
+            gid_valid=gid_valid, gids=gids, rules=state_rules)
+        return score_write(si, pbase, noff, nrules=len(state_rules),
+                           jitter_scale=_JITTER)
     cols = torch.arange(n, dtype=torch.int32, device=dev) + noff
     score_row = fill_term(total, total_p, w_div).unsqueeze(-2)
     nb = neg_boost.unsqueeze(-2)

@@ -13,7 +13,8 @@ nothing of jax or of the JAX package.  In order:
    outputs, at [100000, 10000] in the main path's two instantiations
    (the replica's one rack rule, two anchors, two taken columns; the
    rule-less primary) and in the runtime-width one (two rules, R = 2,
-   T = 2) at [4099, 777], whose last row tile is ragged; the sparse min2
+   T = 2) at [4099, 777], whose last row tile is ragged; the score write
+   (the matrix engine's [P, N] score) on the same inputs; the sparse min2
    at [1000000, 16] (ties, +inf pad columns, all-+inf rows), [4099, 37]
    and [7, 1] in both instantiations: the [P, K]-price one on all four
    outputs, and the gathered one the sparse engine calls (candidate ids
@@ -30,7 +31,8 @@ nothing of jax or of the JAX package.  In order:
    through plan_next_map on the matrix and the fused engine, which must
    take the unbatched narrow layouts; each kernel, on the inputs of its
    first call there, joins the ``kernels`` line with ``path="small"``,
-   its wide layout timed beside it;
+   its wide layout timed beside it (the score write, from the matrix
+   engine's run, without one: its layout is set by N alone);
 3. small plans on the card equal the plain CPU path's map for map (both
    dense engines, and the sparse engine with K < N), and a saturating
    K = N sparse plan equals the dense matrix engine's;
@@ -116,7 +118,7 @@ nothing of jax or of the JAX package.  In order:
    padded to 1 048 576 on the sparse engine; each kernel, on the inputs
    the bucketed runs gave its first call, bitwise its plain version at
    the padded shape (added to the ``kernels`` line with
-   ``path="bucketed"``);
+   ``path="bucketed"``; the score write from the matrix engine's run);
 12. runs the fleet tier (the ``fleet`` line): bench.py's fleet stage
    (64 tenants, P 17-20 x N 8, two classes) through ``solve_fleet`` on
    the card, each tenant bitwise its single bucketed solve on the card
@@ -135,7 +137,9 @@ nothing of jax or of the JAX package.  In order:
    batched min2 at the wave's [240, 1024, 64] and the batched in-kernel
    score at the bench tenants' class and at the wave's [240, 1024, 64]
    join the ``kernels`` line with ``path="fleet"``, each with its wide
-   layout (the batched launch before the narrow rows) timed beside it;
+   layout (the batched launch before the narrow rows) timed beside it,
+   and so does the batched score write on the inputs of the wave's
+   first replica-slot call at [240, 1024, 64];
 13. drives the port's testing harness on the card (the ``harness``
    line): the five committed traces under tests/traces/ with
    ``device="cuda"``, each byte for byte the file (the pause guard's
@@ -150,16 +154,18 @@ nothing of jax or of the JAX package.  In order:
    clean and with the CPU's signatures; all inside the phase's budget.
    min2, on the inputs of its first unbatched (closed loop) and batched
    (fleet simulator) calls on the card, joins the ``kernels`` line with
-   ``path="harness"``, its wide layout timed beside it;
+   ``path="harness"``, its wide layout timed beside it, and so does the
+   score write on the inputs of its first such calls;
 14. runs the port's analysis gate (the ``analysis`` line):
    ``analysis.run_all(shape_audit=True, device="cuda")``, the AST lints
    over the package on the host and the 72 shape contracts on the card
    (then the 4 host checks; the 12 sharded ones on a 2-rank mesh on the
    card), with no new finding, no stale pin and no analyzer error, the
    audit launching min2 (unbatched and batched) and the sparse kernel,
-   all inside the phase's budget; min2 on the inputs of its first
-   unbatched and batched audit calls and the sparse kernel on its first
-   join the ``kernels`` line with ``path="analysis"``;
+   all inside the phase's budget; min2 and the score write on the
+   inputs of their first unbatched and batched audit calls and the
+   sparse kernel on its first join the ``kernels`` line with
+   ``path="analysis"``;
 15. shards the solves over meshes of ranks on the one card (the
    ``sharded`` line; parallel/mesh.py, parallel/sharded.py): starts a
    4-rank 1-D mesh, a 2x2 mesh (both gloo: the ranks share the card)
@@ -178,8 +184,9 @@ nothing of jax or of the JAX package.  In order:
    240-tenant wave through solve_fleet(mesh=) cold and warm and
    PlanService(mesh=), equal to the card's unmeshed wave; every rank's
    solve time, peak allocation, collectives (count, time, bytes) and
-   host staging copies; inside the phase's 240 s budget.  min2 on the
-   2x2 north star's rank 3, the in-kernel score on the 4-rank north
+   host staging copies; inside the phase's 240 s budget.  min2 and the
+   score write (row and column offsets non-zero) on the 2x2 north
+   star's rank 3, the in-kernel score on the 4-rank north
    star's rank 1 and on the 4096 x 256 2x2 mesh's rank 3 (row and
    column offsets non-zero) and the sparse kernel on the 1M run's rank
    1 join the ``kernels`` line with ``path="sharded"``, each on the
@@ -451,6 +458,44 @@ def check_fused(dev: torch.device) -> dict:
             library_ms=None,
             issue_floor_ms=p * n * ops_cell / LANE_INSTR_PER_S * 1e3)
         out.update(_bound(*cost.fused_work(price, si, nrules)))
+    return out
+
+
+def check_score_write(dev: torch.device) -> dict:
+    """The score write against its plain version, bitwise, on the fused
+    check's inputs (the main path's two instantiations at [100000,
+    10000], the runtime-width one at [4099, 777]); timed in the
+    replica's instantiation."""
+    kw = dict(jitter_scale=T._JITTER)
+    out = {}
+    for what, (_price, si, nrules) in (
+            ("replica", fused_inputs(dev)),
+            ("primary", fused_inputs(dev, state="primary")),
+            ("generic", generic_fused_inputs(dev, 4099, 777))):
+        p, n = si.stick.shape[0], si.base.shape[0]
+        variant = score_fused.fused_variant(
+            nrules, si.prev_state.shape[1], si.taken.shape[1],
+            si.present.shape[1])
+        got = score_fused.score_write(si, 0, 0, nrules=nrules, **kw)
+        want = score_fused.score_write_reference(si, 0, 0, nrules=nrules,
+                                                 **kw)
+        err = compare((got.flatten(),), (want.flatten(),),
+                      f"score_write {variant} [{p}, {n}]")
+        del got, want
+        log(f"score write kernel == plain at [{p}, {n}], {variant} "
+            "(bitwise)")
+        if what != "replica":
+            continue
+        kernel = lambda: score_fused.score_write(  # noqa: E731
+            si, 0, 0, nrules=nrules, **kw)
+        out = dict(
+            timed_instantiation=variant, max_abs_err=err,
+            ms=graph_ms(kernel, calls=5), ms_events=time_ms(kernel),
+            plain_ms=time_ms(lambda: score_fused.score_write_reference(
+                si, 0, 0, nrules=nrules, **kw), reps=2, warmup=1),
+            library_ms=None)
+        out.update(_bound(*cost.score_write_work(si)))
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1770,7 +1815,7 @@ def small_plan_path(dev) -> tuple:
     the in-kernel score engine: the unbatched narrow layouts on a user's
     path, counted from 0 over each run.  Returns each run's summary and
     each kernel's entry, on the inputs of its first call (the in-kernel
-    score's: the replica slot's, ``n1r1t2a2``)."""
+    score's and the score write's: the replica slot's, ``n1r1t2a2``)."""
     prev, nodes, removed, model, opts = small_map()
     out, entries = {}, {}
     replica = lambda args, kw: kw.get("nrules") == 1  # noqa: E731
@@ -1779,7 +1824,8 @@ def small_plan_path(dev) -> tuple:
             ("fused", "on", "fused_score_min2", replica)):
         T.set_fused_score_default(mode)
         try:
-            with first_call(name, want) as seen:
+            with first_call(name, want) as seen, \
+                    first_call("score_write", replica) as seen_write:
                 info, _map = run_main_path(f"small plan, {key}", prev,
                                            nodes, removed, model, opts)
         finally:
@@ -1791,6 +1837,12 @@ def small_plan_path(dev) -> tuple:
                             v.endswith("rows_per_warp") for v in variants))
         entries[key] = path_kernel_entry(key, seen, out[key]["launches"],
                                          "the small plan's", wide=True)
+        if key == "min2":  # the matrix engine writes its score first
+            out["write"] = dict(launches=info["launches"]["score_write"],
+                                variants=info["variants"]["score_write"])
+            entries["write"] = path_kernel_entry(
+                "write", seen_write, out["write"]["launches"],
+                "the small plan's")
     return out, entries
 
 
@@ -1815,7 +1867,8 @@ def narrow_phase(dev) -> tuple:
                             fused=score_fused.FUSED_LANES_BY_N),
                 sweep=sweep, small_plan=small,
                 checks=dict(small_narrow_taken=all(
-                    v["narrow_taken"] for v in small.values())))
+                    small[k]["narrow_taken"] for k in ("min2", "fused")),
+                    small_write_launched=small["write"]["launches"] > 0))
     if not all(line["checks"].values()):
         raise AssertionError(f"narrow: {line['checks']}, {small}")
     return line, entries
@@ -1869,6 +1922,7 @@ def path_kernel_entry(kind: str, seen: dict, launches: int,
     bitwise; timed like the kernels phase, with its bound from these
     inputs; ``wide``: its wide layout timed beside it (``wide_ms``)."""
     args, kw = seen["args"], seen["kw"]
+    lead: list = []
     if kind == "min2":
         score, price = args
         p, n = score.shape
@@ -1888,6 +1942,17 @@ def path_kernel_entry(kind: str, seen: dict, launches: int,
             price, si, *args[2:4], **call)
         library = None
         bound = _bound(*cost.fused_work(price, si, kw["nrules"]))
+    elif kind == "write":
+        si, pbase, noff = args
+        lead = list(si.base.shape[:-1])
+        p, n = si.stick.shape[-1], si.base.shape[-1]
+        call = dict(nrules=kw["nrules"], jitter_scale=kw["jitter_scale"])
+        kernel = lambda: (score_fused.score_write(  # noqa: E731
+            si, pbase, noff, **call),)
+        plain = lambda: (score_fused.score_write_reference(  # noqa: E731
+            si, pbase, noff, **call),)
+        library = None
+        bound = _bound(*cost.score_write_work(si))
     else:
         score, cand, price_n = args
         p, n = score.shape
@@ -1900,20 +1965,22 @@ def path_kernel_entry(kind: str, seen: dict, launches: int,
             dim=1, largest=False)
         bound = _bound(*cost.sparse_cand_work(score, cand, price_n))
     before = launch_variants()
-    err = compare(kernel(), plain(), f"{kind} kernel at {where} [{p}, {n}]")
+    shape = lead + [p, n]
+    err = compare(kernel(), plain(), f"{kind} kernel at {where} {shape}")
     variant, = _variants_since(before)[{"min2": "priced_min2_argmin",
-                                        "fused": "fused_score_min2"}.get(
+                                        "fused": "fused_score_min2",
+                                        "write": "score_write"}.get(
         kind, "sparse_priced_min2_cand")]
-    log(f"{kind} kernel == plain at {where} [{p}, {n}] (bitwise)")
+    log(f"{kind} kernel == plain at {where} {shape} (bitwise)")
     extra = {}
     if wide:
         extra["wide_ms"] = graph_ms(lambda: _wide_launch(kind, args, kw))
-    return dict(shape=[p, n], launches=launches, variant=variant,
+    slow = kind in ("fused", "write")  # few calls: a write allocates P x N
+    return dict(shape=shape, launches=launches, variant=variant,
                 max_abs_err=err, **extra,
-                ms=graph_ms(kernel, calls=5 if kind == "fused" else 20),
+                ms=graph_ms(kernel, calls=5 if slow else 20),
                 ms_events=time_ms(kernel),
-                plain_ms=time_ms(plain, reps=2 if kind == "fused" else 3,
-                                 warmup=1),
+                plain_ms=time_ms(plain, reps=2 if slow else 3, warmup=1),
                 library_ms=None if library is None else time_ms(library,
                                                                 reps=3),
                 **bound)
@@ -1974,15 +2041,21 @@ def bucketed_phase(dev, prev, nodes, removed, model, ns_opts, plain, sp_map,
     b_opts = dataclasses.replace(ns_opts, shape_bucketing=True)
     res, checks, entries = {}, {}, {}
     T.set_fused_score_default("auto")
-    info, b_map, seen = bucketed_plan(
-        "bucketed north star, auto engine", prev, nodes, removed, model,
-        b_opts, "priced_min2_argmin")
+    with first_call("score_write") as seen_write:
+        info, b_map, seen = bucketed_plan(
+            "bucketed north star, auto engine", prev, nodes, removed, model,
+            b_opts, "priced_min2_argmin")
     res["matrix"] = info
     checks["matrix_engine"] = info["engine"] == "matrix" and \
-        info["launches"]["priced_min2_argmin"] >= 1
+        info["launches"]["priced_min2_argmin"] >= 1 and \
+        info["launches"]["score_write"] >= 1
     entries["min2"] = path_kernel_entry(
         "min2", seen, info["launches"]["priced_min2_argmin"])
     del seen
+    torch.cuda.empty_cache()
+    entries["write"] = path_kernel_entry(
+        "write", seen_write, info["launches"]["score_write"])
+    del seen_write
     torch.cuda.empty_cache()
 
     def timed(args, kw):
@@ -2271,16 +2344,20 @@ def fleet_wave(dev) -> tuple:
     sequential timed once each."""
     tenants = wave_tenants()
     engine = T.resolve_default_fused_score(1024, FLEET_WAVE_N, dev)
-    # The kernel entry takes the large class's first batched call.
+    # The kernel entries take the large class's first batched call (the
+    # score write's: the replica slot's).
     with first_call("priced_min2_argmin",
                     lambda args, kw: args[0].dim() == 3
-                    and args[0].shape[1] == 1024) as seen:
+                    and args[0].shape[1] == 1024) as seen, \
+            first_call("score_write", _replica_write_batch(1024)) \
+            as seen_write:
         cold, cold_info = _fleet_run(tenants, dev)
         round2 = [delta_tenant(t, r) for t, r in zip(tenants, cold)]
         warm, warm_info = _fleet_run(round2, dev)
-    launches = sum(c for i in (cold_info, warm_info)
-                   for v, c in i["variants"]["priced_min2_argmin"].items()
-                   if v.startswith("batched"))
+    launches = {name: sum(c for i in (cold_info, warm_info)
+                          for v, c in i["variants"][name].items()
+                          if v.startswith("batched"))
+                for name in ("priced_min2_argmin", "score_write")}
     cold_single, cold_seq_s = _sync_wall(
         lambda: [single_cold(t, dev, engine) for t in tenants])
     warm_single, warm_seq_s = _sync_wall(
@@ -2295,6 +2372,8 @@ def fleet_wave(dev) -> tuple:
     checks["narrow_min2_taken"] = dict(equal=all(
         "batched_rows_per_warp" in i["variants"]["priced_min2_argmin"]
         for i in (cold_info, warm_info)))
+    checks["write_batched_launched"] = dict(
+        equal=launches["score_write"] > 0)
     k_cells = sum(fleet.batch_class_of(t).p for t in tenants) * FLEET_WAVE_N
     out = dict(
         tenants=len(tenants), nodes=FLEET_WAVE_N, engine=_ENGINES[engine],
@@ -2308,7 +2387,7 @@ def fleet_wave(dev) -> tuple:
                   batched_over_sequential=warm_info["wall_s"] / warm_seq_s),
         checks={k: v["equal"] for k, v in checks.items()},
         diffs={k: v for k, v in checks.items() if not v["equal"]})
-    return out, cold, seen, launches
+    return out, cold, (seen, seen_write), launches
 
 
 def fleet_service(dev, cold) -> dict:
@@ -2350,6 +2429,13 @@ def _replica_batch(p: int):
     launches) over P = p rows."""
     return lambda args, kw: args[0].dim() == 2 and kw["nrules"] == 1 \
         and args[1].stick.shape[-1] == p
+
+
+def _replica_write_batch(p: int):
+    """_replica_batch for the score write, whose first argument is the
+    packed ScoreInputs."""
+    return lambda args, kw: args[0].stick.dim() == 2 and \
+        kw["nrules"] == 1 and args[0].stick.shape[-1] == p
 
 
 def fleet_fused(dev) -> tuple:
@@ -2503,7 +2589,9 @@ def fleet_phase(dev) -> tuple:
     res["bench_fleet"], _r = fleet_bench_stage(dev)
     parts["bench_fleet"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    res["wave"], cold, seen_min2, min2_launches = fleet_wave(dev)
+    res["wave"], cold, (seen_min2, seen_write), wave_launches = \
+        fleet_wave(dev)
+    min2_launches = wave_launches["priced_min2_argmin"]
     parts["wave"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     res["service"] = fleet_service(dev, cold)
@@ -2528,7 +2616,10 @@ def fleet_phase(dev) -> tuple:
                                            fused_launches),
                "fused_wave": fleet_kernel_entry(
                    "fused", seen_wave_fused, wave_fused_launches,
-                   plain_reps=1)}
+                   plain_reps=1),
+               "write": path_kernel_entry(
+                   "write", seen_write, wave_launches["score_write"],
+                   "the fleet wave's")}
     parts["kernels"] = time.perf_counter() - t0
     res["parts_s"] = parts
     checks = {f"{part}.{k}": v for part in ("bench_fleet", "wave", "service",
@@ -2588,6 +2679,12 @@ HARNESS_BUDGET_S = 180.0  # the phase's wall, kernel entries included
 
 def _on_card(args, kw) -> bool:
     return bool(args) and args[0].is_cuda
+
+
+def _write_on_card(batched: bool):
+    """A first_call filter: a score write on the card, batched or not."""
+    return lambda args, kw: args[0].base.is_cuda and \
+        (args[0].base.dim() == 2) == batched
 
 
 def _sha256(text: str) -> str:
@@ -2746,13 +2843,17 @@ def harness_phase(dev) -> tuple:
     t_phase = time.perf_counter()
     with first_call("priced_min2_argmin",
                     lambda a, kw: _on_card(a, kw) and a[0].dim() == 3) \
-            as seen_batched:
+            as seen_batched, \
+            first_call("score_write", _write_on_card(True)) \
+            as seen_write_batched:
         t0 = time.perf_counter()
         res["traces"] = harness_traces(dev)
         parts["traces"] = time.perf_counter() - t0
         with first_call("priced_min2_argmin",
                         lambda a, kw: _on_card(a, kw) and a[0].dim() == 2) \
-                as seen_flat:
+                as seen_flat, \
+                first_call("score_write", _write_on_card(False)) \
+                as seen_write_flat:
             t0 = time.perf_counter()
             res["closed_loop"] = harness_closed_loop(dev)
             parts["closed_loop"] = time.perf_counter() - t0
@@ -2766,11 +2867,20 @@ def harness_phase(dev) -> tuple:
     res["variants"] = launch_variants()
     min2 = res["variants"]["priced_min2_argmin"]
     batched = sum(c for v, c in min2.items() if v.startswith("batched"))
+    write = res["variants"]["score_write"]
+    write_batched = sum(c for v, c in write.items()
+                        if v.startswith("batched"))
     t0 = time.perf_counter()
     entries = {
         "flat": path_kernel_entry("min2", seen_flat, sum(min2.values()) -
                                   batched, "the closed loop's", wide=True),
-        "batched": fleet_kernel_entry("min2", seen_batched, batched)}
+        "batched": fleet_kernel_entry("min2", seen_batched, batched),
+        "write_flat": path_kernel_entry(
+            "write", seen_write_flat, sum(write.values()) - write_batched,
+            "the closed loop's"),
+        "write_batched": path_kernel_entry(
+            "write", seen_write_batched, write_batched,
+            "the fleet simulator's")}
     parts["kernels"] = time.perf_counter() - t0
     res["parts_s"] = parts
     res["phase_s"] = time.perf_counter() - t_phase
@@ -2828,7 +2938,11 @@ def analysis_phase(dev) -> tuple:
             first_call("priced_min2_argmin",
                        lambda a, kw: _on_card(a, kw) and a[0].dim() == 2) \
             as seen_flat, \
-            first_call("sparse_priced_min2_cand", _on_card) as seen_sparse:
+            first_call("sparse_priced_min2_cand", _on_card) as seen_sparse, \
+            first_call("score_write", _write_on_card(True)) \
+            as seen_write_batched, \
+            first_call("score_write", _write_on_card(False)) \
+            as seen_write_flat:
         t0 = time.perf_counter()
         result = run_all(shape_audit=True, device=dev)
         gate_s = time.perf_counter() - t0
@@ -2837,6 +2951,9 @@ def analysis_phase(dev) -> tuple:
     variants = launch_variants()
     min2 = variants["priced_min2_argmin"]
     batched = sum(c for v, c in min2.items() if v.startswith("batched"))
+    write = variants["score_write"]
+    write_batched = sum(c for v, c in write.items()
+                        if v.startswith("batched"))
     t0 = time.perf_counter()
     entries = {
         "flat": path_kernel_entry("min2", seen_flat,
@@ -2845,7 +2962,12 @@ def analysis_phase(dev) -> tuple:
         "batched": fleet_kernel_entry("min2", seen_batched, batched),
         "sparse": path_kernel_entry("sparse", seen_sparse,
                                     counts["sparse_priced_min2_cand"],
-                                    "the audit's")}
+                                    "the audit's"),
+        "write_flat": path_kernel_entry(
+            "write", seen_write_flat, sum(write.values()) - write_batched,
+            "the audit's"),
+        "write_batched": path_kernel_entry(
+            "write", seen_write_batched, write_batched, "the audit's")}
     kernels_s = time.perf_counter() - t0
     timings = result.shape_timings
     res = {
@@ -2871,6 +2993,8 @@ def analysis_phase(dev) -> tuple:
         "all_contracts_ran": res["shape_entries"] == 76 and len(timings) == 72,
         "min2_launched": sum(min2.values()) - batched > 0,
         "min2_batched_launched": batched > 0,
+        "write_launched": sum(write.values()) - write_batched > 0,
+        "write_batched_launched": write_batched > 0,
         "sparse_launched": counts["sparse_priced_min2_cand"] > 0,
         "within_budget": res["phase_s"] <= ANALYSIS_BUDGET_S,
     }
@@ -3052,6 +3176,8 @@ def sharded_phase(dev, prev, nodes, removed, model, opts, single: dict,
         seen["min2"] = _captured(st, "priced_min2_argmin", dev)
         seen["min2_launches"] = runs["north_2x2"]["launches"][
             "priced_min2_argmin"]
+        seen["write"] = _captured(st, "score_write", dev)
+        seen["write_launches"] = runs["north_2x2"]["launches"]["score_write"]
         del st
         ns["1d_2"], runs["north_1d_2"], _ = _sharded_run(
             "north star, 2 ranks", lambda m, **k: dense(
@@ -3153,17 +3279,22 @@ def sharded_phase(dev, prev, nodes, removed, model, opts, single: dict,
             ("min2", "min2", 3, "the 2x2 mesh's rank 3"),
             ("fused", "fused", 1, "the 4-rank mesh's rank 1"),
             ("fused_2x2", "fused", 3, "the mid 2x2 mesh's rank 3"),
-            ("sparse", "sparse", 1, "the 4-rank mesh's rank 1")):
+            ("sparse", "sparse", 1, "the 4-rank mesh's rank 1"),
+            ("write", "write", 3, "the 2x2 mesh's rank 3")):
         per_rank = seen[f"{key}_launches"]
         entries[key] = path_kernel_entry(kind, seen[key], per_rank[rank],
                                          where)
+        # (pbase, noff): the fused launch's args 2-3, the write's 1-2.
+        at = {"fused": 2, "write": 1}.get(kind)
         args = seen[key]["args"]
         entries[key].update(
             rank=rank, launches_per_rank=per_rank,
-            pbase=args[2] if kind == "fused" else None,
-            noff=args[3] if kind == "fused" else None)
+            pbase=None if at is None else args[at],
+            noff=None if at is None else args[at + 1])
     checks["fused_offsets_nonzero"] = seen["fused"]["args"][2] > 0 and \
         seen["fused_2x2"]["args"][2] > 0 and seen["fused_2x2"]["args"][3] > 0
+    checks["write_offsets_nonzero"] = seen["write"]["args"][1] > 0 and \
+        seen["write"]["args"][2] > 0
     kernels_s = time.perf_counter() - t0
     line = dict(
         note=SHARDED_NOTE, startup_s=startup, backends=backends,
@@ -3354,7 +3485,7 @@ class _GcClock:
             self.full += info["generation"] == 2
 
 
-OBS_PAIRS = 5  # off/on pairs timed after the warm-up calls
+OBS_PAIRS = 15  # off/on pairs timed after the warm-up calls
 
 
 # The membudget table in a process of its own, one shape class a
@@ -3507,10 +3638,14 @@ def obs_phase(dev, prev, nodes, removed, model, opts, plain_map) -> dict:
     exit, then ``OBS_PAIRS`` pairs, alternating which side goes first;
     the medians and the spread of each side, of the wall and of the
     plan's own solve stage (the only stage the observatory touches), and
-    the collector's pauses and full collections inside each call.  The
-    objects alive before are frozen out of the collector's passes (the
-    script holds several maps of P partitions), so a full collection of
-    them lands in no timed call.  The observatory passes when its solve
+    the collector's pauses and full collections inside each call (none:
+    the collector is off inside each timed call and runs between them).
+    The objects alive before are frozen out of the collector's passes
+    (the script holds several maps of P partitions), so a full
+    collection of them lands in no timed call.  Since the score write
+    the solve stage is ~35 ms of host-bound launches and syncs, which
+    vary ~15% call to call, hence the 15 pairs and the collector kept
+    out of the calls: 5% of it is ~2 ms.  The observatory passes when its solve
     stage's on median is within 5% of the off median, and the walls' on
     median exceeds the off median by no more than the wider side's
     spread (the host stages around the solve vary call to call)."""
@@ -3563,12 +3698,14 @@ def obs_phase(dev, prev, nodes, removed, model, opts, plain_map) -> dict:
     def timed(state: str) -> dict:
         if state == "on":
             obs_device.enable()
+        gc.disable()  # the collector runs between the timed calls
         try:
             s0, f0 = clock.s, clock.full
             wall, out, timings, _launches = _obs_plan(
                 prev, nodes, removed, model, opts, "auto")
             pause, full = clock.s - s0, clock.full - f0
         finally:
+            gc.enable()
             obs_device.disable()
         calls[state] += 1
         checks[f"{state}_call{calls[state]}_map_equal"] = _same_map(
@@ -3675,6 +3812,7 @@ def main() -> int:
 
     min2 = check_min2(dev)
     fused = check_fused(dev)
+    write = check_score_write(dev)
     sparse = check_sparse_min2(dev)
     t0 = time.perf_counter()
     narrow, narrow_kernels = narrow_phase(dev)
@@ -3687,7 +3825,8 @@ def main() -> int:
     T.set_fused_score_default("auto")
     auto, plain_map = run_main_path("main path, auto engine", prev, nodes,
                                     removed, model, opts)
-    if auto["engine"] != "matrix" or auto["launches"]["priced_min2_argmin"] < 1:
+    if auto["engine"] != "matrix" or auto["launches"]["priced_min2_argmin"] < 1 \
+            or auto["launches"]["score_write"] < 1:
         raise AssertionError(f"auto run: engine {auto['engine']}, launches "
                              f"{auto['launches']}")
     ns_opts = dataclasses.replace(opts)  # the auto run's options
@@ -3878,6 +4017,29 @@ def main() -> int:
             name=entry["name"], route="cuda", source=entry["source"],
             replaces=entry["replaces"], path="sharded", call=key,
             bitwise=True, **sharded_kernels[key]))
+    # The score write, which replaces no TPU kernel: the matrix engine's
+    # score, written for min2 on the main path's run; then on the inputs
+    # of its first call on each other path that writes it, with that
+    # path's own launches.
+    write_entry = dict(
+        name="score_write", route="cuda",
+        source="blance_tpu_torch/ops/csrc/score_write.cu", replaces=None)
+    kernels.append(dict(
+        write_entry, launches=auto["launches"]["score_write"],
+        instantiations=auto["variants"]["score_write"], bitwise=True,
+        **write))
+    for path, call, entry in (
+            ("small", None, narrow_kernels["write"]),
+            ("bucketed", None, padded["write"]),
+            ("fleet", "batched", fleet_kernels["write"]),
+            ("harness", "flat", harness_kernels["write_flat"]),
+            ("harness", "batched", harness_kernels["write_batched"]),
+            ("analysis", "flat", analysis_kernels["write_flat"]),
+            ("analysis", "batched", analysis_kernels["write_batched"]),
+            ("sharded", "write", sharded_kernels["write"])):
+        kernels.append(dict(write_entry, path=path, bitwise=True,
+                            **({} if call is None else {"call": call}),
+                            **entry))
     prof = [profile_main_path(m, prev, nodes, removed, model, opts)
             for m in ("off", "on")]
     prof.append(profile_main_path("auto", *sp_map))

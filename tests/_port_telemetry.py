@@ -15,6 +15,9 @@ SOLVER = {"plan.solve.auction_rounds", "plan.solve.host_syncs"}
 # counts the three besides the solver's.
 SPARSE_MIN2 = {"ops.sparse_min2.cells", "ops.sparse_min2.price_cells",
                "ops.sparse_min2.out_cells"}
+# The cells of each score write: counted at each launch on the card
+# only, so no CPU path records it.
+SCORE_WRITE = {"ops.score_write.cells"}
 # The sparse engine's spans: the shortlist build, and the host dense
 # fallback where a row is flagged.
 SPARSE_SPANS = {"plan.sparse.shortlist", "plan.sparse.fallback"}

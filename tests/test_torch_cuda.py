@@ -10,7 +10,10 @@ plain versions against the JAX package lives in tests/test_torch_ops.py
 and tests/test_torch_plan.py.
 """
 
+import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -942,3 +945,177 @@ def test_shape_audit_passes_on_card(dev):
     assert any(v.startswith("batched") for v in variants), variants
     assert any(not v.startswith("batched") for v in variants), variants
     assert launch_counts()["sparse_priced_min2_cand"] > 0
+
+
+# -- the score write: the matrix engine's [P, N] score in one kernel -----------
+
+# (nrules, R, T, A, anchors present): the four fixed instantiations and
+# runtime widths, taken widths 0-3 (no taken column packs as one of -1s).
+_WRITE_WIDTHS = [(0, 1, 0, 2, True), (0, 1, 1, 2, True), (0, 2, 1, 2, True),
+                 (1, 1, 2, 2, True), (1, 1, 2, 2, False), (1, 2, 3, 3, True),
+                 (2, 2, 2, 2, True), (2, 1, 3, 1, False), (1, 2, 0, 2, True)]
+
+
+def _card_write(dev, tm, nrules, total_p, **kw):
+    """``_matrix_score`` on the card (the kernel, counted) and on the CPU
+    (the eager chain) on the same terms; returns (card, cpu)."""
+    from _score_terms import matrix_build, on
+
+    from blance_tpu_torch.obs import Recorder, counting_to
+
+    want = matrix_build(tm, nrules, total_p, **kw)
+    reset_launch_counts()
+    rec = Recorder()
+    with counting_to(rec):
+        got = matrix_build(on(tm, dev), nrules, total_p.to(dev)
+                           if isinstance(total_p, torch.Tensor) else total_p,
+                           **kw)
+    assert score_fused.score_write.launches == 1
+    assert rec.counters["ops.score_write.cells"] == got.numel()
+    return got, want
+
+
+@pytest.mark.parametrize("widths", _WRITE_WIDTHS)
+@pytest.mark.parametrize("n", [64, 1000, 10_000])
+def test_score_write_kernel_is_the_eager_build(dev, n, widths):
+    """The kernel's [P, N] score equals the eager chain's bitwise: every
+    instantiation, rules, taken columns, anchors present and absent,
+    removed nodes, negative node weights; ragged row groups (P = 131)
+    and ragged column chunks at N = 1000 and 10 000."""
+    from _score_terms import bitwise, terms
+
+    nrules, r, t, a, anchors = widths
+    p = 131
+    tm = terms(n + t, p, n, t, a_width=a, r_width=r, anchors=anchors)
+    got, want = _card_write(dev, tm, nrules, p)
+    assert score_fused.score_write.variants == {
+        score_fused.fused_variant(nrules, r, max(t, 1), a): 1}
+    bitwise(got, want)
+
+
+@pytest.mark.parametrize("nrules", [0, 1])
+@pytest.mark.parametrize("pbase,noff,n_l", [(25_000, 0, 1000),
+                                            (0, 1000, 1000),
+                                            (4096, 130, 777)])
+def test_score_write_kernel_on_a_shard(dev, nrules, pbase, noff, n_l):
+    """A worker rank's block: rows from ``pbase``, the node shard's
+    columns from ``noff`` (the jitter hashes global ids)."""
+    from _score_terms import bitwise, terms
+
+    tm = terms(noff + nrules, 300, 2000, 2)
+    got, want = _card_write(dev, tm, nrules, 4 * 300, pbase=pbase,
+                            noff=noff, n_l=n_l)
+    assert got.shape == (300, n_l)
+    bitwise(got, want)
+
+
+@pytest.mark.parametrize("n", [64, 10_000])
+def test_score_write_kernel_with_a_traced_partition_count(dev, n):
+    from _score_terms import bitwise, terms
+
+    tm = terms(7, 200, n, 2)
+    got, want = _card_write(dev, tm, 1, torch.tensor(171.0))
+    bitwise(got, want)
+
+
+@pytest.mark.parametrize("nrules", [0, 1])
+@pytest.mark.parametrize("n", [64, 1000])
+def test_score_write_kernel_over_a_batch(dev, n, nrules):
+    """The fleet's [B, P, N] in one launch: each problem's own rows and
+    columns, ``p_real`` [B, 1]."""
+    from _score_terms import bitwise, stacked, terms
+
+    tm = stacked([terms(90 + e, 300, n, 2) for e in range(3)])
+    got, want = _card_write(dev, tm, nrules,
+                            torch.tensor([[300.0], [240.0], [1.0]]))
+    assert got.shape == (3, 300, n)
+    assert score_fused.score_write.variants == {
+        "batched_" + score_fused.fused_variant(nrules, 2, 2, 2): 1}
+    bitwise(got, want)
+
+
+def test_score_write_kernel_past_int32_offsets(dev):
+    """P * N past INT_MAX (2.2 * 10^9 cells, 8.8 GB): the output offsets
+    are 64-bit, so the last rows land where the plain version puts
+    them."""
+    from _score_terms import on, packed, terms
+
+    p, n = 220_000, 10_000
+    assert p * n > 2**31
+    si = packed(on(terms(5, p, n, 2), dev), 1, p)
+    got = score_fused.score_write(si, 0, 0, nrules=1, jitter_scale=1e-5)
+    columns = ("base", "neg_boost", "validf", "cand_g")  # the [N] terms
+    tail = score_fused.ScoreInputs(**{
+        name: x if name in columns else x[-1000:]
+        for name, x in si._asdict().items()})
+    want = score_fused.score_write_reference(tail, p - 1000, 0, nrules=1,
+                                             jitter_scale=1e-5)
+    assert torch.equal(got[-1000:].view(torch.int32),
+                       want.view(torch.int32))
+    del got
+    torch.cuda.empty_cache()
+
+
+# A fresh process: the retrace workload, each entry dispatched once,
+# under a build monitor that notes which entry loaded which library.
+_COLD_LOADS = """
+import json
+import torch
+from blance_tpu_torch.analysis import retrace
+from blance_tpu_torch.obs import device
+
+
+class Libraries(device.CompileMonitor):
+    def __init__(self):
+        super().__init__()
+        self.libs = {}
+
+    def _on_compile(self, fn_name):
+        super()._on_compile(fn_name)
+        self.libs.setdefault(device.current_entry(), []).append(fn_name)
+
+
+with Libraries() as mon:
+    retrace._workload(torch.device("cuda"), lambda entry, call: call())
+print(json.dumps(mon.libs))
+"""
+
+
+def test_cold_workload_loads_each_library_once_where_expected(dev):
+    """The retrace workload in a fresh process builds or loads each
+    kernel library once, in the entry its budget names: the matrix
+    engine's fixed-width score write and min2 in ``solve_dense.cold``
+    (budget 2), the sparse kernel in ``sparse.cold``, the write's
+    runtime-width library in ``pipeline.cold`` (a session without rules:
+    its replica slot's widths have no fixed instantiation), host
+    extensions only in ``other``.  No library can hide under a budget
+    another one set."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", _COLD_LOADS], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-2000:]
+    libs = json.loads(run.stdout.strip().splitlines()[-1])
+    other = libs.pop("other", [])
+    assert {k: sorted(v) for k, v in libs.items()} == {
+        "solve_dense.cold": ["libmin2", "libscore_write"],
+        "sparse.cold": ["libsparse_min2"],
+        "pipeline.cold": ["libscore_write_any"]}
+    assert other and all(not name.startswith("lib") for name in other)
+
+
+def test_solve_assign_on_card_matches_cpu(dev):
+    """One sweep of ``_solve_assign`` at the rack-rule fixture: the
+    card's assignment (its scores written by the kernel) equals the
+    CPU's, and both the score write and the priced min2 launched."""
+    from blance_tpu_torch.plan import tensor as ttensor
+
+    arrays, (constraints, rules) = _rack_rule_arrays()
+    cpu = ttensor._solve_assign(*problem_to_torch(*arrays, device="cpu"),
+                                constraints, rules)
+    reset_launch_counts()
+    gpu = ttensor._solve_assign(*problem_to_torch(*arrays, device=dev),
+                                constraints, rules)
+    assert launch_counts()["score_write"] > 0
+    assert launch_counts()["priced_min2_argmin"] > 0
+    for g, c in zip(gpu, cpu):
+        np.testing.assert_array_equal(g.cpu().numpy(), c.numpy())

@@ -214,3 +214,26 @@ def test_fused_variant_table_matches_kernel_launcher():
              for i, args in cases}
     assert table.pop(-1) == (-1, -1, -1, -1)
     assert table == dict(enumerate(score_fused.FUSED_VARIANTS))
+
+
+def test_write_variant_table_matches_kernel_launcher():
+    """The score write's launchers dispatch the same ids to the same
+    widths, so the wrapper's variant ids serve both kernels: the
+    fixed-width ids in csrc/score_write.cu, runtime widths (-1) alone in
+    csrc/score_write_any.cu."""
+    import os
+    import re
+
+    def table(name):
+        src = os.path.join(os.path.dirname(score_fused.__file__), "csrc",
+                           name)
+        with open(src) as f:
+            cases = re.findall(r"case (-?\d+): return launch_write<([^>]*)>",
+                               f.read())
+        return {int(i): tuple(int(w) if w.strip().lstrip("-").isdigit()
+                              else -1 for w in args.split(","))
+                for i, args in cases}
+
+    assert table("score_write_any.cu") == {-1: (-1, -1, -1, -1)}
+    assert table("score_write.cu") == dict(
+        enumerate(score_fused.FUSED_VARIANTS))

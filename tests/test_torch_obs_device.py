@@ -191,6 +191,56 @@ def test_kernel_library_first_load_counted_once(tmp_path, monkeypatch):
     assert mon.by_fn == {"libk": 1}
 
 
+def test_load_builds_the_libraries_beside_it_in_one_wave(tmp_path,
+                                                        monkeypatch):
+    """ops/_build.load(name, beside=...): where ``name`` must be built,
+    the missing libraries beside it are built in the same wave (every
+    compiler started before the first is waited on), one event each
+    under the open entry; only ``name`` is loaded, and a later load of
+    one built beside it counts nothing more.  Where ``name`` is already
+    built, nothing beside it is built."""
+    _gcc_or_skip()
+    events: list = []
+    paths = {k: str(tmp_path / f"lib{k}.so") for k in "abcd"}
+    for k in "abcd":
+        (tmp_path / f"{k}.c").write_text(
+            f"int blance_{k}(void) {{ return {ord(k)}; }}\n")
+
+    def compile_(name, out):
+        events.append(("start", name))
+        return subprocess.Popen(
+            ["gcc", "-shared", "-fPIC", "-o", _build._tmp(out),
+             str(tmp_path / f"{name}.c")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), 0.0
+
+    finish = _build._finish
+
+    def finish_(name, out, started):
+        events.append(("wait", name))
+        return finish(name, out, started)
+
+    subprocess.run(["gcc", "-shared", "-fPIC", "-o", paths["c"],
+                    str(tmp_path / "c.c")], check=True)
+    monkeypatch.setattr(_build, "_lib_path", paths.__getitem__)
+    monkeypatch.setattr(_build, "_compile", compile_)
+    monkeypatch.setattr(_build, "_finish", finish_)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "_BUILT", set())
+    with device.CompileMonitor() as mon:
+        with device.entry("solve_dense.cold"):
+            lib = _build.load("a", beside=("b",))
+        assert events == [("start", "a"), ("start", "b"), ("wait", "a"),
+                          ("wait", "b")]
+        assert set(_build._LIBS) == {"a"} and os.path.exists(paths["b"])
+        assert _build.load("b").blance_b() == ord("b")
+        events.clear()
+        assert _build.load("c", beside=("d",)).blance_c() == ord("c")
+    assert lib.blance_a() == ord("a")
+    assert events == [] and not os.path.exists(paths["d"])
+    assert mon.by_entry == {"solve_dense.cold": 2, "other": 1}
+    assert mon.by_fn == {"liba": 1, "libb": 1, "libc": 1}
+
+
 def test_compile_monitor_emits_labeled_metrics_and_is_declared():
     rec = Recorder()
     with use_recorder(rec):

@@ -32,7 +32,8 @@ from blance_tpu_torch.obs import (PORT_ONLY_COUNTERS, PORT_ONLY_SPANS,
                                   Recorder, chrome, default_registry,
                                   render_prometheus, use_recorder)
 from blance_tpu_torch.plan import tensor as ttensor
-from _port_telemetry import SPARSE_MIN2, SPARSE_SPANS, port_names
+from _port_telemetry import (SCORE_WRITE, SPARSE_MIN2, SPARSE_SPANS,
+                             port_names)
 
 RACK = dict(primary=(0, 1), replica=(1, 1))
 MULTI = dict(primary=(0, 2), replica=(1, 1), readonly=(2, 1))
@@ -106,7 +107,7 @@ def test_the_declared_tuple():
     assert set(PORT_ONLY_COUNTERS) == {"plan.solve.auction_rounds",
                                        "plan.solve.host_syncs",
                                        "plan.decode.rows_trimmed",
-                                       *SPARSE_MIN2}
+                                       *SPARSE_MIN2, *SCORE_WRITE}
 
 
 @pytest.mark.parametrize("kind", ["rack", "multi"])
@@ -254,6 +255,11 @@ def test_counters_declared_but_not_rendered():
         _drive("plan_next_map", beg, nodes, model, opts)
         _drive("sparse", beg, nodes, model, opts)
         tencode.decode_assignment(problem, short, beg, [])
+    # The score write counts on the card only: counted here by hand, to
+    # hold it declared and unrendered with the others.
+    assert not SCORE_WRITE & set(rec.counters)
+    for name in SCORE_WRITE:
+        rec.count(name, 7)
     assert set(PORT_ONLY_COUNTERS) <= set(rec.counters)
     assert default_registry().undeclared(rec) == []
     text = render_prometheus(rec)
