@@ -30,7 +30,11 @@ writes the matrix engine's unpriced [P, N] score from the same packed
 inputs, in that engine's term order, for the priced min2 kernel to
 reduce (``plan/tensor.py`` ``_matrix_score`` on the card).
 
-On a CPU tensor ``fused_score_min2`` runs the plain PyTorch version
+The score is spelled once in plain PyTorch, :func:`score_cells`, at any
+set of (row, column) cells of the packed inputs: the matrix build on
+the CPU, the sparse engine's shortlist columns, both engines' phase-B
+probes and the two kernels' plain versions all call it.  On a CPU
+tensor ``fused_score_min2`` runs its plain version
 (:func:`fused_score_min2_reference`); on a CUDA tensor it launches the
 kernel or raises; so does ``score_write``
 (:func:`score_write_reference`).  ``fused_score_min2.launches`` counts
@@ -46,7 +50,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -57,7 +61,7 @@ from . import cost as _cost
 __all__ = ["fused_score_min2", "fused_score_min2_reference",
            "batched_fused_reference", "score_write",
            "score_write_reference", "ScoreInputs",
-           "pack_score_inputs", "score_at_columns", "jitter_hash",
+           "pack_score_inputs", "score_cells", "jitter_hash",
            "jitter_add", "fill_scale", "fill_term", "FUSED_VARIANTS",
            "fused_variant", "fused_lanes", "FUSED_LANES_BY_N"]
 
@@ -69,6 +73,19 @@ _J_MUL_N = 40503                   # unsigned Weyl multiplier 2654435761
 # Rows per chunk of the plain score build: bounds its float64 jitter
 # temporaries to a few hundred MB at any P.
 _ROW_CELLS = 1 << 24
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` along the last axis, per batch element: ``x`` [*B, N] at
+    ``idx`` [*B, *rest] (any trailing shape) gives [*B, *rest]."""
+    flat = idx.reshape(*idx.shape[:x.dim() - 1], -1).long()
+    return torch.gather(x, -1, flat).reshape(idx.shape)
+
+
+def _take_rows(x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``x[rows]`` for [*B, P, W] rows at ``rows`` [*B, K]: [*B, K, W]."""
+    idx = rows.long()[..., None].expand(*rows.shape, x.shape[-1])
+    return torch.gather(x, -2, idx)
 
 
 def jitter_hash(pi: torch.Tensor, ni: torch.Tensor) -> torch.Tensor:
@@ -117,9 +134,9 @@ def fill_term(total: torch.Tensor, total_p, w_div: torch.Tensor) \
     partition count, a trace-time constant there): multiply by
     :func:`fill_scale`.  ``total_p`` a 0-d float32 tensor (``p_real``,
     traced there): XLA rewrites the two divisions into one by the
-    product, ``(fl32(0.001) * total) / (max(P, 1) * w_div)``, at every
-    site that builds the term (matrix build, ``score_at_columns``' base,
-    the fused kernel's ``base``, the sparse columns)."""
+    product, ``(fl32(0.001) * total) / (max(P, 1) * w_div)``, as
+    :func:`pack_score_inputs` builds the ``base`` every engine's score
+    starts from."""
     if isinstance(total_p, torch.Tensor):
         return (total * float(np.float32(0.001))) / \
             (total_p.clamp(min=1.0) * w_div)
@@ -174,7 +191,6 @@ def pack_score_inputs(
     ``total_p`` then a [B, 1] tensor; the fields then do too."""
     base = fill_term(total_l, total_p, w_div_l)
     validf = valid_l.to(torch.float32)
-    from ..plan.tensor import _take  # per-element gather
 
     p = prev_slot.shape[-1]
     lead = prev_slot.shape[:-1]
@@ -225,57 +241,99 @@ def pack_score_inputs(
         any_anchor=any_anchor)
 
 
-def _score_rows(si: ScoreInputs, lo: int, hi: int, pbase: int, noff: int,
-                nrules: int, jitter_scale: float,
-                matrix_order: bool = False) -> torch.Tensor:
-    """The kernels' unpriced score for rows [lo, hi), in the fused
-    kernel's term order, or with ``matrix_order`` in the matrix engine's
-    (``plan/tensor.py`` ``_matrix_score``: the same-ordinal bonus is
-    subtracted before the boost is added, which rounds differently where
-    both are nonzero)."""
-    n = si.base.shape[0]
-    dev = si.base.device
-    cols = torch.arange(n, dtype=torch.int32, device=dev)[None, :] + noff
-    base = si.base[None, :]
-    nb = si.neg_boost[None, :]
-    stick = si.stick[lo:hi, None]
+def score_cells(si: ScoreInputs, rows: torch.Tensor,
+                cols: Optional[torch.Tensor], pbase: int, noff: int, *,
+                nrules: int, jitter_scale: float, order: str) -> torch.Tensor:
+    """The unpriced auction score at (row, column) cells from the packed
+    inputs: the one plain spelling, which every engine evaluates and both
+    kernels (``csrc/score_cell.cuh``) are held against.
+
+    ``rows`` [*B, M] local row ids ([M]: the same rows of every batch
+    element).  ``cols`` None: the whole block of the [N_l] fields, the
+    global columns ``noff`` .. ``noff + N_l - 1``, giving [*B, M, N_l];
+    [*B, M]: one global column a row, giving [*B, M]; [*B, M, K]: K
+    global columns a row, -1 pads scoring +INF (hashed as the block's
+    first column), giving [*B, M, K].  The jitter hashes ``pbase + row``
+    and the global column.
+
+    ``order`` "matrix" subtracts the same-ordinal bonus before it adds
+    the negative-weight boost (the matrix and sparse engines, the score
+    write); "fused" adds the boost first (the fused kernel).  The two
+    round differently where both are nonzero."""
+    lead = si.base.shape[:-1]
+    n_l = si.base.shape[-1]
+    rows = rows.expand(lead + rows.shape[-1:])
+    pairs = cols is not None and cols.dim() == rows.dim()
+    if cols is None:
+        ok = None
+        gcol = noff + torch.arange(n_l, dtype=torch.int32,
+                                   device=si.base.device)
+
+        def at(x):
+            return x.unsqueeze(-2)
+    else:
+        if pairs:
+            cols = cols.unsqueeze(-1)
+        ok = cols >= 0
+        gcol = cols.clamp(noff, noff + n_l - 1).to(torch.int32)
+
+        def at(x):
+            return _take(x, gcol - noff)
+
+    def hit(ids):  # any of a row's [W] ids is the cell's column
+        out = ids[..., 0:1] == gcol
+        for w in range(1, ids.shape[-1]):
+            out = out | (ids[..., w:w + 1] == gcol)
+        return out if ok is None else out & ok
+
+    stick = _take(si.stick, rows)[..., None]
+    nb = at(si.neg_boost)
     boost = torch.where(nb > 0, torch.maximum(nb, stick), 0.0)
-    bonus = 0.01 * (si.prev_slot[lo:hi, None] == cols).to(torch.float32)
-    score = (base - bonus) + boost if matrix_order else \
-        (base + boost) - bonus
-    pstate = si.prev_state[lo:hi]
-    sticky = pstate[:, 0:1] == cols
-    for r in range(1, pstate.shape[1]):
-        sticky = sticky | (pstate[:, r:r + 1] == cols)
-    score = score - stick * sticky.to(torch.float32)
-    if nrules:
-        cand = si.cand_g
-        ainc = si.a_inc_g[lo:hi]
-        aexc = si.a_exc_g[lo:hi]
-        present = si.present[lo:hi]
-        pen = torch.full(score.shape, _RULE_MISS, dtype=torch.float32,
-                         device=dev)
-        for idx in range(nrules):
-            sat = torch.ones(score.shape, dtype=torch.bool, device=dev)
-            for ai in range(present.shape[1]):
-                col = ai * nrules + idx
-                inc_same = ainc[:, col:col + 1] == cand[idx:idx + 1, :]
-                exc_same = aexc[:, col:col + 1] == \
-                    cand[nrules + idx:nrules + idx + 1, :]
-                sat = sat & ((present[:, ai:ai + 1] <= 0.0)
-                             | (inc_same & ~exc_same))
-            pen = torch.where(sat, torch.clamp(pen, max=idx * _RULE_TIER),
-                              pen)
-        score = score + torch.where(si.any_anchor[lo:hi, None] > 0, pen, 0.0)
-    taken = si.taken[lo:hi]
-    tk = taken[:, 0:1] == cols
-    for t in range(1, taken.shape[1]):
-        tk = tk | (taken[:, t:t + 1] == cols)
-    score = score + _INF * (tk | (si.validf[None, :] == 0.0)) \
+    bonus = 0.01 * hit(_take(si.prev_slot, rows)[..., None]) \
         .to(torch.float32)
-    pi = (pbase + torch.arange(lo, hi, dtype=torch.int32,
-                               device=dev))[:, None]
-    return jitter_add(score, pi, cols, jitter_scale)
+    score = (at(si.base) - bonus) + boost if order == "matrix" else \
+        (at(si.base) + boost) - bonus
+    del nb, boost, bonus  # freed before the jitter's float64 peak
+    score = score - stick * hit(_take_rows(si.prev_state, rows)) \
+        .to(torch.float32)
+    if nrules:
+        score = score + _rule_penalty(si, rows, at, nrules, score.shape)
+    bad = hit(_take_rows(si.taken, rows)) | (at(si.validf) == 0.0)
+    if ok is not None:
+        bad = bad | ~ok
+    score = score + _INF * bad.to(torch.float32)
+    pi = (pbase + rows).to(torch.int32)[..., None]
+    out = jitter_add(score, pi, gcol, jitter_scale)
+    return out[..., 0] if pairs else out
+
+
+def _rule_penalty(si: ScoreInputs, rows: torch.Tensor, at: Callable,
+                  nrules: int, shape: torch.Size) -> torch.Tensor:
+    """The tiered rule penalty of :func:`score_cells` at its cells (``at``
+    gathers an [N_l] field there): the first rule every present anchor
+    satisfies sets the tier (index * 1e4); none costs _RULE_MISS; a row
+    without anchors pays nothing."""
+    dev = si.base.device
+    ainc = _take_rows(si.a_inc_g, rows)
+    aexc = _take_rows(si.a_exc_g, rows)
+    present = _take_rows(si.present, rows)
+    pen = torch.full(shape, _RULE_MISS, dtype=torch.float32, device=dev)
+    for idx in range(nrules):
+        cinc = at(si.cand_g[..., idx, :])
+        cexc = at(si.cand_g[..., nrules + idx, :])
+        sat = torch.ones(shape, dtype=torch.bool, device=dev)
+        for ai in range(present.shape[-1]):
+            col = ai * nrules + idx
+            sat = sat & ((present[..., ai:ai + 1] <= 0.0)
+                         | ((ainc[..., col:col + 1] == cinc)
+                            & ~(aexc[..., col:col + 1] == cexc)))
+        pen = torch.where(sat, torch.clamp(pen, max=idx * _RULE_TIER), pen)
+    return torch.where(_take(si.any_anchor, rows)[..., None] > 0, pen, 0.0)
+
+
+def _row_step(si: ScoreInputs) -> int:
+    """Rows per chunk of a plain [*B, P, N] build (B·N cells a row)."""
+    return max(1, _ROW_CELLS // max(si.base.numel(), 1))
 
 
 def fused_score_min2_reference(price: torch.Tensor, si: ScoreInputs,
@@ -287,12 +345,13 @@ def fused_score_min2_reference(price: torch.Tensor, si: ScoreInputs,
     from .reduce2 import min2_argmin_reference
 
     p = si.stick.shape[0]
-    n = price.shape[0]
-    step = max(1, _ROW_CELLS // max(n, 1))
+    step = _row_step(si)
     outs = []
     for lo in range(0, p, step):
-        hi = min(p, lo + step)
-        score = _score_rows(si, lo, hi, pbase, noff, nrules, jitter_scale)
+        score = score_cells(
+            si, torch.arange(lo, min(p, lo + step), device=price.device),
+            None, pbase, noff, nrules=nrules, jitter_scale=jitter_scale,
+            order="fused")
         b, c, s2 = min2_argmin_reference(score + price[None, :])
         outs.append((b, c, s2, b - price[c.long()]))
     if not outs:
@@ -306,18 +365,16 @@ def score_write_reference(si: ScoreInputs, pbase: int, noff: int, *,
     """Plain PyTorch version of the score write: the unpriced score
     [P, N] ([B, P, N] for inputs with a leading [B]) in the matrix
     engine's term order, built in row chunks."""
-    if si.stick.dim() == 2:
-        return torch.stack([score_write_reference(
-            ScoreInputs(*(t[b] for t in si)), pbase, noff, nrules=nrules,
-            jitter_scale=jitter_scale) for b in range(si.stick.shape[0])])
-    p = si.stick.shape[0]
-    n = si.base.shape[0]
-    out = torch.empty((p, n), dtype=torch.float32, device=si.base.device)
-    step = max(1, _ROW_CELLS // max(n, 1))
+    p = si.stick.shape[-1]
+    dev = si.base.device
+    out = torch.empty(si.stick.shape + si.base.shape[-1:],
+                      dtype=torch.float32, device=dev)
+    step = _row_step(si)
     for lo in range(0, p, step):
         hi = min(p, lo + step)
-        out[lo:hi] = _score_rows(si, lo, hi, pbase, noff, nrules,
-                                 jitter_scale, matrix_order=True)
+        out[..., lo:hi, :] = score_cells(
+            si, torch.arange(lo, hi, device=dev), None, pbase, noff,
+            nrules=nrules, jitter_scale=jitter_scale, order="matrix")
     return out
 
 
@@ -589,48 +646,3 @@ def score_write(si: ScoreInputs, pbase: int, noff: int, *, nrules: int,
 
 score_write.launches = 0
 score_write.variants = collections.Counter()
-
-
-def score_at_columns(
-    rows: torch.Tensor,  # [K] local row ids
-    cols_global: torch.Tensor,  # [K] GLOBAL column ids (>= 0)
-    *,
-    base_full: torch.Tensor,  # [N]
-    neg_boost_full: torch.Tensor,
-    valid_full: torch.Tensor,
-    gids: torch.Tensor,
-    gid_valid: torch.Tensor,
-    anchors: Optional[torch.Tensor],
-    rules: tuple,
-    prev_slot: torch.Tensor,  # [P] global ids
-    prev_state: torch.Tensor,  # [P, R]
-    taken_ids: tuple,
-    stick: torch.Tensor,  # [P]
-    jitter_scale: float,
-    pbase: int,
-) -> torch.Tensor:
-    """The same score formula evaluated at single (row, col) pairs with
-    [K] ops — phase B's waterfall probe when no matrix exists.  Per
-    batch element for [B, K] rows and columns over batched inputs."""
-    from ..plan.tensor import _hier_tier_at, _take, _take_rows
-
-    r = rows.long()
-    c = cols_global.long()
-    s = _take(base_full, c)
-    nb = _take(neg_boost_full, c)
-    stick_r = _take(stick, r)
-    s = s + torch.where(nb > 0, torch.maximum(nb, stick_r), 0.0)
-    s = s - 0.01 * (_take(prev_slot, r) == c).to(torch.float32)
-    sticky = torch.zeros(rows.shape, dtype=torch.bool, device=s.device)
-    for k in range(prev_state.shape[-1]):
-        sticky = sticky | (_take(prev_state[..., k], r) == c)
-    s = s - stick_r * sticky.to(torch.float32)
-    if rules:
-        s = s + _hier_tier_at(_take_rows(anchors, r), c, gids, gid_valid,
-                              rules)
-    tk = torch.zeros(rows.shape, dtype=torch.bool, device=s.device)
-    for tid in taken_ids:
-        tk = tk | (_take(tid, r) == c)
-    s = s + _INF * (tk | ~_take(valid_full, c)).to(torch.float32)
-    pi = (pbase + rows).to(torch.int32)
-    return jitter_add(s, pi, cols_global.to(torch.int32), jitter_scale)

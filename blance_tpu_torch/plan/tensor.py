@@ -91,13 +91,12 @@ from ..ops.reduce2 import priced_min2_argmin
 from ..ops.sparse2 import sparse_priced_min2_cand
 from ..convert import problem_to_torch, resolve_device
 from ..ops.score_fused import (
-    _ROW_CELLS,
-    fill_term,
+    _take,
     fused_score_min2,
-    jitter_add,
     pack_score_inputs,
-    score_at_columns,
+    score_cells,
     score_write,
+    score_write_reference,
 )
 from ..moves.batch import diff_assignments, moves_from_arrays
 from ..obs import device as _device
@@ -309,19 +308,6 @@ def carry_from_assignment(assign, pweights: torch.Tensor,
 # an argument whose unbatched rank it knows.
 
 
-def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``x[idx]`` along the last axis, per batch element: ``x`` [*B, N] at
-    ``idx`` [*B, *rest] (any trailing shape) gives [*B, *rest]."""
-    flat = idx.reshape(*idx.shape[:x.dim() - 1], -1).long()
-    return torch.gather(x, -1, flat).reshape(idx.shape)
-
-
-def _take_rows(x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """``x[rows]`` for [*B, P, W] rows at ``rows`` [*B, K]: [*B, K, W]."""
-    idx = rows.long()[..., None].expand(*rows.shape, x.shape[-1])
-    return torch.gather(x, -2, idx)
-
-
 def _drop_empty(ids: torch.Tensor, n: int) -> torch.Tensor:
     """Map empty (-1) ids to n, the drop bucket of an [n + 1] scatter.
     A raw -1 must never wrap onto the last node."""
@@ -373,47 +359,23 @@ def _anchor_rule_sat(
 
 def _hier_penalty(
     anchors: torch.Tensor,  # [P, A] GLOBAL node ids, -1 = absent anchor
+    cols: torch.Tensor,  # [P] or [P, K] GLOBAL node ids, or [1, N_l]
     gids: torch.Tensor,  # [L, N]
     gid_valid: torch.Tensor,  # [L, N]
     rules: StateRules,
-    gids_cand: Optional[torch.Tensor] = None,  # [L, N_l]
 ) -> torch.Tensor:
-    """Tiered rule penalty [P, N] anchored on every prior pick at once:
+    """Tiered rule penalty at the columns ``cols``, broadcast against the
+    rows (a node shard's block as [1, N_l], so no [P, N] ids exist):
     the first rule every present anchor satisfies sets the tier (index
     * 1e4); satisfying none costs _RULE_MISS; no anchor costs 0."""
-    if gids_cand is None:
-        gids_cand = gids
-    p, a_width = anchors.shape[-2:]
-    shape = anchors.shape[:-2] + (p, gids_cand.shape[-1])
-    dev = anchors.device
     any_anchor = (anchors >= 0).any(dim=-1)
-    pen = torch.full(shape, _RULE_MISS, dtype=torch.float32, device=dev)
+    sh = any_anchor.shape + (1,) * (cols.dim() - any_anchor.dim())
+    shape = torch.broadcast_shapes(sh, cols.shape)
+    nd = cols.clamp(0, gids.shape[-1] - 1)
+    pen = torch.full(shape, _RULE_MISS, dtype=torch.float32,
+                     device=cols.device)
     for idx, (inc, exc) in enumerate(rules):
-        sat = torch.ones(shape, dtype=torch.bool, device=dev)
-        for ai in range(a_width):
-            sat &= _anchor_rule_sat(
-                anchors[..., ai], gids_cand[..., inc, :].unsqueeze(-2),
-                gids_cand[..., exc, :].unsqueeze(-2), gids, gid_valid, inc,
-                exc)
-        pen = torch.where(sat, pen.clamp(max=idx * _RULE_TIER), pen)
-    return torch.where(any_anchor[..., None], pen, 0.0)
-
-
-def _hier_tier_at(
-    anchors: torch.Tensor,  # [P, A] global node ids, -1 absent
-    node: torch.Tensor,  # [P] or [P, K] global node ids
-    gids: torch.Tensor,
-    gid_valid: torch.Tensor,
-    rules: StateRules,
-) -> torch.Tensor:
-    """_hier_penalty evaluated at gathered columns — O(rows * cols)."""
-    any_anchor = (anchors >= 0).any(dim=-1)
-    sh = any_anchor.shape + (1,) * (node.dim() - any_anchor.dim())
-    nd = node.clamp(0, gids.shape[-1] - 1)
-    pen = torch.full(node.shape, _RULE_MISS, dtype=torch.float32,
-                     device=node.device)
-    for idx, (inc, exc) in enumerate(rules):
-        sat = torch.ones(node.shape, dtype=torch.bool, device=node.device)
+        sat = torch.ones(shape, dtype=torch.bool, device=cols.device)
         for ai in range(anchors.shape[-1]):
             sat &= _anchor_rule_sat(
                 anchors[..., ai], _take(gids[..., inc, :], nd),
@@ -502,19 +464,6 @@ def _hier_floor_counts(
         floor = torch.where(count > 0, floor.clamp(max=idx * _RULE_TIER),
                             floor)
     return torch.where(any_anchor, floor, 0.0)
-
-
-def _member_ids(ids: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
-    """[P, K] GLOBAL node ids x [N] column ids -> [P, N] membership, as K
-    broadcast compares ORed together; -1 ids never match."""
-    out = None
-    for k in range(ids.shape[-1]):
-        m = ids[..., k, None] == cols
-        out = m if out is None else (out | m)
-    if out is None:  # K == 0
-        return torch.zeros(ids.shape[:-1] + cols.shape, dtype=torch.bool,
-                           device=ids.device)
-    return out
 
 
 def _in_id_list(node: torch.Tensor,
@@ -718,54 +667,6 @@ def _pin_prev_holders(
     return torch.where(need[..., None], keep, pin_ok)
 
 
-def _sparse_score_cols(
-    cols: torch.Tensor,  # [M, K] GLOBAL node ids; -1 = pad (scores +_INF)
-    rows: torch.Tensor,  # [M] local row ids
-    pbase: int = 0,  # global partition index of local row 0 (jitter)
-    *,
-    total: torch.Tensor,  # [N] fill vector
-    total_p,  # partition count, or the 0-d p_real tensor (fill_term)
-    w_div: torch.Tensor,  # [N]
-    neg_boost: torch.Tensor,  # [N]
-    valid: torch.Tensor,  # [N] bool
-    gids: torch.Tensor,
-    gid_valid: torch.Tensor,
-    stick_si: torch.Tensor,  # [P]
-    prev_slot: torch.Tensor,  # [P] global ids
-    prev_state: torch.Tensor,  # [P, R]
-    taken_ids: tuple[torch.Tensor, ...],
-    anchors: Optional[torch.Tensor],  # [P, A] (rules only)
-    rules: StateRules,
-    jitter_scale: float,
-) -> torch.Tensor:
-    """The matrix engine's score formula at gathered columns, [M, K]:
-    term order as ``_matrix_score``, so a saturating shortlist (row r's
-    columns = 0..N-1) gives the dense matrix bitwise.  Pad columns score
-    +_INF like any forbidden node.  O(M * K); no [P, N] tensor."""
-    n = w_div.shape[0]
-    c = cols.clamp(0, n - 1)
-    cl = c.long()
-    okc = cols >= 0
-    st = stick_si[rows][:, None]
-    score = fill_term(total[cl], total_p, w_div[cl])
-    score = score - 0.01 * ((prev_slot[rows][:, None] == cols) & okc)
-    nb = neg_boost[cl]
-    score = score + torch.maximum(nb, torch.where(nb > 0, st, 0.0))
-    sticky = torch.zeros(cols.shape, dtype=torch.bool, device=cols.device)
-    for r in range(prev_state.shape[1]):
-        sticky = sticky | ((prev_state[rows, r][:, None] == cols) & okc)
-    score = score - st * sticky
-    if rules:
-        score = score + _hier_tier_at(anchors[rows], c, gids, gid_valid,
-                                      rules)
-    taken = torch.zeros(cols.shape, dtype=torch.bool, device=cols.device)
-    for tid in taken_ids:
-        taken = taken | ((tid[rows][:, None] == cols) & okc)
-    score = score + _INF * (taken | ~valid[cl] | ~okc)
-    pi = (pbase + rows)[:, None].to(torch.int32)
-    return jitter_add(score, pi, c.to(torch.int32), jitter_scale)
-
-
 def _assign_slot(
     min2_fn: Callable,  # price_vec[N] -> (best, choice, second, raw)
     score_at_fn: Callable,  # (rows[K], cols[K]) -> unpriced score [K]
@@ -955,58 +856,25 @@ def _matrix_score(total, total_p, w_div, neg_boost, valid, stick_si,
                   state_rules: StateRules, taken_ids, pbase: int = 0,
                   noff: int = 0, gids_cand=None) -> torch.Tensor:
     """The matrix engine's score[P, N] ([B, P, N] for a batch), term
-    order as the reference's build (tensor.py:1526-1560), in row chunks
-    so that temporaries stay bounded at any P.  The fill term is
-    ``fill_term`` (XLA's fold of ``0.001 * total / P``, or its one
-    division under a traced ``p_real``) and the jitter add rounds once
-    (``jitter_add``, XLA's fused multiply-add).  The jitter hashes
-    GLOBAL row and column ids: under sharding ``total``, ``w_div``,
-    ``neg_boost`` and ``valid`` are this node shard's [N_l] slices,
-    ``gids_cand`` its [L, N_l] candidate gids, ``noff`` its first column
-    and ``pbase`` the global index of local row 0.  On the card one
-    kernel writes the same bits (``score_write``, from the inputs
-    ``pack_score_inputs`` packs)."""
-    p = prev_slot.shape[-1]
-    n = total.shape[-1]
-    lead = total.shape[:-1]
-    dev = total.device
-    if dev.type == "cuda":
-        si = pack_score_inputs(
-            total_l=total, total_p=total_p, w_div_l=w_div,
-            neg_boost_l=neg_boost, valid_l=valid, stickiness_si=stick_si,
-            prev_slot=prev_slot, prev_state=prev_state_ids,
-            taken_ids=list(taken_ids), anchors=anchors,
-            gids_l=gids if gids_cand is None else gids_cand,
-            gid_valid=gid_valid, gids=gids, rules=state_rules)
-        return score_write(si, pbase, noff, nrules=len(state_rules),
-                           jitter_scale=_JITTER)
-    cols = torch.arange(n, dtype=torch.int32, device=dev) + noff
-    score_row = fill_term(total, total_p, w_div).unsqueeze(-2)
-    nb = neg_boost.unsqueeze(-2)
-    bad = ~valid.unsqueeze(-2)
-    taken = torch.stack(list(taken_ids), dim=-1) if taken_ids else None
-    out = torch.empty(lead + (p, n), dtype=torch.float32, device=dev)
-    step = max(1, _ROW_CELLS // max(n * int(np.prod(lead, dtype=np.int64)),
-                                    1))
-    for lo in range(0, p, step):
-        hi = min(p, lo + step)
-        st = stick_si[..., lo:hi, None]
-        score = score_row - 0.01 * _member_ids(prev_slot[..., lo:hi, None],
-                                               cols)
-        score = score + torch.maximum(nb, torch.where(nb > 0, st, 0.0))
-        score = score - st * _member_ids(prev_state_ids[..., lo:hi, :], cols)
-        if state_rules:
-            score = score + _hier_penalty(anchors[..., lo:hi, :], gids,
-                                          gid_valid, state_rules,
-                                          gids_cand=gids_cand)
-        tk = _member_ids(taken[..., lo:hi, :], cols) \
-            if taken is not None else \
-            torch.zeros(lead + (hi - lo, n), dtype=torch.bool, device=dev)
-        score = score + _INF * (tk | bad)
-        pi = (pbase + torch.arange(lo, hi, dtype=torch.int32,
-                                   device=dev))[:, None]
-        out[..., lo:hi, :] = jitter_add(score, pi, cols[None, :], _JITTER)
-    return out
+    order as the reference's build (tensor.py:1526-1560): the inputs
+    packed (``pack_score_inputs``), then written by one kernel on the
+    card (``score_write``) and by its plain version, row-chunked
+    ``score_cells``, on the CPU.  The jitter hashes GLOBAL row and
+    column ids: under sharding ``total``, ``w_div``, ``neg_boost`` and
+    ``valid`` are this node shard's [N_l] slices, ``gids_cand`` its
+    [L, N_l] candidate gids, ``noff`` its first column and ``pbase`` the
+    global index of local row 0."""
+    si = pack_score_inputs(
+        total_l=total, total_p=total_p, w_div_l=w_div,
+        neg_boost_l=neg_boost, valid_l=valid, stickiness_si=stick_si,
+        prev_slot=prev_slot, prev_state=prev_state_ids,
+        taken_ids=list(taken_ids), anchors=anchors,
+        gids_l=gids if gids_cand is None else gids_cand,
+        gid_valid=gid_valid, gids=gids, rules=state_rules)
+    write = score_write if total.device.type == "cuda" else \
+        score_write_reference
+    return write(si, pbase, noff, nrules=len(state_rules),
+                 jitter_scale=_JITTER)
 
 
 def _solve_assign(
@@ -1076,7 +944,9 @@ def _solve_assign(
 
     n_l = n // node_shards
     valid_l = _node_slice(valid, node_axis, n_l)
-    gids_l = _node_slice(gids, node_axis, n_l)
+    # This node shard's global columns, as a broadcast [1, N_l] block.
+    cols_l = (_node_off(node_axis, n_l) + torch.arange(
+        n_l, dtype=torch.int32, device=dev)).expand(lead + (1, n_l))
     if p_real is not None:
         total_p = torch.as_tensor(p_real, dtype=torch.float32,
                                   device=dev).reshape(lead + (1,))
@@ -1144,13 +1014,12 @@ def _solve_assign(
                     floor_j = _hier_floor_counts(
                         anchors[..., :1 + j], gids, gid_valid, valid,
                         rules[si])
-                    hier_at_prev = _hier_tier_at(
+                    hier_at_prev = _hier_penalty(
                         anchors[..., :1 + j], safe_k[..., j], gids,
                         gid_valid, rules[si])
                 else:
-                    hier_j = _hier_penalty(anchors[..., :1 + j], gids,
-                                           gid_valid, rules[si],
-                                           gids_cand=gids_l)
+                    hier_j = _hier_penalty(anchors[..., :1 + j], cols_l,
+                                           gids, gid_valid, rules[si])
                     floor_j = _row_min_global(
                         torch.where(valid_l.unsqueeze(-2), hier_j, _INF),
                         node_axis)
@@ -1244,19 +1113,24 @@ def _run_auction(fused_score, p, n, total, w_div, neg_boost, valid,
     noff = _node_off(node_axis, n_l)
     anchors_k = anchors if state_rules else \
         torch.full(lead + (p, 1), -1, dtype=torch.int32, device=dev)
+    nrules = len(state_rules)
+    if shortlist is not None or fused_score == "on":
+        # One pack a slot at full width: phase B's probes may ask for any
+        # column, and the fused kernel takes the node shard's.
+        si = pack_score_inputs(
+            total_l=total, total_p=total_p, w_div_l=w_div,
+            neg_boost_l=neg_boost, valid_l=valid, stickiness_si=stick_si,
+            prev_slot=prev_slot, prev_state=prev_state_ids,
+            taken_ids=list(taken_ids), anchors=anchors_k, gids_l=gids,
+            gid_valid=gid_valid, gids=gids, rules=state_rules)
     if shortlist is not None:
         # Sparse engine: the matrix formula at the [P, K] shortlist
         # columns only; phase B's probes outside a row's shortlist score
         # +_INF, so stragglers never leave their candidate set.
         cand = shortlist.contiguous()
-        score_kw = dict(
-            total=total, total_p=total_p, w_div=w_div, neg_boost=neg_boost,
-            valid=valid, gids=gids, gid_valid=gid_valid, stick_si=stick_si,
-            prev_slot=prev_slot, prev_state=prev_state_ids,
-            taken_ids=taken_ids, anchors=anchors_k, rules=state_rules,
-            jitter_scale=_JITTER)
-        score_pk = _sparse_score_cols(cand, torch.arange(p, device=dev),
-                                      pbase, **score_kw)
+        score_pk = score_cells(si, torch.arange(p, device=dev), cand, pbase,
+                               0, nrules=nrules, jitter_scale=_JITTER,
+                               order="matrix")
 
         def min2_fn(price_vec):
             b, _kidx, s2, raw, choice = sparse_priced_min2_cand(
@@ -1264,39 +1138,28 @@ def _run_auction(fused_score, p, n, total, w_div, neg_boost, valid,
             return b, choice, s2, raw
 
         def score_at_fn(rows, cols_global):
-            vals = _sparse_score_cols(cols_global[:, None], rows, pbase,
-                                      **score_kw)[:, 0]
+            vals = score_cells(si, rows, cols_global, pbase, 0,
+                               nrules=nrules, jitter_scale=_JITTER,
+                               order="matrix")
             in_sl = (cand[rows] == cols_global[:, None]).any(dim=1)
             return torch.where(in_sl, vals, _INF)
     elif fused_score == "on":
-        si_pack = pack_score_inputs(
-            total_l=_node_slice(total, node_axis, n_l), total_p=total_p,
-            w_div_l=_node_slice(w_div, node_axis, n_l),
-            neg_boost_l=_node_slice(neg_boost, node_axis, n_l),
-            valid_l=_node_slice(valid, node_axis, n_l),
-            stickiness_si=stick_si, prev_slot=prev_slot,
-            prev_state=prev_state_ids, taken_ids=list(taken_ids),
-            anchors=anchors_k, gids_l=_node_slice(gids, node_axis, n_l),
-            gid_valid=gid_valid, gids=gids, rules=state_rules)
+        si_l = si if node_axis is None else si._replace(**{
+            f: _node_slice(getattr(si, f), node_axis, n_l).contiguous()
+            for f in ("base", "neg_boost", "validf", "cand_g")})
 
         def min2_fn(price_vec):
             b, cl, s2, raw = fused_score_min2(
-                _node_slice(price_vec, node_axis, n_l), si_pack, pbase,
-                noff, nrules=len(state_rules), jitter_scale=_JITTER)
+                _node_slice(price_vec, node_axis, n_l), si_l, pbase,
+                noff, nrules=nrules, jitter_scale=_JITTER)
             if node_axis is None:
                 return b, cl, s2, raw
             return _combine_min2(b, cl + noff, s2, raw, node_axis)
 
-        base_full = fill_term(total, total_p, w_div)
-
         def score_at_fn(rows, cols_global):
-            return score_at_columns(
-                rows, cols_global, base_full=base_full,
-                neg_boost_full=neg_boost, valid_full=valid, gids=gids,
-                gid_valid=gid_valid, anchors=anchors_k, rules=state_rules,
-                prev_slot=prev_slot, prev_state=prev_state_ids,
-                taken_ids=taken_ids, stick=stick_si, jitter_scale=_JITTER,
-                pbase=pbase)
+            return score_cells(si, rows, cols_global, pbase, 0,
+                               nrules=nrules, jitter_scale=_JITTER,
+                               order="fused")
     else:
         score = _matrix_score(
             _node_slice(total, node_axis, n_l), total_p,

@@ -1,6 +1,6 @@
 """Random terms of the matrix engine's score, for the score write's tests
 on the CPU (tests/test_torch_score_write.py) and on the card
-(tests/test_torch_cuda.py): the eager build (``plan/tensor.py``
+(tests/test_torch_cuda.py): the matrix build (``plan/tensor.py``
 ``_matrix_score``) and the packed inputs of the score write on the same
 terms, on whichever device the terms lie."""
 
@@ -62,7 +62,7 @@ def _shard(tm, noff, n_l):
 
 def matrix_build(tm, nrules, total_p, pbase=0, noff=0, n_l=None):
     """``_matrix_score`` on the terms (a node shard's ``n_l`` columns
-    from ``noff`` on): the eager chain on the CPU, the kernel on the
+    from ``noff`` on): the plain write on the CPU, the kernel on the
     card."""
     sl, gids_cand = _shard(tm, noff, n_l)
     return ttensor._matrix_score(

@@ -166,7 +166,7 @@ def _capture_port(monkeypatch, engine, run):
         spy("priced_min2_argmin", "matrix", lambda a, out: a[0])
     elif engine == "fused":
         spy("fused_score_min2", "fused_base", lambda a, out: a[1].base)
-        spy("score_at_columns", "score_at_columns", lambda a, out: out)
+        spy("score_cells", "score_at_columns", lambda a, out: out)
     else:
         spy("sparse_priced_min2_cand", "sparse", lambda a, out: a[0])
     run()

@@ -958,7 +958,8 @@ _WRITE_WIDTHS = [(0, 1, 0, 2, True), (0, 1, 1, 2, True), (0, 2, 1, 2, True),
 
 def _card_write(dev, tm, nrules, total_p, **kw):
     """``_matrix_score`` on the card (the kernel, counted) and on the CPU
-    (the eager chain) on the same terms; returns (card, cpu)."""
+    (the plain write, ``score_cells`` in row chunks) on the same terms;
+    returns (card, cpu)."""
     from _score_terms import matrix_build, on
 
     from blance_tpu_torch.obs import Recorder, counting_to
@@ -978,7 +979,7 @@ def _card_write(dev, tm, nrules, total_p, **kw):
 @pytest.mark.parametrize("widths", _WRITE_WIDTHS)
 @pytest.mark.parametrize("n", [64, 1000, 10_000])
 def test_score_write_kernel_is_the_eager_build(dev, n, widths):
-    """The kernel's [P, N] score equals the eager chain's bitwise: every
+    """The kernel's [P, N] score equals the CPU build's bitwise: every
     instantiation, rules, taken columns, anchors present and absent,
     removed nodes, negative node weights; ragged row groups (P = 131)
     and ragged column chunks at N = 1000 and 10 000."""

@@ -285,8 +285,11 @@ def test_score_at_columns_matches_jitted_jax(nrules):
         r, c, rules=rules, jitter_scale=1.0e-5,
         pbase=jnp.zeros((1, 1), jnp.int32), **k))(
             jnp.asarray(rows), jnp.asarray(cols), kw(jnp.asarray)))
-    got = tfused.score_at_columns(_t(rows), _t(cols), rules=rules,
-                                  jitter_scale=1.0e-5, pbase=0, **kw(_t))
+    # The port's probe: the one score on the packed inputs, at (row,
+    # column) pairs in the fused kernel's term order.
+    si = tfused.pack_score_inputs(total_p=P, **_pack_kwargs(terms, _t))
+    got = tfused.score_cells(si, _t(rows), _t(cols), 0, 0, nrules=nrules,
+                             jitter_scale=1.0e-5, order="fused")
     np.testing.assert_array_equal(got.numpy(), want)
 
 

@@ -25,6 +25,7 @@ from blance_tpu.ops import sparse2 as jsparse2  # noqa: E402
 from blance_tpu.plan import tensor as jtensor  # noqa: E402
 from blance_tpu_torch.core import encode as tencode  # noqa: E402
 from blance_tpu_torch.core import shortlist as tshortlist  # noqa: E402
+from blance_tpu_torch.ops import score_fused as tfused  # noqa: E402
 from blance_tpu_torch.ops import sparse2 as tsparse2  # noqa: E402
 from blance_tpu_torch.plan import tensor as ttensor  # noqa: E402
 from blance_tpu_torch.plan.audit import check_assignment  # noqa: E402
@@ -242,11 +243,18 @@ def test_sparse_score_cols_matches_jitted_jax(with_rules):
                           jnp.asarray(anchors),
                           [jnp.asarray(x) for x in taken],
                           {k: jnp.asarray(v) for k, v in kw.items()}))
-    got = ttensor._sparse_score_cols(
-        _t(cols), _t(rows).long(), total_p=P, gids=_t(gids),
-        gid_valid=_t(gv), taken_ids=tuple(_t(x) for x in taken),
-        anchors=_t(anchors), rules=rules, jitter_scale=ttensor._JITTER,
-        **{k: _t(v) for k, v in kw.items()}).numpy()
+    # The port's sparse engine: the one score on the slot's packed
+    # inputs, at the gathered columns in the matrix build's term order.
+    si = tfused.pack_score_inputs(
+        total_l=_t(kw["total"]), total_p=P, w_div_l=_t(kw["w_div"]),
+        neg_boost_l=_t(kw["neg_boost"]), valid_l=_t(kw["valid"]),
+        stickiness_si=_t(kw["stick_si"]), prev_slot=_t(kw["prev_slot"]),
+        prev_state=_t(kw["prev_state"]), taken_ids=[_t(x) for x in taken],
+        anchors=_t(anchors), gids_l=_t(gids), gid_valid=_t(gv),
+        gids=_t(gids), rules=rules)
+    got = tfused.score_cells(si, _t(rows).long(), _t(cols), 0, 0,
+                             nrules=len(rules), jitter_scale=ttensor._JITTER,
+                             order="matrix").numpy()
     assert got.dtype == want.dtype
     diff = np.argwhere(got != want)
     assert diff.size == 0, f"first differing [row, k]: {diff[:3].tolist()}"
