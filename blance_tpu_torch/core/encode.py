@@ -26,7 +26,7 @@ iteration order.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Optional
 
 import numpy as np
@@ -44,7 +44,8 @@ from .types import (
     PlanOptions,
 )
 
-__all__ = ["DenseProblem", "NPArray", "encode_problem", "decode_assignment",
+__all__ = ["DenseProblem", "PassthroughRows", "NPArray", "encode_problem",
+           "decode_assignment",
            "pack_assignment_core", "pack_assignment",
            "prev_from_entries_core", "prev_from_entries", "pack_slot_rows",
            "stack_problem_arrays", "strip_prev_rows",
@@ -218,6 +219,21 @@ def pack_slot_rows(rows: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return packed, counts
 
 
+@dataclass(frozen=True)
+class PassthroughRows:
+    """What the encode learnt of its sources, for the decode: the rows
+    whose source carries a state the decode passes through (unmodeled,
+    or with constraint 0).  It describes ``source`` (the one map every
+    row's source was read from), the name list ``partitions`` and the
+    set of ``solved`` states as they were at the encode; the decode uses
+    it only while all three are the ones it is handed."""
+
+    source: PartitionMap
+    partitions: list[str]
+    solved: frozenset[str]
+    rows: list[int]  # ascending row indices
+
+
 @dataclass
 class DenseProblem:
     """A fully interned planning problem, ready for the tensor planner."""
@@ -239,6 +255,10 @@ class DenseProblem:
     gid_valid: np.ndarray  # [L, N] bool — ancestor exists at that level
     # Per state, list of (include_level, exclude_level) rules.
     rules: dict[int, list[tuple[int, int]]]
+    # Set by encode_problem when it read every source from one map (None:
+    # unknown, and the decode reads every row's source).
+    passthrough: Optional[PassthroughRows] = field(
+        default=None, repr=False, compare=False)
 
     @property
     def P(self) -> int:
@@ -294,12 +314,23 @@ def encode_problem(
 
     Its stages run in the spans ``plan.encode.order`` (the name orders),
     ``plan.encode.prev`` (the [P, S, R] fill) and
-    ``plan.encode.hierarchy`` (the group ids)."""
+    ``plan.encode.hierarchy`` (the group ids).  The counter
+    ``plan.encode.rows_keyed`` counts the rows whose ``prev_map`` entry
+    was found by a hashed lookup rather than in step with the map's own
+    order (recorded only when there are some).  When every source was
+    read from ``partitions_to_assign`` (``prev_map`` is that map, or
+    empty) the problem carries ``passthrough``, the rows whose source
+    the decode must read again."""
     rec = get_recorder()
+    native = _marshal.get()
     with rec.span("plan.encode.order"):
         nodes = list(nodes_all)
         node_index = {n: i for i, n in enumerate(nodes)}
-        partitions = sorted_by_partition_name(partitions_to_assign.keys())
+        # A map the planner wrote is already in partition order: checking
+        # that is one pass, sorting its names is not.
+        partitions = list(partitions_to_assign)
+        if native is None or not native.in_name_order(partitions):
+            partitions = sorted_by_partition_name(partitions)
         states = sort_state_names(model)
         state_index = {s: i for i, s in enumerate(states)}
 
@@ -309,60 +340,60 @@ def encode_problem(
         if opts.model_state_constraints is not None:
             c = opts.model_state_constraints.get(s, c)
         constraints[state_index[s]] = c
+    solved = frozenset(s for s, c in zip(states, constraints.tolist())
+                       if c > 0)
 
+    P, S, N = len(partitions), len(states), len(nodes)
     with rec.span("plan.encode.prev"):
         # Slot depth: enough for the widest constraint and the widest
-        # prev row.
-        r_max = int(constraints.max()) if len(constraints) else 0
-        # The R scan and the [P, S, R] fill each touch every cell once; at
-        # 100k partitions that dict/list traversal dominates the encode, so
-        # both run in the native marshalling layer when it is available
+        # prev row.  One walk of the input map fills prev at the
+        # constraint's depth, finds the widest row and marks the rows
+        # whose source has states for the decode to pass through; at 100k
+        # partitions that dict/list traversal dominates the encode, so it
+        # runs in the native marshalling layer when it is available
         # (native/marshal.c), with this pure-Python path as the fallback.
         # The C fast path is stricter about shapes (real dicts, real
         # lists); any structural surprise raises TypeError there and we
         # fall back to this loop, which tolerates arbitrary
         # Mappings/Sequences.
-        native = _marshal.get()
-        filled = None
+        r_max = max(int(constraints.max()) if S else 0, 1)
+        prev = None
         if native is not None:
             try:
-                r_max = max(r_max, native.max_slots(
-                    partitions, prev_map, partitions_to_assign, state_index))
-                r_max = max(r_max, 1)
-                P, S = len(partitions), len(states)
-                filled = np.empty((P, S, r_max), dtype=np.int32)
-                native.fill_prev(filled, P, S, r_max, partitions,
-                                 prev_map, partitions_to_assign, state_index,
-                                 node_index)
+                prev, marked, keyed = _walk_native(
+                    native, r_max, partitions, prev_map,
+                    partitions_to_assign, state_index, node_index,
+                    (constraints > 0).tobytes())
             except (TypeError, AttributeError):
                 # AttributeError: a None/falsy entry in prev_map reaches
                 # .nodes_by_state in C; the Python loop below tolerates it
                 # via the `or partitions_to_assign[...]` fallthrough.
-                filled = None
-                r_max = int(constraints.max()) if len(constraints) else 0
-        if filled is None:
+                prev = None
+        if prev is None:
             for pname in partitions:
                 src = prev_map.get(pname) or partitions_to_assign[pname]
                 for s, ns in src.nodes_by_state.items():
                     if s in state_index:
                         r_max = max(r_max, len(ns))
-            r_max = max(r_max, 1)
-
-        P, S, N = len(partitions), len(states), len(nodes)
-        if filled is not None:
-            prev = filled
-        else:
             prev = np.full((P, S, r_max), -1, dtype=np.int32)
+            marked, keyed = [], 0
             for pi, pname in enumerate(partitions):
-                src = prev_map.get(pname) or partitions_to_assign.get(pname)
+                src = prev_map.get(pname)
+                keyed += src is not None
+                src = src or partitions_to_assign.get(pname)
                 if src is None:
                     continue
-                for s, ns in src.nodes_by_state.items():
+                nbs = src.nodes_by_state
+                if not nbs.keys() <= solved:
+                    marked.append(pi)
+                for s, ns in nbs.items():
                     si = state_index.get(s)
                     if si is None:
                         continue
                     for ri, node in enumerate(ns[:r_max]):
                         prev[pi, si, ri] = node_index.get(node, -1)
+        if keyed:
+            rec.count("plan.encode.rows_keyed", keyed)
 
     pweights = np.ones(P, dtype=np.float32)
     if opts.partition_weights:
@@ -435,7 +466,31 @@ def encode_problem(
         gids=gids,
         gid_valid=gid_valid,
         rules=rules_by_state,
+        passthrough=(PassthroughRows(partitions_to_assign, partitions,
+                                     solved, marked)
+                     if prev_map is partitions_to_assign or not prev_map
+                     else None),
     )
+
+
+def _walk_native(native: Any, r_min: int, partitions: list[str],
+                 prev_map: PartitionMap, partitions_to_assign: PartitionMap,
+                 state_index: dict[str, int], node_index: dict[str, int],
+                 solved_flags: bytes) -> tuple[NPArray, list[int], int]:
+    """``native.walk_prev`` at depth ``r_min``, and once more at the
+    widest row's depth when some row is wider (an input that holds more
+    copies than its constraint).  Returns (prev, marked rows, prev_map
+    entries found out of step)."""
+    P, S = len(partitions), len(state_index)
+    r_max = r_min
+    while True:
+        prev = np.empty((P, S, r_max), dtype=np.int32)
+        width, marked, keyed = native.walk_prev(
+            prev, P, S, r_max, partitions, prev_map, partitions_to_assign,
+            state_index, node_index, solved_flags)
+        if width <= r_max:
+            return prev, marked, keyed
+        r_max = width
 
 
 def decode_assignment(
@@ -463,6 +518,13 @@ def decode_assignment(
     list building) and the map in ``plan.decode.build``; the counter
     ``plan.decode.rows_trimmed`` counts the rows shorter than their
     state's widest filled row (recorded only when there are some).
+
+    When ``problem.passthrough`` describes ``partitions_to_assign`` (the
+    encode read every source from this very map), the build reads again
+    only the sources of the rows it marked, and counts them as
+    ``plan.decode.passthrough_rows`` (when there are some); otherwise it
+    reads every row's source, as the encode's marks cannot vouch for
+    another map.
     """
     rec = get_recorder()
     if (packed is None) != (counts is None):
@@ -516,7 +578,9 @@ def decode_assignment(
             rec.count("plan.decode.rows_trimmed", trimmed)
 
     # Partitions needing the slow path: source has unmodeled or
-    # zero-constraint states to pass through (rare in practice).
+    # zero-constraint states to pass through (rare in practice).  The
+    # encode marked them when it read every source from this very map;
+    # otherwise every row's source is read here.
     constraints = problem.constraints
     modeled = [
         (si, s) for si, s in enumerate(problem.states)
@@ -526,6 +590,13 @@ def decode_assignment(
     mod_names = [s for _, s in modeled]
     rows_per_state = [per_state_rows[si] for si, _ in modeled]
     removed = nodes_to_remove or []
+    marks = problem.passthrough
+    read_rows = marks.rows if (
+        marks is not None and marks.source is partitions_to_assign
+        and marks.partitions is problem.partitions
+        and marks.solved == solved_states) else None
+    if read_rows:
+        rec.count("plan.decode.passthrough_rows", len(read_rows))
     with rec.span("plan.decode.build"):
         native = _marshal.get()
         next_map = None
@@ -533,7 +604,8 @@ def decode_assignment(
             try:
                 next_map = native.build_map(
                     Partition, problem.partitions, mod_names, rows_per_state,
-                    partitions_to_assign, solved_states, set(removed))
+                    partitions_to_assign, solved_states, set(removed),
+                    read_rows)
             except (TypeError, AttributeError):
                 next_map = None  # structural surprise: pure-Python fallback
         if next_map is None:
@@ -541,8 +613,11 @@ def decode_assignment(
             rows_iter = zip(*rows_per_state) if rows_per_state \
                 else (() for _ in range(P))
             get_src = partitions_to_assign.get
-            for pname, vals in zip(problem.partitions, rows_iter):
-                src = get_src(pname)
+            read = None if read_rows is None else set(read_rows)
+            for pi, (pname, vals) in enumerate(zip(problem.partitions,
+                                                   rows_iter)):
+                src = get_src(pname) if read is None or pi in read \
+                    else None
                 # keys() <= set is a C-level check; the passthrough branch
                 # (source carries unmodeled / zero-constraint states) is rare
                 # in practice.

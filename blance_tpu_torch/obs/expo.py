@@ -78,7 +78,9 @@ _KINDS = ("counter", "gauge", "histogram")
 # the sparse engine the shortlist build and the host dense fallback; the
 # counters count the solver's auction rounds and its deliberate reads of
 # a device value back to the host (plan/tensor.py), the decoded rows
-# trimmed one by one (core/encode.py), the work of each sparse min2
+# trimmed one by one, the encoded rows whose source was found by a
+# hashed lookup and the decoded rows whose source was read again
+# (core/encode.py), the work of each sparse min2
 # call (ops/sparse2.py) and the cells of each score write on the card
 # (ops/score_fused.py).  The counters are
 # declared (the drift guard accepts them) but never rendered, so an
@@ -99,6 +101,8 @@ PORT_ONLY_COUNTERS = (
     "plan.solve.auction_rounds",
     "plan.solve.host_syncs",
     "plan.decode.rows_trimmed",
+    "plan.encode.rows_keyed",
+    "plan.decode.passthrough_rows",
     "ops.sparse_min2.cells",
     "ops.sparse_min2.price_cells",
     "ops.sparse_min2.out_cells",

@@ -107,6 +107,8 @@ def test_the_declared_tuple():
     assert set(PORT_ONLY_COUNTERS) == {"plan.solve.auction_rounds",
                                        "plan.solve.host_syncs",
                                        "plan.decode.rows_trimmed",
+                                       "plan.encode.rows_keyed",
+                                       "plan.decode.passthrough_rows",
                                        *SPARSE_MIN2, *SCORE_WRITE}
 
 
@@ -255,6 +257,16 @@ def test_counters_declared_but_not_rendered():
         _drive("plan_next_map", beg, nodes, model, opts)
         _drive("sparse", beg, nodes, model, opts)
         tencode.decode_assignment(problem, short, beg, [])
+        # A map out of the planner's order, with a state the decode passes
+        # through: its entries are looked up by hash, and the build reads
+        # the marked row's source again.
+        backwards = dict(reversed(beg.items()))
+        first = next(iter(backwards))
+        backwards[first] = bt.Partition(first, {
+            **beg[first].nodes_by_state, "unmodeled": [nodes[0]]})
+        other = tencode.encode_problem(backwards, backwards, nodes, [],
+                                       model, bt.PlanOptions())
+        tencode.decode_assignment(other, other.prev, backwards, [])
     # The score write counts on the card only: counted here by hand, to
     # hold it declared and unrendered with the others.
     assert not SCORE_WRITE & set(rec.counters)
